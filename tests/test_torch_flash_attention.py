@@ -1,0 +1,98 @@
+"""The port's flash attention against the JAX package's Pallas kernel
+(interpret mode) and against full attention, plus the wrapper's dispatch
+rules and, on a CUDA card, the hand-written kernel against its plain
+version.
+
+The JAX package is imported inside the parity test only, so that the
+kernel test also runs where JAX is not installed:
+``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py``
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fedml_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+)
+from fedml_tpu_torch.ops.ring_attention import full_attention
+
+# float32 online softmax vs one-pass softmax: sums in another order; the
+# band of the JAX package's own flash-vs-full test
+F32 = dict(atol=2e-5, rtol=2e-5)
+
+
+def _qkv(shape, seed=0, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape,block", [((2, 64, 2, 8), 16),
+                                         ((2, 80, 4, 32), 80)])
+def test_plain_flash_matches_jax_kernel_and_full(shape, block, causal):
+    import jax.numpy as jnp
+
+    from fedml_tpu.ops.flash_attention import flash_attention as jax_flash
+    from fedml_tpu.ops.ring_attention import full_attention as jax_full
+
+    q, k, v = _qkv(shape)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    expect = np.asarray(jax_flash(jq, jk, jv, causal=causal, block_q=block,
+                                  block_k=block, interpret=True))
+    got = flash_attention_reference(tq, tk, tv, causal, block, block)
+    np.testing.assert_allclose(got.numpy(), expect, **F32)
+    # the CPU wrapper (the kernel's tile of 64, ragged at T = 80) and the
+    # port's full attention compute the same function
+    np.testing.assert_allclose(
+        flash_attention(tq, tk, tv, causal=causal).numpy(), expect, **F32)
+    full = full_attention(tq, tk, tv, causal=causal).numpy()
+    np.testing.assert_allclose(full, expect, **F32)
+    np.testing.assert_allclose(
+        full, np.asarray(jax_full(jq, jk, jv, causal=causal)), **F32)
+
+
+def test_cpu_path_counts_no_launch():
+    q, k, v = (torch.from_numpy(a) for a in _qkv((1, 16, 1, 32)))
+    before = flash_attention.launches
+    flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches == before
+
+
+def test_backward_raises():
+    q, k, v = (torch.from_numpy(a) for a in _qkv((1, 16, 1, 32)))
+    q.requires_grad_(True)
+    out = flash_attention(q, k, v, causal=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        out.sum().backward()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel runs only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,atol", [
+    ((2, 80, 4, 32), torch.float32, 2e-5),
+    ((1, 200, 2, 64), torch.bfloat16, 2e-2),
+    ((2, 130, 2, 128), torch.float16, 2e-3),
+])
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_matches_plain(cuda_device, shape, dtype, atol, causal):
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(shape))
+    # a strided k: the kernel reads [B, T, H, D] through its strides
+    k = k.transpose(1, 2).contiguous().transpose(1, 2)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype
+    # the plain version in float32 from the same low-precision inputs
+    want = flash_attention_reference(q.float(), k.float(), v.float(), causal)
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=atol)

@@ -1,0 +1,78 @@
+"""The port stands alone: it imports neither JAX (nor flax, optax) nor the
+JAX package, and its entry points run on the CPU only when asked."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+from fedml_tpu_torch.config import DataConfig, ExperimentConfig, ModelConfig
+from fedml_tpu_torch.data import load_dataset
+from fedml_tpu_torch.models import create_model
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fedml_tpu")
+SOURCES = sorted((ROOT / "fedml_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_round.py"]
+
+
+def _forbidden(module: str) -> bool:
+    # "fedml_tpu_torch" shares a prefix with "fedml_tpu": compare the
+    # first dotted component, not the string prefix
+    return module.split(".")[0] in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_no_forbidden_import_in_source(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_import_and_forward_load_no_jax():
+    script = """
+import importlib, pkgutil, sys, torch
+import fedml_tpu_torch
+for m in pkgutil.walk_packages(fedml_tpu_torch.__path__, "fedml_tpu_torch."):
+    importlib.import_module(m.name)
+from fedml_tpu_torch.config import ModelConfig
+from fedml_tpu_torch.models import create_model
+model = create_model(ModelConfig(name="transformer_lm", num_classes=37,
+                                 input_shape=(16,)), device="cpu")
+params = model.init(torch.Generator().manual_seed(0))
+logits = model.apply_eval(params, torch.zeros(2, 16, dtype=torch.int32))
+assert logits.shape == (2, 16, 37)
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "fedml_tpu")))
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mcfg = ModelConfig(name="transformer_lm", num_classes=90,
+                       input_shape=(80,))
+    data = load_dataset(DataConfig(dataset="fake_shakespeare",
+                                   num_clients=4))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_model(mcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        data.to_arrays()
+    cfg = ExperimentConfig(model=mcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FedAvgSim(create_model(mcfg, device="cpu"), data, cfg)
+    assert create_model(mcfg, device="cpu").device.type == "cpu"
