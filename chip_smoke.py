@@ -10,12 +10,17 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
 2. Build: every CUDA kernel of the port, from fedml_tpu_torch/csrc, for
    sm_90a (one nvcc per source, all started together).
 3. Kernel vs plain: the flash-attention kernel against its plain PyTorch
-   version, causal and not, at the transformer FedAvg path's shape
+   version, causal and not. First, for correctness only, at its edges
+   (EDGE_CASES): T of 1, 17 and 77, T past one block (130, 200), D of 32
+   (float32), 64 (bfloat16) and 128 (float16), a strided k, a k whose head
+   dim is not contiguous, and q, k, v sliced from one packed QKV tensor,
+   aligned and not. Then, timed, at the transformer FedAvg path's shape
    ([256, 80, 4, 32] float32, atol = rtol = 2e-5) and at a long-context
    shape ([4, 2048, 8, 64] bfloat16, atol 2e-2 against the plain version in
    float32 from the same inputs), with median CUDA-event times of the
    kernel, the plain version and torch's scaled_dot_product_attention (a
-   yardstick only; the port never calls it), and the kernel's bound.
+   yardstick only; the port never calls it), their ratio, and the kernel's
+   bound. scripts/time_torch_flash.py runs phases 1-3 alone.
 4. Main path: FedAvgSim over transformer_lm at create_model's widths on
    fake_shakespeare (20 clients, 10 a round, batch 32, SGD, 3 rounds);
    every train loss must be finite and the last test loss below the
@@ -91,7 +96,88 @@ def attention_bound(shape, dtype, causal) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_vs_plain(shape, dtype, causal, atol, rtol, seed):
+# The kernel's edges, checked for correctness only, causal and not:
+# (shape [B, T, H, D], dtype, atol = rtol, layout of q, k, v). The
+# tolerances are the timed shapes' bands for each type.
+EDGE_CASES = (
+    ((2, 1, 3, 32), torch.float32, 2e-5, "contiguous"),
+    ((2, 17, 3, 32), torch.float32, 2e-5, "contiguous"),
+    ((2, 77, 3, 32), torch.float32, 2e-5, "contiguous"),
+    ((2, 77, 3, 32), torch.float32, 2e-5, "k_strided"),
+    ((2, 77, 3, 32), torch.float32, 2e-5, "k_dim_strided"),
+    ((2, 77, 3, 32), torch.float32, 2e-5, "packed_qkv"),
+    ((2, 77, 3, 32), torch.float32, 2e-5, "packed_qkv_misaligned"),
+    ((1, 200, 2, 64), torch.bfloat16, 2e-2, "k_strided"),
+    ((2, 130, 2, 128), torch.float16, 2e-3, "contiguous"),
+    ((2, 130, 2, 128), torch.float16, 2e-3, "packed_qkv_misaligned"),
+)
+
+
+def edge_inputs(shape, dtype, layout, seed=0, device="cuda"):
+    """q, k, v of ``shape`` in one of EDGE_CASES' layouts:
+
+    - ``contiguous``: three [B, T, H, D] tensors;
+    - ``k_strided``: k stored as [B, H, T, D] and viewed as [B, T, H, D];
+    - ``k_dim_strided``: k stored as [B, T, D, H], so its head dim is not
+      contiguous;
+    - ``packed_qkv``: slices of one [B, T, 3, H, D] tensor, as a fused QKV
+      projection gives them;
+    - ``packed_qkv_misaligned``: the same, one element into its storage, so
+      no row starts on a 16-byte boundary.
+    """
+    b, t, h, d = shape
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*dims):
+        return torch.randn(dims, generator=gen).to(device, dtype)
+
+    if layout.startswith("packed_qkv"):
+        off = int(layout == "packed_qkv_misaligned")
+        packed = rand(b, t, 3 * h * d + off)[..., off:]
+        return packed.reshape(b, t, 3, h, d).unbind(2)
+    q, k, v = rand(*shape), rand(*shape), rand(*shape)
+    if layout == "k_strided":
+        k = k.transpose(1, 2).contiguous().transpose(1, 2)
+    elif layout == "k_dim_strided":
+        k = k.transpose(2, 3).contiguous().transpose(2, 3)
+    elif layout != "contiguous":
+        raise ValueError(f"unknown layout {layout!r}")
+    return q, k, v
+
+
+def check_kernel(q, k, v, causal, atol, rtol) -> float:
+    """The kernel against its plain version in float32 from the same
+    inputs; returns the largest absolute error and raises outside the
+    band."""
+    from fedml_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if got.shape != q.shape or got.dtype != q.dtype:
+        raise RuntimeError(f"kernel output {got.shape} {got.dtype} for "
+                           f"input {q.shape} {q.dtype}")
+    want = flash_attention_reference(q.float(), k.float(), v.float(), causal)
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+    return (got.float() - want).abs().max().item()
+
+
+def edge_checks():
+    for shape, dtype, atol, layout in EDGE_CASES:
+        q, k, v = edge_inputs(shape, dtype, layout)
+        for causal in (False, True):
+            err = check_kernel(q, k, v, causal, atol, atol)
+            print(json.dumps({"flash_attention_edge": {
+                "shape": list(shape),
+                "dtype": str(dtype).replace("torch.", ""), "layout": layout,
+                "causal": causal, "max_abs_err": err, "atol": atol}}),
+                flush=True)
+
+
+def kernel_vs_plain(shape, dtype, causal, atol, rtol, seed,
+                    time_plain: bool = True):
     from fedml_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_reference,
@@ -100,26 +186,64 @@ def kernel_vs_plain(shape, dtype, causal, atol, rtol, seed):
     gen = torch.Generator().manual_seed(seed)
     q, k, v = (torch.randn(shape, generator=gen).to("cuda", dtype)
                for _ in range(3))
-    got = flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    want = flash_attention_reference(q.float(), k.float(), v.float(), causal)
-    err = (got.float() - want).abs().max().item()
-    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+    err = check_kernel(q, k, v, causal, atol, rtol)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     bound, bound_by = attention_bound(shape, dtype, causal)
+    ms = median_ms(lambda: flash_attention(q, k, v, causal=causal))
+    library_ms = median_ms(lambda: sdpa(qt, kt, vt, is_causal=causal))
     row = {
         "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
-        "causal": causal, "max_abs_err": err,
-        "ms": median_ms(lambda: flash_attention(q, k, v, causal=causal)),
+        "causal": causal, "max_abs_err": err, "ms": ms,
         "plain_ms": median_ms(
             lambda: flash_attention_reference(q, k, v, causal), reps=5,
-            inner=2),
-        "library_ms": median_ms(lambda: sdpa(qt, kt, vt, is_causal=causal)),
+            inner=2) if time_plain else None,
+        "library_ms": library_ms, "library_ratio": ms / library_ms,
         "bound_ms": bound, "bound_by": bound_by,
     }
     print(json.dumps({"flash_attention_check": row}), flush=True)
     return row
+
+
+def environment() -> str:
+    """Phase 1: prints the card, the versions and the TF32 setting;
+    returns the card's name and power limit."""
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off for float32 matmul and cuDNN", flush=True)
+    return card
+
+
+def build_kernels():
+    """Phase 2: builds every kernel and prints ptxas's report."""
+    from fedml_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    reports = build.build_all()
+    print(f"built {sorted(reports)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name, report in reports.items():
+        lines = [ln for ln in report.splitlines() if "ptxas info" in ln
+                 or "spill" in ln]
+        print(f"{name} ptxas:\n" + "\n".join(lines), flush=True)
+
+
+def kernel_checks(time_plain: bool = True) -> list[dict]:
+    """Phase 3: the edges, then the timed shapes; returns the timed rows."""
+    edge_checks()
+    rows = []
+    for causal in (False, True):
+        rows.append(kernel_vs_plain(MAIN_SHAPE, torch.float32, causal,
+                                    2e-5, 2e-5, seed=0,
+                                    time_plain=time_plain))
+        rows.append(kernel_vs_plain(LONG_SHAPE, torch.bfloat16, causal,
+                                    2e-2, 0.0, seed=1,
+                                    time_plain=time_plain))
+    return rows
 
 
 def smoke_config():
@@ -223,34 +347,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs an NVIDIA card",
               file=sys.stderr)
         return 1
-    from fedml_tpu_torch.ops import build
-
-    # 1. environment
-    card = card_line()
-    print(card, flush=True)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"python {sys.version.split()[0]}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("TF32 off for float32 matmul and cuDNN", flush=True)
-
-    # 2. build
-    t0 = time.perf_counter()
-    reports = build.build_all()
-    print(f"built {sorted(reports)} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    for name, report in reports.items():
-        lines = [ln for ln in report.splitlines() if "ptxas info" in ln
-                 or "spill" in ln]
-        print(f"{name} ptxas:\n" + "\n".join(lines), flush=True)
-
-    # 3. kernel vs plain
-    rows = []
-    for causal in (False, True):
-        rows.append(kernel_vs_plain(MAIN_SHAPE, torch.float32, causal,
-                                    2e-5, 2e-5, seed=0))
-        rows.append(kernel_vs_plain(LONG_SHAPE, torch.bfloat16, causal,
-                                    2e-2, 0.0, seed=1))
+    card = environment()
+    build_kernels()
+    rows = kernel_checks()
 
     # 4-5. the main path, and the kernel's launches on it
     launches = main_path()
@@ -266,8 +365,9 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in rows
                            if r["dtype"] == "float32"),
         **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms", "shape",
-                                    "dtype", "causal")},
+                                    "bound_by", "library_ms",
+                                    "library_ratio", "shape", "dtype",
+                                    "causal")},
     }
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(card, flush=True)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import EDGE_CASES, edge_inputs
 from fedml_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
@@ -30,7 +31,8 @@ def _qkv(shape, seed=0, dtype=np.float32):
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("shape,block", [((2, 64, 2, 8), 16),
-                                         ((2, 80, 4, 32), 80)])
+                                         ((2, 80, 4, 32), 80),
+                                         ((2, 80, 4, 32), 16)])
 def test_plain_flash_matches_jax_kernel_and_full(shape, block, causal):
     import jax.numpy as jnp
 
@@ -44,8 +46,8 @@ def test_plain_flash_matches_jax_kernel_and_full(shape, block, causal):
                                   block_k=block, interpret=True))
     got = flash_attention_reference(tq, tk, tv, causal, block, block)
     np.testing.assert_allclose(got.numpy(), expect, **F32)
-    # the CPU wrapper (the kernel's tile of 64, ragged at T = 80) and the
-    # port's full attention compute the same function
+    # the CPU wrapper (the plain version's default tile of 64, ragged at
+    # T = 80) and the port's full attention compute the same function
     np.testing.assert_allclose(
         flash_attention(tq, tk, tv, causal=causal).numpy(), expect, **F32)
     full = full_attention(tq, tk, tv, causal=causal).numpy()
@@ -77,17 +79,17 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype,atol", [
-    ((2, 80, 4, 32), torch.float32, 2e-5),
-    ((1, 200, 2, 64), torch.bfloat16, 2e-2),
-    ((2, 130, 2, 128), torch.float16, 2e-3),
+@pytest.mark.parametrize("shape,dtype,atol,layout", [
+    ((2, 80, 4, 32), torch.float32, 2e-5, "k_strided"),
+    ((2, 130, 2, 128), torch.float16, 2e-3, "k_strided"),
+    *EDGE_CASES,  # ragged T, T past one block, packed and misaligned QKV
 ])
 @pytest.mark.parametrize("causal", [False, True])
-def test_kernel_matches_plain(cuda_device, shape, dtype, atol, causal):
-    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
-               for a in _qkv(shape))
-    # a strided k: the kernel reads [B, T, H, D] through its strides
-    k = k.transpose(1, 2).contiguous().transpose(1, 2)
+def test_kernel_matches_plain(cuda_device, shape, dtype, atol, layout,
+                              causal):
+    # the kernel reads [B, T, H, D] through its strides: 16 bytes at a time
+    # where the layout allows it, one element at a time elsewhere
+    q, k, v = edge_inputs(shape, dtype, layout, device=cuda_device)
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()

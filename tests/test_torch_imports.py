@@ -17,7 +17,8 @@ from fedml_tpu_torch.models import create_model
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fedml_tpu")
 SOURCES = sorted((ROOT / "fedml_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_round.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_round.py",
+    ROOT / "scripts" / "time_torch_flash.py"]
 
 
 def _forbidden(module: str) -> bool:
