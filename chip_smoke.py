@@ -8,19 +8,26 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
 1. Environment: the card's name and power limit, torch and CUDA versions;
    TF32 is switched off for float32 matrix products and convolutions.
 2. Build: every CUDA kernel of the port, from fedml_tpu_torch/csrc, for
-   sm_90a (one nvcc per source, all started together).
-3. Kernel vs plain: the flash-attention kernel against its plain PyTorch
-   version, causal and not. First, for correctness only, at its edges
-   (EDGE_CASES): T of 1, 17 and 77, T past one block (130, 200), D of 32
-   (float32), 64 (bfloat16) and 128 (float16), a strided k, a k whose head
-   dim is not contiguous, and q, k, v sliced from one packed QKV tensor,
-   aligned and not. Then, timed, at the transformer FedAvg path's shape
-   ([256, 80, 4, 32] float32, atol = rtol = 2e-5) and at a long-context
-   shape ([4, 2048, 8, 64] bfloat16, atol 2e-2 against the plain version in
-   float32 from the same inputs), with median CUDA-event times of the
-   kernel, the plain version and torch's scaled_dot_product_attention (a
-   yardstick only; the port never calls it), their ratio, and the kernel's
-   bound. scripts/time_torch_flash.py runs phases 1-3 alone.
+   sm_90a (one nvcc per source, all started together), with ptxas's
+   registers and spills for every instance; then cuobjdump's SASS must
+   show tensor-core instructions (HMMA) in each bf16 and fp16 instance of
+   flash_fwd_mma_kernel, and flash_fwd_kernel (the FP32-core body) must
+   exist for float32 only.
+3. Kernel vs plain: the flash-attention kernels against their plain
+   PyTorch version, causal and not. First, for correctness only, at their
+   edges (EDGE_CASES): T of 1, 17, 77 and 80, T past one block (130, 200,
+   300), D of 32 (float32), 32, 64 and 128 (bfloat16) and 64 and 128
+   (float16), a strided k, a k whose head dim is not contiguous, and q,
+   k, v sliced from one packed QKV tensor, aligned and not. Then, timed,
+   at the transformer FedAvg path's shape ([256, 80, 4, 32] float32,
+   atol = rtol = 2e-5, and bfloat16) and at long context ([4, 2048, 8,
+   64] bfloat16 and float16, [4, 2048, 8, 128] bfloat16), each 16-bit row
+   against the plain version in float32 from the same inputs (bfloat16
+   atol 2e-2, rtol 0; float16 atol = rtol = 2e-3), with median CUDA-event
+   times of the kernel, the plain version and torch's
+   scaled_dot_product_attention (a yardstick only; the port never calls
+   it), their ratio, and the kernel's bound. scripts/time_torch_flash.py
+   runs phases 1-3 alone.
 4. Main path: FedAvgSim over transformer_lm at create_model's widths on
    fake_shakespeare (20 clients, 10 a round, batch 32, SGD, 3 rounds);
    every train loss must be finite and the last test loss below the
@@ -29,15 +36,21 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    build_evaluator twice, with full attention and with flash attention on
    the same weights; the losses must agree within 1e-4 relative and the
    accuracies within 1e-4, and the kernel's launch count over phases 4-5
-   must be above 0.
-6. A "kernels" JSON line, the card's name and power limit, and last the
-   result line {"ok": true, "device": {...}}.
+   must be above 0. The main path runs float32 only, so the tensor-core
+   kernel's launch count there is 0, and the report says so.
+6. A "kernels" JSON line with one entry per kernel (flash_attention, the
+   float32 body, and flash_attention_mma, the bf16/fp16 body), the card's
+   name and power limit, and last the result line
+   {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -53,6 +66,7 @@ PEAK_FLOPS = {  # H100 SXM dense peaks
 }
 MAIN_SHAPE = (256, 80, 4, 32)  # eval batch 256, T 80, 4 heads of 32
 LONG_SHAPE = (4, 2048, 8, 64)
+WIDE_SHAPE = (4, 2048, 8, 128)  # the register-hungry 16-bit instance
 
 
 def card_line() -> str:
@@ -110,6 +124,15 @@ EDGE_CASES = (
     ((1, 200, 2, 64), torch.bfloat16, 2e-2, "k_strided"),
     ((2, 130, 2, 128), torch.float16, 2e-3, "contiguous"),
     ((2, 130, 2, 128), torch.float16, 2e-3, "packed_qkv_misaligned"),
+    # the tensor-core body: T that fills no tile, T past one and two tiles,
+    # and the scalar load path (a head dim with a stride, rows off 16 bytes)
+    ((2, 80, 3, 32), torch.bfloat16, 2e-2, "contiguous"),
+    ((1, 200, 2, 32), torch.bfloat16, 2e-2, "contiguous"),
+    ((2, 1, 3, 64), torch.float16, 2e-3, "contiguous"),
+    ((2, 77, 3, 64), torch.float16, 2e-3, "contiguous"),
+    ((1, 300, 2, 128), torch.bfloat16, 2e-2, "contiguous"),
+    ((2, 77, 3, 64), torch.bfloat16, 2e-2, "k_dim_strided"),
+    ((2, 77, 3, 64), torch.bfloat16, 2e-2, "packed_qkv_misaligned"),
 )
 
 
@@ -177,7 +200,8 @@ def edge_checks():
 
 
 def kernel_vs_plain(shape, dtype, causal, atol, rtol, seed,
-                    time_plain: bool = True):
+                    time_plain: bool = True, plain_reps: int = 5,
+                    plain_inner: int = 2):
     from fedml_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_reference,
@@ -196,8 +220,8 @@ def kernel_vs_plain(shape, dtype, causal, atol, rtol, seed,
         "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
         "causal": causal, "max_abs_err": err, "ms": ms,
         "plain_ms": median_ms(
-            lambda: flash_attention_reference(q, k, v, causal), reps=5,
-            inner=2) if time_plain else None,
+            lambda: flash_attention_reference(q, k, v, causal),
+            reps=plain_reps, inner=plain_inner) if time_plain else None,
         "library_ms": library_ms, "library_ratio": ms / library_ms,
         "bound_ms": bound, "bound_by": bound_by,
     }
@@ -219,7 +243,8 @@ def environment() -> str:
 
 
 def build_kernels():
-    """Phase 2: builds every kernel and prints ptxas's report."""
+    """Phase 2: builds every kernel, prints ptxas's report and checks the
+    flash library's SASS."""
     from fedml_tpu_torch.ops import build
 
     t0 = time.perf_counter()
@@ -230,10 +255,51 @@ def build_kernels():
         lines = [ln for ln in report.splitlines() if "ptxas info" in ln
                  or "spill" in ln]
         print(f"{name} ptxas:\n" + "\n".join(lines), flush=True)
+    check_sass(build)
+
+
+# a flash kernel's mangled name: body, element type, head dim
+_KERNEL_NAME = re.compile(
+    r"(flash_fwd_(?:mma_)?kernel)I(f|13__nv_bfloat16|6__half)Li(\d+)E")
+_TYPE_NAMES = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
+
+
+def check_sass(build):
+    """Counts the tensor-core instructions (HMMA) of each flash kernel
+    instance in the built library; raises unless every bf16 and fp16
+    instance is flash_fwd_mma_kernel with HMMA in it and flash_fwd_kernel
+    is instantiated for float32 alone."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [tool, "-sass", str(build._target("flash_attention"))],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    hmma, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = _KERNEL_NAME.search(line)
+            current = (f"{found[1]}<{_TYPE_NAMES[found[2]]}, {found[3]}>"
+                       if found else None)
+            if current:
+                hmma[current] = 0
+        elif current and "HMMA" in line:
+            hmma[current] += 1
+    print(json.dumps({"flash_attention_sass_hmma": hmma}), flush=True)
+    want = {f"flash_fwd_kernel<float, {d}>" for d in (32, 64, 128)} | {
+        f"flash_fwd_mma_kernel<{t}, {d}>" for t in ("bf16", "fp16")
+        for d in (32, 64, 128)}
+    if set(hmma) != want:
+        raise RuntimeError(f"flash kernel instances {sorted(hmma)}, "
+                           f"expected {sorted(want)}")
+    idle = [k for k, n in hmma.items() if "mma" in k and n == 0]
+    if idle:
+        raise RuntimeError(f"no HMMA instruction in {idle}")
 
 
 def kernel_checks(time_plain: bool = True) -> list[dict]:
-    """Phase 3: the edges, then the timed shapes; returns the timed rows."""
+    """Phase 3: the edges, then the timed shapes; returns the timed rows.
+    The rows added for the tensor-core kernel time the plain version with
+    3 single calls, to keep the phase short."""
     edge_checks()
     rows = []
     for causal in (False, True):
@@ -243,6 +309,14 @@ def kernel_checks(time_plain: bool = True) -> list[dict]:
         rows.append(kernel_vs_plain(LONG_SHAPE, torch.bfloat16, causal,
                                     2e-2, 0.0, seed=1,
                                     time_plain=time_plain))
+    for shape, dtype, atol, rtol in (
+            (LONG_SHAPE, torch.float16, 2e-3, 2e-3),
+            (WIDE_SHAPE, torch.bfloat16, 2e-2, 0.0),
+            (MAIN_SHAPE, torch.bfloat16, 2e-2, 0.0)):
+        for causal in (False, True):
+            rows.append(kernel_vs_plain(shape, dtype, causal, atol, rtol,
+                                        seed=2, time_plain=time_plain,
+                                        plain_reps=3, plain_inner=1))
     return rows
 
 
@@ -299,6 +373,7 @@ def main_path(device: str = "cuda"):
     init_eval = sim.evaluate_global(sim.init())
 
     flash_attention.launches = 0
+    flash_attention.mma_launches = 0
     t0 = time.perf_counter()
     sink = MetricsSink()
     state = sim.run(metrics_sink=sink)
@@ -310,7 +385,8 @@ def main_path(device: str = "cuda"):
         state.variables, sim.arrays.test_x, sim.arrays.test_y)
     flash_eval = {k: float(v) for k, v in flash_eval.items()}
     t_flash_eval = time.perf_counter() - t1
-    launches = flash_attention.launches
+    launches = flash_attention.launches - flash_attention.mma_launches
+    mma_launches = flash_attention.mma_launches
 
     t2 = time.perf_counter()
     full_eval = sim.evaluate_global(state)
@@ -323,6 +399,7 @@ def main_path(device: str = "cuda"):
         "init_test_loss": init_eval["loss"], "full_eval": full_eval,
         "flash_eval": flash_eval, "seconds_flash_eval": t_flash_eval,
         "seconds_full_eval": t_full_eval, "flash_launches": launches,
+        "flash_mma_launches": mma_launches,
     }}), flush=True)
 
     losses = [rec["train_loss"] for rec in sink.history]
@@ -334,12 +411,32 @@ def main_path(device: str = "cuda"):
             f"{sink.history[-1]['test_loss']}")
     if launches <= 0:
         raise RuntimeError("the main path never launched the flash kernel")
+    if mma_launches != 0:
+        raise RuntimeError(f"the float32 main path launched the 16-bit "
+                           f"kernel {mma_launches} times")
     if abs(flash_eval["loss"] - full_eval["loss"]) > 1e-4 * abs(
             full_eval["loss"]):
         raise RuntimeError(f"flash eval {flash_eval} != full {full_eval}")
     if abs(flash_eval["acc"] - full_eval["acc"]) > 1e-4:
         raise RuntimeError(f"flash eval {flash_eval} != full {full_eval}")
-    return launches
+    return launches, mma_launches
+
+
+def kernel_entry(name, source, launches, rows, row, note=None) -> dict:
+    """One entry of the "kernels" line: the timed ``row``'s numbers, and
+    the largest error over ``rows``."""
+    entry = {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": "fedml_tpu/ops/flash_attention.py:119",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "library_ratio", "shape",
+                               "dtype", "causal")},
+    }
+    if note:
+        entry["note"] = note
+    return entry
 
 
 def main() -> int:
@@ -351,25 +448,25 @@ def main() -> int:
     build_kernels()
     rows = kernel_checks()
 
-    # 4-5. the main path, and the kernel's launches on it
-    launches = main_path()
+    # 4-5. the main path, and the kernels' launches on it
+    launches, mma_launches = main_path()
 
-    # 6. report: the entry's times are at the main path's own shape
-    main_row = next(r for r in rows if r["causal"]
-                    and r["shape"] == list(MAIN_SHAPE))
-    entry = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "fedml_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "fedml_tpu/ops/flash_attention.py:119",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if r["dtype"] == "float32"),
-        **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms",
-                                    "library_ratio", "shape", "dtype",
-                                    "causal")},
-    }
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    # 6. report: the float32 entry's times are at the main path's own
+    # shape, the tensor-core entry's at long context in bf16
+    source = "fedml_tpu_torch/csrc/flash_attention.cu"
+    f32 = [r for r in rows if r["dtype"] == "float32"]
+    half = [r for r in rows if r["dtype"] != "float32"]
+    print(json.dumps({"kernels": [
+        kernel_entry("flash_attention", source, launches, f32, next(
+            r for r in f32 if r["causal"]
+            and r["shape"] == list(MAIN_SHAPE))),
+        kernel_entry(
+            "flash_attention_mma", source, mma_launches, half, next(
+                r for r in half if r["causal"] and r["dtype"] == "bfloat16"
+                and r["shape"] == list(LONG_SHAPE)),
+            note="bf16/fp16 only: the main path evaluates in float32, so "
+                 "it launches this kernel 0 times"),
+    ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/kernels/`` at the
 repository root, then loaded with ``ctypes``. A library's file name carries
-a hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. :func:`build_all` starts one ``nvcc`` per
+a hash of its source, of every header in ``csrc`` (``*.cuh``, ``*.h``) and
+of the flags, so an edited source or header is rebuilt and an unchanged one
+is loaded as it is. :func:`build_all` starts one ``nvcc`` per
 source, all at once.
 """
 
@@ -44,9 +45,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    headers = sorted([*CSRC.glob("*.cuh"), *CSRC.glob("*.h")])
+    for header in headers:  # any of them may be included
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:

@@ -11,7 +11,10 @@ on the H100 and what its design does about that.
 
 Unlike the Pallas kernel, T need not divide by the tile: the kernel masks
 the ragged edge (the Shakespeare task runs at T = 80). Inputs may be
-float32, bfloat16 or float16 with D in {32, 64, 128}.
+float32, bfloat16 or float16 with D in {32, 64, 128}. The library holds
+two kernels behind one C function: float32 runs on the FP32 cores, and
+bfloat16 and float16 run on the tensor cores, with the probabilities
+rounded to the input type before the ``p v`` product.
 
 Dispatch: a CPU tensor goes to :func:`flash_attention_reference`; a CUDA
 tensor goes to the kernel, or the call raises. Like the Pallas kernel,
@@ -127,6 +130,8 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: {msg}")
     flash_attention.launches += 1
+    if q.dtype != torch.float32:
+        flash_attention.mma_launches += 1
     return out
 
 
@@ -148,8 +153,10 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = False) -> torch.Tensor:
     """``[B, T, H, D]`` attention through the flash kernel (CUDA tensors)
     or its plain version (CPU tensors). ``flash_attention.launches``
-    counts the kernel's launches."""
+    counts the kernels' launches, ``flash_attention.mma_launches`` those
+    of the tensor-core kernel (bfloat16 and float16 inputs) among them."""
     return _FlashAttention.apply(q, k, v, causal)
 
 
 flash_attention.launches = 0
+flash_attention.mma_launches = 0

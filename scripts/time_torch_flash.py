@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Checks and times the port's flash-attention kernel on one NVIDIA card.
+"""Checks and times the port's flash-attention kernels on one NVIDIA card.
 
     python3 scripts/time_torch_flash.py
 
 Runs phases 1-3 of chip_smoke.py and nothing else: the card and versions,
-the build of every kernel with ptxas's report (registers, spills), the
-kernel against its plain version at chip_smoke's edge shapes, and the
-kernel, SDPA and the bound at chip_smoke's two timed shapes. It calls
+the build of every kernel with ptxas's report (registers, spills) and the
+SASS check (HMMA in every bf16/fp16 instance), the kernels against their
+plain version at chip_smoke's edge shapes, and the kernel, SDPA and the
+bound at chip_smoke's timed shapes (float32, and bf16/fp16 on the tensor
+cores). It calls
 chip_smoke's own functions, so the timing and the bound are computed in
 one place, and prints the same JSON lines. It leaves out what makes a
 chip_smoke run long: the plain version's timing (``plain_ms`` is null) and

@@ -56,11 +56,39 @@ def test_plain_flash_matches_jax_kernel_and_full(shape, block, causal):
         full, np.asarray(jax_full(jq, jk, jv, causal=causal)), **F32)
 
 
+# Both compute in float32 from the same 16-bit inputs and round once, at
+# the end, to the input type, so they differ by at most about one output
+# ulp of that type (bf16: 2^-7 = 7.8e-3 at 1; fp16: 2^-10 = 9.8e-4 at 1),
+# where the float32 sums fall on two sides of a rounding boundary.
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 8e-3),
+                                       (torch.float16, 1e-3)])
+def test_plain_flash_16bit_matches_jax_kernel(dtype, tol, causal):
+    import jax.numpy as jnp
+
+    from fedml_tpu.ops.flash_attention import flash_attention as jax_flash
+
+    jdtype = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
+    q, k, v = _qkv((2, 32, 2, 16), seed=3)
+    jq, jk, jv = (jnp.asarray(a).astype(jdtype[dtype]) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+    # both frameworks round the float32 draws to the same 16-bit inputs
+    np.testing.assert_array_equal(
+        np.asarray(jq.astype(jnp.float32)), tq.float().numpy())
+    expect = jax_flash(jq, jk, jv, causal=causal, interpret=True)
+    got = flash_attention_reference(tq, tk, tv, causal)
+    assert got.dtype == dtype and expect.dtype == jdtype[dtype]
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(expect.astype(jnp.float32)),
+        atol=tol, rtol=tol)
+
+
 def test_cpu_path_counts_no_launch():
     q, k, v = (torch.from_numpy(a) for a in _qkv((1, 16, 1, 32)))
-    before = flash_attention.launches
+    before = flash_attention.launches, flash_attention.mma_launches
     flash_attention(q, k, v, causal=True)
-    assert flash_attention.launches == before
+    flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), causal=True)
+    assert (flash_attention.launches, flash_attention.mma_launches) == before
 
 
 def test_backward_raises():
@@ -87,13 +115,16 @@ def cuda_device():
 @pytest.mark.parametrize("causal", [False, True])
 def test_kernel_matches_plain(cuda_device, shape, dtype, atol, layout,
                               causal):
-    # the kernel reads [B, T, H, D] through its strides: 16 bytes at a time
-    # where the layout allows it, one element at a time elsewhere
+    # the kernels read [B, T, H, D] through their strides: 16 bytes at a
+    # time where the layout allows it, one element at a time elsewhere
     q, k, v = edge_inputs(shape, dtype, layout, device=cuda_device)
-    before = flash_attention.launches
+    before = flash_attention.launches, flash_attention.mma_launches
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    # float32 runs the FP32-core kernel, bf16 and fp16 the tensor-core one
+    tensor_cores = int(dtype != torch.float32)
+    assert (flash_attention.launches, flash_attention.mma_launches) == (
+        before[0] + 1, before[1] + tensor_cores)
     assert got.dtype == dtype
     # the plain version in float32 from the same low-precision inputs
     want = flash_attention_reference(q.float(), k.float(), v.float(), causal)
