@@ -38,9 +38,28 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    accuracies within 1e-4, and the kernel's launch count over phases 4-5
    must be above 0. The main path runs float32 only, so the tensor-core
    kernel's launch count there is 0, and the report says so.
-6. A "kernels" JSON line with one entry per kernel (flash_attention, the
-   float32 body, and flash_attention_mma, the bf16/fp16 body), the card's
-   name and power limit, and last the result line
+6. The ResNet-56 main path, the reference's headline (bench.py
+   build_sim): FedAvgSim over resnet56 (BatchNorm, bf16 compute, float32
+   master weights and statistics) on fake_cifar10, 100 clients, hetero
+   LDA alpha 0.5, batch 32, SGD lr 0.03, 1 epoch, 10 clients a round, 3
+   rounds with a global evaluation after each. Every loss must be finite,
+   the returned parameters and statistics float32, and the last test loss
+   below the initial model's. It launches no hand-written kernel (its
+   convolutions, BatchNorm and GEMMs are torch ops on cuDNN and cuBLAS),
+   and the flash counters, set to 0 before it, must read 0 after it. Then
+   float32 local updates (real steps, in the batch order round 0 gave
+   them) run on the card and on the CPU from the same weights, TF32 off:
+   the first step of the cohort's largest client must agree within
+   RESNET_PARITY (atol = rtol = 1e-3) in parameters and statistics, and
+   all its steps, chaotic in float32 past the first, within SPREAD_FACTOR
+   times the CPU's own spread under a one-rounding perturbation of the
+   start.
+   It prints a "resnet56_main_path" line (its seconds are a one-sample
+   smoke figure, not a metric).
+7. A "kernels" JSON line with one entry per kernel (flash_attention, the
+   float32 body, and flash_attention_mma, the bf16/fp16 body), with each
+   kernel's launches on the transformer path and on the ResNet-56 path,
+   the card's name and power limit, and last the result line
    {"ok": true, "device": {...}}.
 """
 
@@ -67,6 +86,17 @@ PEAK_FLOPS = {  # H100 SXM dense peaks
 MAIN_SHAPE = (256, 80, 4, 32)  # eval batch 256, T 80, 4 heads of 32
 LONG_SHAPE = (4, 2048, 8, 64)
 WIDE_SHAPE = (4, 2048, 8, 128)  # the register-hungry 16-bit instance
+# card vs CPU, float32 local updates of ResNet-56 (TF32 off). One step
+# from the same weights: only the order of the sums differs, held at
+# RESNET_PARITY. Past one step at lr 0.03 from a random init the update
+# is chaotic in float32: perturbing the starting weights by PERTURB (one
+# float32 rounding) moves the parameters after 2-3 steps by as much as
+# the update itself, on the CPU as on the card. A multi-step update is
+# therefore held against the CPU's own spread under that perturbation:
+# card vs CPU at most SPREAD_FACTOR times CPU vs perturbed CPU.
+RESNET_PARITY = dict(atol=1e-3, rtol=1e-3)
+PERTURB = 1e-7
+SPREAD_FACTOR = 4.0
 
 
 def card_line() -> str:
@@ -422,13 +452,177 @@ def main_path(device: str = "cuda"):
     return launches, mma_launches
 
 
-def kernel_entry(name, source, launches, rows, row, note=None) -> dict:
-    """One entry of the "kernels" line: the timed ``row``'s numbers, and
-    the largest error over ``rows``."""
+def resnet_config():
+    """bench.py's headline configuration (build_sim), cut to 3 rounds with
+    an evaluation after each."""
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+
+    return ExperimentConfig(
+        data=DataConfig(dataset="fake_cifar10", num_clients=100,
+                        partition_method="hetero", partition_alpha=0.5,
+                        batch_size=32, seed=0),
+        model=ModelConfig(name="resnet56", num_classes=10,
+                          input_shape=(32, 32, 3)),
+        train=TrainConfig(lr=0.03, epochs=1, compute_dtype="bfloat16",
+                          scan_unroll=64, cohort_groups=5),
+        fed=FedConfig(num_rounds=3, clients_per_round=10, eval_every=1),
+        seed=0,
+    )
+
+
+class UpdateRig:
+    """Float32 local updates of ``cfg``'s model on the card and on the
+    CPU (TF32 off), from start variables the caller gives, each client in
+    the batch order round 0 drew for it."""
+
+    def __init__(self, cfg, data):
+        import dataclasses
+
+        from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+        from fedml_tpu_torch.models import create_model
+
+        f32 = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, compute_dtype="float32"))
+        self.sims = {dev: FedAvgSim(create_model(f32.model, dev), data, f32,
+                                    dev) for dev in ("cuda", "cpu")}
+        self.stat_names = set(self.sims["cpu"].model.stat_names)
+        self.batch_size = f32.data.batch_size
+        self.epochs = f32.train.epochs
+        self.counts = self.sims["cpu"].arrays.counts
+        self.cohort = self.sims["cuda"].sampler(
+            0, len(self.counts), f32.fed.clients_per_round).tolist()
+
+    def steps(self, c: int) -> int:
+        return -(-int(self.counts[c]) // self.batch_size) * self.epochs
+
+    def update(self, dev, start, c, first_step_only=False) -> dict:
+        """Client ``c``'s local update on ``dev`` from ``start``, all its
+        real steps or only its first one; the result on the CPU."""
+        b = self.sims[dev].arrays
+        orders = [o.to(dev) for o in self.sims["cuda"].batch_orders(0, c)]
+        mask = b.mask[c]
+        if first_step_only:  # only the first batch's rows are real
+            first = orders[0][:self.batch_size]
+            mask = torch.zeros_like(mask).index_copy(0, first, mask[first])
+            orders = orders[:1]
+        out, _, _ = self.sims[dev].local_update(
+            {k: v.to(dev) for k, v in start.items()}, b.idx[c], mask, b.x,
+            b.y, orders)
+        return {k: v.cpu() for k, v in out.items()}
+
+    def perturbed(self, variables) -> dict:
+        """``variables`` with every parameter scaled by 1 + PERTURB x a
+        standard normal draw (about one float32 rounding), seeded."""
+        gen = torch.Generator().manual_seed(0)
+        return {k: v if k in self.stat_names else v.cpu() * (
+            1 + PERTURB * torch.randn(v.shape, generator=gen))
+            for k, v in variables.items()}
+
+    def max_err(self, x, y) -> dict:
+        err = {"params": 0.0, "stats": 0.0}
+        for k in x:
+            kind = "stats" if k in self.stat_names else "params"
+            err[kind] = max(err[kind], (x[k] - y[k]).abs().max().item())
+        return err
+
+
+def resnet_cpu_parity(cfg, data, variables) -> dict:
+    """Float32 local updates of ResNet-56 on the card and on the CPU from
+    the same ``variables`` for the largest client of round 0's cohort: its
+    first step alone must agree within RESNET_PARITY, and all its real
+    steps within SPREAD_FACTOR times the CPU's own spread under a PERTURB
+    relative change of the starting parameters. Raises otherwise."""
+    rig = UpdateRig(cfg, data)
+    c = max(rig.cohort, key=lambda i: int(rig.counts[i]))
+    t0 = time.perf_counter()
+    got, want = (rig.update(dev, variables, c, first_step_only=True)
+                 for dev in ("cuda", "cpu"))
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], **RESNET_PARITY)
+    report = {"client": c, "samples": int(rig.counts[c]), "first_step": {
+        "card_vs_cpu": rig.max_err(got, want), **RESNET_PARITY}}
+    got, want = rig.update("cuda", variables, c), rig.update("cpu",
+                                                             variables, c)
+    row = {"steps": rig.steps(c), "card_vs_cpu": rig.max_err(got, want),
+           "cpu_vs_perturbed_cpu": rig.max_err(
+               want, rig.update("cpu", rig.perturbed(variables), c)),
+           "spread_factor": SPREAD_FACTOR}
+    for kind, err in row["card_vs_cpu"].items():
+        if err > SPREAD_FACTOR * row["cpu_vs_perturbed_cpu"][kind]:
+            raise RuntimeError(f"card vs CPU {kind} error {err} is past "
+                               f"{SPREAD_FACTOR}x the CPU's spread: {row}")
+    report["all_steps"] = row
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+def resnet_main_path(card: str) -> int:
+    """Phase 6: FedAvg rounds of ResNet-56 at the headline configuration,
+    then the card-vs-CPU parity of one local update. Returns the flash
+    kernels' launches in this phase (0: the path has no attention)."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.metrics import MetricsSink
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+
+    cfg = resnet_config()
+    data = load_dataset(cfg.data)
+    sim = FedAvgSim(create_model(cfg.model), data, cfg)
+    init_state = sim.init()
+    init_eval = sim.evaluate_global(init_state)
+
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    t0 = time.perf_counter()
+    sink = MetricsSink()
+    state = sim.run(metrics_sink=sink)
+    torch.cuda.synchronize()
+    t_rounds = time.perf_counter() - t0
+    launches = flash_attention.launches
+
+    rounds = [{k: v for k, v in rec.items() if not k.startswith("_")}
+              for rec in sink.history]
+    losses = [r[k] for r in rounds for k in ("train_loss", "test_loss")]
+    not_f32 = sorted(k for k, v in state.variables.items()
+                     if v.dtype != torch.float32)
+    parity = resnet_cpu_parity(cfg, data, init_state.variables)
+    print(json.dumps({"resnet56_main_path": {
+        "rounds": cfg.fed.num_rounds, "seconds_rounds_with_eval": t_rounds,
+        "init_test_loss": init_eval["loss"], "init_test_acc": init_eval["acc"],
+        "per_round": rounds, "flash_launches": launches,
+        "cpu_parity_float32": parity, "card": card,
+    }}), flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"non-finite loss: {rounds}")
+    if not_f32:
+        raise RuntimeError(f"variables not float32: {not_f32}")
+    if not rounds[-1]["test_loss"] < init_eval["loss"]:
+        raise RuntimeError(f"test loss did not fall: {init_eval['loss']} -> "
+                           f"{rounds[-1]['test_loss']}")
+    if launches != 0:
+        raise RuntimeError(f"the ResNet-56 path launched flash attention "
+                           f"{launches} times")
+    return launches
+
+
+def kernel_entry(name, source, launches, resnet_launches, rows, row,
+                 note=None) -> dict:
+    """One entry of the "kernels" line: the timed ``row``'s numbers, the
+    largest error over ``rows``, and the launches on each main path
+    (``launches``: the transformer's)."""
     entry = {
         "name": name, "route": "cuda", "source": source,
         "replaces": "fedml_tpu/ops/flash_attention.py:119",
         "launches": launches,
+        "launches_by_path": {"transformer_lm": launches,
+                             "resnet56": resnet_launches},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "library_ratio", "shape",
@@ -448,24 +642,28 @@ def main() -> int:
     build_kernels()
     rows = kernel_checks()
 
-    # 4-5. the main path, and the kernels' launches on it
+    # 4-5. the transformer path, and the kernels' launches on it
     launches, mma_launches = main_path()
+    # 6. the ResNet-56 path (no hand-written kernel on it)
+    resnet_launches = resnet_main_path(card)
 
-    # 6. report: the float32 entry's times are at the main path's own
+    # 7. report: the float32 entry's times are at the transformer path's
     # shape, the tensor-core entry's at long context in bf16
     source = "fedml_tpu_torch/csrc/flash_attention.cu"
     f32 = [r for r in rows if r["dtype"] == "float32"]
     half = [r for r in rows if r["dtype"] != "float32"]
     print(json.dumps({"kernels": [
-        kernel_entry("flash_attention", source, launches, f32, next(
-            r for r in f32 if r["causal"]
-            and r["shape"] == list(MAIN_SHAPE))),
+        kernel_entry("flash_attention", source, launches, resnet_launches,
+                     f32, next(r for r in f32 if r["causal"]
+                               and r["shape"] == list(MAIN_SHAPE))),
         kernel_entry(
-            "flash_attention_mma", source, mma_launches, half, next(
+            "flash_attention_mma", source, mma_launches, resnet_launches,
+            half, next(
                 r for r in half if r["causal"] and r["dtype"] == "bfloat16"
                 and r["shape"] == list(LONG_SHAPE)),
-            note="bf16/fp16 only: the main path evaluates in float32, so "
-                 "it launches this kernel 0 times"),
+            note="bf16/fp16 only: the transformer path evaluates in "
+                 "float32 and the ResNet-56 path has no attention, so "
+                 "neither launches this kernel"),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

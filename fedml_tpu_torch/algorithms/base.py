@@ -4,8 +4,11 @@ Padding discipline, as in the JAX package: every client's index row is
 padded to ``max_n``, and each epoch's batch order puts the real samples
 first (:func:`fedml_tpu_torch.core.random.padded_perm`), so a client takes
 exactly ``ceil(n_k / B)`` optimizer steps per epoch; the trailing batches
-hold only padding and leave the parameters and the optimizer state as
-they are, which is the JAX package's gated no-op step.
+hold only padding and leave the variables and the optimizer state as
+they are, which is the JAX package's gated no-op step. A partial last
+batch still holds padded rows (the client's own first sample): they carry
+no loss weight but enter BatchNorm's batch statistics, as in the JAX
+package, whose BatchNorm is not masked either.
 """
 
 from __future__ import annotations
@@ -170,40 +173,69 @@ def make_client_optimizer(cfg: TrainConfig) -> Optimizer:
 
 
 # ---------------------------------------------------------------------------
-# Local update (the client loop)
+# Mixed precision and the local update (the client loop)
 # ---------------------------------------------------------------------------
+
+
+def compute_dtype(cfg: TrainConfig) -> torch.dtype:
+    """``cfg.compute_dtype`` as a torch floating type."""
+    dtype = getattr(torch, cfg.compute_dtype, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r} is not a "
+                         "torch floating type")
+    return dtype
 
 
 def build_local_update(model: FedModel, task: Task, cfg: TrainConfig,
                        batch_size: int, max_n: int):
-    """Build ``local_update(global_params, idx_row, mask_row, x, y,
-    orders) -> (params, n_k, metric sums)``: ``cfg.epochs`` passes of
-    minibatch training over the client's padded data, epoch ``e`` in the
-    batch order ``orders[e]`` (a ``[max_n]`` index tensor with the real
-    samples first, from :func:`fedml_tpu_torch.core.random.padded_perm`
-    or replayed from the JAX package)."""
+    """Build ``local_update(global_vars, idx_row, mask_row, x, y, orders)
+    -> (variables, n_k, metric sums)``: ``cfg.epochs`` passes of minibatch
+    training over the client's padded data, epoch ``e`` in the batch order
+    ``orders[e]`` (a ``[max_n]`` index tensor with the real samples first,
+    from :func:`fedml_tpu_torch.core.random.padded_perm` or replayed from
+    the JAX package).
+
+    Only the parameters are differentiated and seen by the optimizer; the
+    batch statistics (``model.stat_names``) are replaced after each step
+    by the ones the train-mode forward returned. Under a ``compute_dtype``
+    other than float32 the parameters and inputs are cast to it at the
+    loss boundary, the batch statistics stay float32, the logits and new
+    statistics come back as float32, and the master parameters and the
+    optimizer state stay float32 (the JAX package's policy)."""
     if max_n % batch_size:
         raise ValueError(f"max_n {max_n} is not a multiple of the batch "
                          f"size {batch_size}")
     steps_per_epoch = max_n // batch_size
     opt = make_client_optimizer(cfg)
+    dtype = compute_dtype(cfg)
+    stat_names = model.stat_names
 
-    def loss_fn(params, x_b, y_b, w_b, global_params):
+    def loss_fn(params, stats, x_b, y_b, w_b, global_params):
         """Weighted-sum loss over the batch's weight total, so masked
-        samples add nothing; plus the FedProx term."""
-        logits, _ = model.apply_train(params, x_b)
-        sums = task.metric_sums(logits, y_b, w_b)
+        samples add nothing; plus the FedProx term. Returns the loss, the
+        metric sums and the new batch statistics."""
+        compute_params, x_c = params, x_b
+        if dtype != torch.float32:
+            compute_params = {k: v.to(dtype) for k, v in params.items()}
+            # token inputs stay integer
+            x_c = x_b.to(dtype) if torch.is_floating_point(x_b) else x_b
+        logits, new_vars = model.apply_train({**compute_params, **stats},
+                                             x_c)
+        sums = task.metric_sums(logits.float(), y_b, w_b)
         loss = sums["loss_sum"] / torch.clamp(sums["w_sum"], min=1.0)
         if cfg.prox_mu > 0:
             diff = T.tree_sub(params, global_params)
             loss = loss + 0.5 * cfg.prox_mu * T.tree_dot(diff, diff)
-        return loss, sums
+        return loss, sums, {k: new_vars[k].float() for k in stat_names}
 
-    def local_update(global_params, idx_row, mask_row, x, y, orders):
+    def local_update(global_vars, idx_row, mask_row, x, y, orders):
         n_k = torch.sum(mask_row)
         # real samples come first, so only these steps hold any
         steps = min(math.ceil(float(n_k) / batch_size), steps_per_epoch)
+        global_params = {k: v for k, v in global_vars.items()
+                         if k not in stat_names}
         params = {k: v.detach() for k, v in global_params.items()}
+        stats = {k: global_vars[k] for k in stat_names}
         opt_state = opt.init(params)
         msums = zero_sums(mask_row.device)
         for order in orders[:cfg.epochs]:
@@ -212,15 +244,16 @@ def build_local_update(model: FedModel, task: Task, cfg: TrainConfig,
                 b_idx = idx_row[take].long()
                 w_b = mask_row[take]
                 live = {k: v.requires_grad_(True) for k, v in params.items()}
-                loss, sums = loss_fn(live, x[b_idx], y[b_idx], w_b,
-                                     global_params)
+                loss, sums, stats = loss_fn(live, stats, x[b_idx], y[b_idx],
+                                            w_b, global_params)
                 grads = torch.autograd.grad(loss, list(live.values()))
                 grads = dict(zip(live.keys(), grads))
                 with torch.no_grad():
                     updates, opt_state = opt.update(grads, opt_state, params)
                     params = apply_updates(params, updates)
                 msums = {k: msums[k] + sums[k].detach() for k in msums}
-        return params, n_k, msums
+        new_vars = {**params, **stats}
+        return {k: new_vars[k] for k in global_vars}, n_k, msums
 
     return local_update
 
@@ -232,7 +265,9 @@ def build_local_update(model: FedModel, task: Task, cfg: TrainConfig,
 
 def build_evaluator(model: FedModel, task: Task, eval_batch: int = 256):
     """Global-test evaluation: pad to a multiple of ``eval_batch`` with
-    zero-weight rows, run the batches, reduce the metric sums."""
+    zero-weight rows, run the batches in eval mode (BatchNorm on the
+    running statistics) in the variables' own float32, reduce the metric
+    sums."""
 
     @torch.no_grad()
     def evaluate(params, x, y):

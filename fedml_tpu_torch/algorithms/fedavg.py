@@ -3,9 +3,10 @@ mean on the server, evaluate the global model.
 
 The plain FedAvg path of ``fedml_tpu.algorithms.fedavg`` with the default
 defense (weighted mean, no clip, no noise), the non-finite screen, global
-momentum and the SGD server optimizer. The cohort runs as a Python loop
-over clients. Settings of the JAX package that this package has not
-ported make :class:`FedAvgSim` raise ``NotImplementedError``.
+momentum and the SGD server optimizer, in float32 or with a bf16 compute
+type. The cohort runs as a Python loop over clients. Settings of the JAX
+package that this package has not ported make :class:`FedAvgSim` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,6 @@ from fedml_tpu_torch.models.base import FedModel, Params
 
 # (setting, its default, the ROADMAP item that ports it)
 _NOT_PORTED = (
-    ("train.compute_dtype", "float32", "bf16 compute_dtype"),
     ("fed.robust_method", "mean", "robust methods other than mean"),
     ("fed.robust_norm_clip", 0.0, "robust methods other than mean"),
     ("fed.robust_noise_stddev", 0.0, "robust methods other than mean"),
@@ -81,9 +81,9 @@ def consume_round_counters(train_metrics: dict, counters: dict) -> dict:
 
 
 class ServerState(NamedTuple):
-    variables: Params  # the global model's state_dict
-    opt_state: Any  # server optimizer state
-    momentum: Params  # global momentum buffer (gmf)
+    variables: Params  # the global model's variables (params and stats)
+    opt_state: Any  # server optimizer state, over the params only
+    momentum: Params  # global momentum buffer (gmf), params only
     round: int
 
 
@@ -110,9 +110,11 @@ def make_server_optimizer(name: str, lr: float, momentum: float
     )
 
 
-def _server_delta_step(fed: FedConfig, state: ServerState, agg_delta: Params):
+def _server_delta_step(fed: FedConfig, state: ServerState, params: Params,
+                       agg_delta: Params):
     """Global momentum buffer + server optimizer step on the aggregated
-    delta. Returns ``(new_params, new_opt_state, new_momentum)``."""
+    delta of ``params``. Returns ``(new_params, new_opt_state,
+    new_momentum)``."""
     if fed.gmf > 0:
         new_momentum = T.tree_add(T.tree_scale(state.momentum, fed.gmf),
                                   agg_delta)
@@ -122,24 +124,30 @@ def _server_delta_step(fed: FedConfig, state: ServerState, agg_delta: Params):
     opt = make_server_optimizer(fed.server_optimizer, fed.server_lr,
                                 fed.server_momentum)
     pseudo_grad = T.tree_scale(agg_delta, -1.0)
-    updates, new_opt_state = opt.update(pseudo_grad, state.opt_state,
-                                        state.variables)
-    return (apply_updates(state.variables, updates), new_opt_state,
-            new_momentum)
+    updates, new_opt_state = opt.update(pseudo_grad, state.opt_state, params)
+    return apply_updates(params, updates), new_opt_state, new_momentum
 
 
 @torch.no_grad()
 def server_update(fed: FedConfig, state: ServerState, stacked_vars: Params,
-                  n_k: torch.Tensor, red: Reducer) -> ServerState:
-    """One server step from stacked client results: the weighted mean of
-    the clients' deltas, then :func:`_server_delta_step`."""
-    deltas = {k: stacked_vars[k] - v[None] for k, v in state.variables.items()}
+                  n_k: torch.Tensor, red: Reducer,
+                  stat_names: tuple[str, ...] = ()) -> ServerState:
+    """One server step from stacked client results. Parameters: the
+    weighted mean of the clients' deltas, then
+    :func:`_server_delta_step`. Batch statistics (``stat_names``): the
+    plain weighted mean of the clients' values; they never pass through
+    the global momentum or the server optimizer."""
+    params = {k: v for k, v in state.variables.items()
+              if k not in stat_names}
+    deltas = {k: stacked_vars[k] - v[None] for k, v in params.items()}
     agg_delta = red.wmean(deltas, n_k)
     new_params, new_opt_state, new_momentum = _server_delta_step(
-        fed, state, agg_delta
+        fed, state, params, agg_delta
     )
-    return ServerState(new_params, new_opt_state, new_momentum,
-                       state.round + 1)
+    stats = red.wmean({k: stacked_vars[k] for k in stat_names}, n_k)
+    new_vars = {**new_params, **stats}
+    return ServerState({k: new_vars[k] for k in state.variables},
+                       new_opt_state, new_momentum, state.round + 1)
 
 
 Sampler = Callable[[int, int, int], torch.Tensor]
@@ -201,11 +209,13 @@ class FedAvgSim:
 
     def init(self) -> ServerState:
         variables = self.model.init(R.generator(self.cfg.seed, 0x7FFFFFFF))
+        params = {k: v for k, v in variables.items()
+                  if k not in self.model.stat_names}
         fed = self.cfg.fed
         opt = make_server_optimizer(fed.server_optimizer, fed.server_lr,
                                     fed.server_momentum)
-        return ServerState(variables, opt.init(variables),
-                           T.tree_zeros_like(variables), 0)
+        return ServerState(variables, opt.init(params),
+                           T.tree_zeros_like(params), 0)
 
     def _screen_nonfinite(self, state, stacked_vars, n_k):
         """A client result with a NaN or Inf is replaced by the global
@@ -239,7 +249,8 @@ class FedAvgSim:
         stacked = T.tree_stack(results)
         n_k = torch.stack(counts)
         stacked, n_k, rejected = self._screen_nonfinite(state, stacked, n_k)
-        new_state = server_update(fed, state, stacked, n_k, local_reducer())
+        new_state = server_update(fed, state, stacked, n_k, local_reducer(),
+                                  self.model.stat_names)
         reduced = {k: sum(s[k] for s in sums) for k in sums[0]}
         fin = finalize_sums(reduced)
         return new_state, {"train_loss": fin["loss"],

@@ -56,8 +56,20 @@ class TrainConfig:
     epochs: int = 1
     prox_mu: float = 0.0  # FedProx proximal coefficient (0 disables)
     clip_norm: float = 0.0  # global-norm gradient clip (0 disables)
-    # only "float32" is ported; FedAvgSim refuses anything else
+    # mixed precision: "float32" (exact, default) or "bfloat16" (master
+    # params, optimizer state and BN statistics stay float32; the network
+    # runs in bf16)
     compute_dtype: str = "float32"
+    # The next three are execution-layout settings of the JAX package's
+    # compiled client loop (scan unroll factor, the cohort-grouped
+    # network, size-sorted cohort sub-groups). The reference pins that
+    # none of them changes a result. The port's client loop is a Python
+    # loop over clients and their real steps, so it reads them and does
+    # nothing with them; they are kept so that one config file drives
+    # both packages.
+    scan_unroll: int = 1
+    cohort_fused: bool = True
+    cohort_groups: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,13 +4,20 @@ from fedml_tpu_torch.data.federated import (
     FederatedArrays,
     FederatedData,
     arrays_and_batch,
+    build_federated_data,
 )
-from fedml_tpu_torch.data.loaders import load_dataset, make_fake_text_dataset
+from fedml_tpu_torch.data.loaders import (
+    load_dataset,
+    make_fake_image_dataset,
+    make_fake_text_dataset,
+)
 
 __all__ = [
     "FederatedArrays",
     "FederatedData",
     "arrays_and_batch",
+    "build_federated_data",
     "load_dataset",
+    "make_fake_image_dataset",
     "make_fake_text_dataset",
 ]

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.core.device import resolve_device
+from fedml_tpu_torch.data import partition as P
 
 
 @dataclasses.dataclass
@@ -49,6 +50,15 @@ def _round_up(n: int, multiple: int) -> int:
     if multiple > 1:
         n = ((n + multiple - 1) // multiple) * multiple
     return n
+
+
+def _infer_input_dtype(x: np.ndarray) -> torch.dtype:
+    """Token datasets (NLP) stay integer for the embedding; dense features
+    (images included, NHWC) go to float32, as in the JAX package."""
+    return (
+        torch.int32 if np.issubdtype(np.asarray(x).dtype, np.integer)
+        else torch.float32
+    )
 
 
 def _pad_index_map(
@@ -98,12 +108,7 @@ class FederatedData:
         tidx, tmask, _ = _pad_index_map(
             self.test_idx_map, self.num_clients, pad_multiple
         )
-        # token inputs stay int32 (embedding ids); dense features go to
-        # float32, as in the JAX package
-        x_dtype = (
-            torch.int32 if np.issubdtype(self.x_train.dtype, np.integer)
-            else torch.float32
-        )
+        x_dtype = _infer_input_dtype(self.x_train)
 
         def conv(a, dtype=None):
             return torch.from_numpy(np.ascontiguousarray(a)).to(
@@ -134,3 +139,34 @@ def arrays_and_batch(
     max_n = arrays.max_client_samples
     batch = max_n if dcfg.full_batch else min(dcfg.batch_size, max_n)
     return arrays, batch
+
+
+def build_federated_data(
+    x_train: np.ndarray,
+    y_train: np.ndarray,
+    x_test: np.ndarray,
+    y_test: np.ndarray,
+    num_classes: int,
+    num_clients: int,
+    partition_method: str = "homo",
+    alpha: float = 0.5,
+    r: float = 1.0,
+    seed: int = 0,
+    task: str = "classification",
+) -> FederatedData:
+    """Partition global arrays into a :class:`FederatedData` (the loader
+    core shared by the image datasets): the train split by
+    ``partition_method`` from ``default_rng(seed)``, the test split per
+    label, both as in the JAX package."""
+    rng = np.random.default_rng(seed)
+    if partition_method == "natural":
+        raise ValueError("natural partitions are built by dataset loaders")
+    label_y = y_train if y_train.ndim == 1 else y_train.argmax(-1)
+    train_map = P.partition_indices_train(
+        label_y, num_classes, partition_method, num_clients, alpha, r, rng
+    )
+    label_yt = y_test if y_test.ndim == 1 else y_test.argmax(-1)
+    test_map = P.partition_indices_test(label_yt, num_classes, num_clients)
+    return FederatedData(
+        x_train, y_train, x_test, y_test, train_map, test_map, num_classes, task
+    )

@@ -1,7 +1,9 @@
 """Offline federated dataset loaders.
 
-The procedural text datasets draw from numpy ``default_rng`` in the same
-order as the JAX package's loaders, so the arrays are bitwise equal.
+The procedural datasets (``fake_<image>`` with the shapes and class
+counts of ``IMAGE_SPECS``, and the fake text sets) draw from numpy
+``default_rng`` in the same order as the JAX package's loaders, so the
+arrays and the partitions are bitwise equal.
 """
 
 from __future__ import annotations
@@ -9,11 +11,55 @@ from __future__ import annotations
 import numpy as np
 
 from fedml_tpu_torch.config import DataConfig
-from fedml_tpu_torch.data.federated import FederatedData
+from fedml_tpu_torch.data.federated import (
+    FederatedData,
+    build_federated_data,
+)
 
+# name -> (input_shape, num_classes) for image datasets (NHWC)
+IMAGE_SPECS: dict[str, tuple[tuple[int, ...], int]] = {
+    "mnist": ((28, 28, 1), 10),
+    "emnist": ((28, 28, 1), 62),
+    "femnist": ((28, 28, 1), 62),
+    "cifar10": ((32, 32, 3), 10),
+    "cifar100": ((32, 32, 3), 100),
+    "cinic10": ((32, 32, 3), 10),
+    "fed_cifar100": ((32, 32, 3), 100),
+}
 SHAKESPEARE_SEQ_LEN = 80  # char-LM window of the Shakespeare task
 SHAKESPEARE_VOCAB = 90
 STACKOVERFLOW_SEQ_LEN = 20
+
+
+def _fake_image_arrays(
+    name: str, n_train: int, n_test: int, seed: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]:
+    """Gaussian class prototypes plus noise: a learnable stand-in with the
+    named dataset's shape and class count."""
+    shape, num_classes = IMAGE_SPECS[name]
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(0.0, 1.0, (num_classes,) + shape).astype(np.float32)
+
+    def gen(n):
+        y = rng.integers(0, num_classes, n).astype(np.int32)
+        x = protos[y] * 0.5 + rng.normal(0, 1.0, (n,) + shape).astype(np.float32)
+        return x.astype(np.float32), y
+
+    x_tr, y_tr = gen(n_train)
+    x_te, y_te = gen(n_test)
+    return x_tr, y_tr, x_te, y_te, num_classes
+
+
+def make_fake_image_dataset(
+    name: str, cfg: DataConfig, n_train: int = 6000, n_test: int = 1000
+) -> FederatedData:
+    x_tr, y_tr, x_te, y_te, num_classes = _fake_image_arrays(
+        name, n_train, n_test, cfg.seed
+    )
+    return build_federated_data(
+        x_tr, y_tr, x_te, y_te, num_classes, cfg.num_clients,
+        cfg.partition_method, cfg.partition_alpha, cfg.dataset_r, cfg.seed,
+    )
 
 
 def make_fake_text_dataset(
@@ -59,16 +105,21 @@ def make_fake_text_dataset(
 
 
 def load_dataset(cfg: DataConfig) -> FederatedData:
-    """Dataset dispatch. Only the offline text datasets of the transformer
-    FedAvg path are ported; any other name raises."""
+    """Dataset dispatch. Only the offline ``fake_<name>`` datasets of the
+    image (``IMAGE_SPECS``) and text paths are ported; any other name
+    raises."""
     name = cfg.dataset.lower()
-    if name in ("fake_shakespeare", "fake_fed_shakespeare"):
+    base = name[len("fake_"):] if name.startswith("fake_") else None
+    if base in IMAGE_SPECS:
+        return make_fake_image_dataset(base, cfg)
+    if base in ("shakespeare", "fed_shakespeare"):
         return make_fake_text_dataset(cfg)
-    if name == "fake_stackoverflow_nwp":
+    if base == "stackoverflow_nwp":
         return make_fake_text_dataset(
             cfg, seq_len=STACKOVERFLOW_SEQ_LEN, vocab=2000
         )
     raise ValueError(
         f"dataset {cfg.dataset!r} is not ported to fedml_tpu_torch yet "
-        "(available: fake_shakespeare, fake_stackoverflow_nwp)"
+        f"(available: fake_<{'|'.join(IMAGE_SPECS)}>, fake_shakespeare, "
+        "fake_stackoverflow_nwp)"
     )

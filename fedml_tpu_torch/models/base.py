@@ -6,6 +6,12 @@ The module defines the architecture only and holds no weights (see
 forward passes take as an argument through ``torch.func.functional_call``.
 This keeps a client's model a value that can be copied, averaged and
 compared, as the variables pytree is in the JAX package.
+
+The variables are one flat dict: the parameters, and for a model with
+BatchNorm its running statistics (the buffers of :class:`BatchNorm`,
+named by :attr:`FedModel.stat_names`; the JAX package's ``batch_stats``
+collection). A train-mode forward returns the new statistics as values
+and writes no buffer in place, so it stays a function of its inputs.
 """
 
 from __future__ import annotations
@@ -29,51 +35,137 @@ def weightless(build: Callable[[], nn.Module]) -> nn.Module:
         return build().to("meta")
 
 
+BN_MOMENTUM = 0.9  # flax's convention: the weight of the old running value
+BN_EPS = 1e-5
+
+
+def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               mean: torch.Tensor, var: torch.Tensor, train: bool):
+    """Flax ``nn.BatchNorm`` over the channel dim 1 of ``x``; returns
+    ``(y, new_mean, new_var)``.
+
+    In train mode the statistics are taken over every other dim in
+    float32 whatever ``x``'s type, the variance in the fast form
+    E[x^2] - E[x]^2 clipped at 0 (biased), and the running values move as
+    ``BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch`` with that biased
+    variance (torch's BatchNorm would use the unbiased one, and its
+    momentum is 1 - this one). In eval mode ``mean``/``var`` normalize and
+    come back unchanged. The normalization (epsilon ``BN_EPS``) runs in
+    float32 and the result takes ``x``'s type, as flax computes it."""
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    xf = x.float()
+    if train:
+        dims = [0, *range(2, x.ndim)]
+        use_mean = xf.mean(dims)
+        use_var = torch.clamp(torch.mean(xf * xf, dims) - use_mean * use_mean,
+                              min=0.0)
+        new_mean = BN_MOMENTUM * mean + (1 - BN_MOMENTUM) * use_mean.detach()
+        new_var = BN_MOMENTUM * var + (1 - BN_MOMENTUM) * use_var.detach()
+    else:
+        use_mean, use_var, new_mean, new_var = mean, var, mean, var
+    mul = torch.rsqrt(use_var + BN_EPS) * scale.float()
+    y = (xf - use_mean.reshape(shape)) * mul.reshape(shape)
+    return (y + bias.float().reshape(shape)).to(x.dtype), new_mean, new_var
+
+
+class BatchNorm(nn.Module):
+    """:func:`batch_norm` with its scale and bias as parameters (``weight``
+    and ``bias``) and its running statistics as buffers (``running_mean``
+    and ``running_var``). Not ``nn.BatchNorm2d``: see :func:`batch_norm`.
+    A train-mode call puts its new statistics into ``stats_out`` under the
+    module and leaves the buffers as they are."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats_out: dict | None = None) -> torch.Tensor:
+        y, mean, var = batch_norm(x, self.weight, self.bias,
+                                  self.running_mean, self.running_var, train)
+        if train:
+            stats_out[self] = (mean, var)
+        return y
+
+
+def _lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
+    """Flax's lecun_normal: a normal truncated to two standard deviations,
+    with the factor that restores the variance the truncation removes."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2 * std,
+                                 2 * std, generator=gen)
+
+
 def _init_tensor(mod: nn.Module, leaf: str, shape, gen: torch.Generator):
-    """Flax's default initializers: Dense kernels lecun-normal (truncated
-    normal), embeddings normal with std 1/sqrt(features), LayerNorm scale
-    ones, every bias zeros."""
-    if leaf == "bias":
+    """Flax's default initializers: Dense and Conv kernels lecun-normal
+    (fan_in = in features, or kh * kw * in channels for a conv), embeddings
+    normal with std 1/sqrt(features), LayerNorm and BatchNorm scale ones,
+    every bias zeros, BatchNorm running mean zeros and variance ones."""
+    if leaf in ("bias", "running_mean"):
         return torch.zeros(shape)
-    if isinstance(mod, nn.LayerNorm):
+    if leaf == "running_var" or isinstance(mod, (nn.LayerNorm, BatchNorm)):
         return torch.ones(shape)
     if isinstance(mod, nn.Embedding):
         return torch.empty(shape).normal_(0.0, shape[1] ** -0.5,
                                           generator=gen)
-    if isinstance(mod, nn.Linear):
-        # truncated to two standard deviations; the factor restores the
-        # variance the truncation removes
-        std = math.sqrt(1.0 / shape[1]) / 0.87962566103423978
-        return nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2 * std,
-                                     2 * std, generator=gen)
+    if isinstance(mod, (nn.Linear, nn.Conv2d)):
+        return _lecun_normal(shape, math.prod(shape[1:]), gen)
     raise TypeError(f"no initializer for {type(mod).__name__}")
 
 
 @dataclasses.dataclass(frozen=True)
 class FedModel:
-    """Functional handle on one architecture on one device."""
+    """Functional handle on one architecture on one device.
+
+    ``stat_names`` are the keys of the variables that are batch
+    statistics (every buffer of the module); the rest are parameters."""
 
     module: nn.Module
     input_shape: tuple[int, ...]
     device: torch.device
     # inputs may be int tokens (NLP) rather than floats
     input_dtype: torch.dtype = torch.float32
+    stat_names: tuple[str, ...] = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "stat_names", tuple(
+            name for name, _ in self.module.named_buffers()))
+        object.__setattr__(self, "_bn_names", {
+            mod: name for name, mod in self.module.named_modules()
+            if isinstance(mod, BatchNorm)})
 
     def init(self, generator: torch.Generator) -> Params:
-        """Fresh weights drawn on the CPU from ``generator`` (so a seed
+        """Fresh variables drawn on the CPU from ``generator`` (so a seed
         gives the same weights on every device), moved to the device."""
-        params = {}
+        variables = {}
         for mod_name, mod in self.module.named_modules():
-            for leaf, p in mod.named_parameters(recurse=False):
+            leaves = [*mod.named_parameters(recurse=False),
+                      *mod.named_buffers(recurse=False)]
+            for leaf, p in leaves:
                 name = f"{mod_name}.{leaf}" if mod_name else leaf
-                params[name] = _init_tensor(mod, leaf, p.shape, generator)
-        return {k: v.to(self.device) for k, v in params.items()}
+                variables[name] = _init_tensor(mod, leaf, p.shape, generator)
+        return {k: v.to(self.device) for k, v in variables.items()}
 
-    def apply_train(self, params: Params, x: torch.Tensor):
-        """Forward in train mode; returns (logits, params). The slice's
-        models have no batch statistics or dropout, so the variables come
+    def apply_train(self, variables: Params, x: torch.Tensor):
+        """Forward in train mode; returns (logits, variables with the new
+        batch statistics). A model without statistics gets its variables
         back unchanged."""
-        return functional_call(self.module, params, (x,)), params
+        if not self.stat_names:
+            return functional_call(self.module, variables, (x,)), variables
+        stats = {}
+        logits = functional_call(self.module, variables, (x,),
+                                 {"train": True, "stats_out": stats})
+        new = dict(variables)
+        for mod, (mean, var) in stats.items():
+            name = self._bn_names[mod]
+            new[f"{name}.running_mean"] = mean
+            new[f"{name}.running_var"] = var
+        return logits, new
 
-    def apply_eval(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        return functional_call(self.module, params, (x,))
+    def apply_eval(self, variables: Params, x: torch.Tensor) -> torch.Tensor:
+        """Forward in eval mode: BatchNorm normalizes with the running
+        statistics."""
+        return functional_call(self.module, variables, (x,))

@@ -1,0 +1,150 @@
+"""Vision models: logistic regression, the FedAvg-paper CNN and the CIFAR
+ResNets with BatchNorm.
+
+Same architectures as ``fedml_tpu.models.vision`` at ``cohort=1``,
+``space_to_depth=False`` and ``norm="bn"``. Inputs are NHWC, as the data
+layer stores them; the conv models view them as NCHW at their input
+(:func:`nchw`), and conv weights are OIHW. Flax's "SAME" padding is
+reproduced exactly: at stride 2 on an even input it pads (0, 1), which no
+``nn.Conv2d(padding=...)`` can express.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fedml_tpu_torch.models.base import BatchNorm
+
+
+def same_padding(in_spatial, kernel_spatial, strides
+                 ) -> tuple[tuple[int, int], ...]:
+    """Flax/XLA "SAME" padding as (lo, hi) pairs per spatial dim: the
+    output has ceil(in / stride) positions, and the odd pixel of padding
+    goes after (``fedml_tpu.ops.cohort_conv._resolve_padding``, no
+    dilation)."""
+    out = []
+    for i, k, s in zip(in_spatial, kernel_spatial, strides):
+        o = -(-i // s)
+        total = max((o - 1) * s + k - i, 0)
+        out.append((total // 2, total - total // 2))
+    return tuple(out)
+
+
+def nchw(x: torch.Tensor) -> torch.Tensor:
+    """An NHWC batch as a logical NCHW tensor. On the card it is the view
+    ``x.permute(0, 3, 1, 2)``, whose memory stays NHWC (torch's
+    ``channels_last``): the layout cuDNN's NHWC convolutions read, which
+    the activations then keep. On the CPU it is copied to contiguous NCHW:
+    torch's oneDNN float32 convolution backward on ``channels_last``
+    tensors aborts at random there when it runs on several threads
+    (torch 2.13, CPU build)."""
+    x = x.permute(0, 3, 1, 2)
+    return x if x.is_cuda else x.contiguous()
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with flax's ``padding="SAME"``, resolved from the
+    input's size at every call."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, bias: bool = True):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding=0, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (top, bottom), (left, right) = same_padding(
+            x.shape[2:], self.kernel_size, self.stride)
+        if top == bottom and left == right:
+            return F.conv2d(x, self.weight, self.bias, self.stride,
+                            (top, left))
+        x = F.pad(x, (left, right, top, bottom))  # keeps x's layout
+        return F.conv2d(x, self.weight, self.bias, self.stride)
+
+
+class LogisticRegression(nn.Module):
+    """Flatten (in NHWC order) -> dense."""
+
+    def __init__(self, num_classes: int = 10,
+                 input_shape: tuple[int, ...] = (28, 28, 1)):
+        super().__init__()
+        self.linear = nn.Linear(math.prod(input_shape), num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(x.reshape(x.shape[0], -1))
+
+
+class CNNOriginalFedAvg(nn.Module):
+    """2 x (conv5x5 + maxpool) + dense-512 CNN from the FedAvg paper."""
+
+    def __init__(self, num_classes: int = 62,
+                 input_shape: tuple[int, ...] = (28, 28, 1)):
+        super().__init__()
+        h, w, cin = input_shape
+        self.conv1 = Conv2d(cin, 32, 5)
+        self.conv2 = Conv2d(32, 64, 5)
+        self.fc1 = nn.Linear((h // 4) * (w // 4) * 64, 512)
+        self.head = nn.Linear(512, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.max_pool2d(F.relu(self.conv1(nchw(x))), 2, 2)
+        x = F.max_pool2d(F.relu(self.conv2(x)), 2, 2)
+        # the dense layers read the reference's (H, W, C) flatten order
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return self.head(F.relu(self.fc1(x)))
+
+
+class BasicBlock(nn.Module):
+    """CIFAR ResNet basic block; a block that changes the shape projects
+    its shortcut with a 1x1 conv and BatchNorm."""
+
+    def __init__(self, in_channels: int, channels: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = Conv2d(in_channels, channels, 3, stride, bias=False)
+        self.bn1 = BatchNorm(channels)
+        self.conv2 = Conv2d(channels, channels, 3, bias=False)
+        self.bn2 = BatchNorm(channels)
+        self.proj = self.proj_bn = None
+        if stride != 1 or in_channels != channels:
+            self.proj = Conv2d(in_channels, channels, 1, stride, bias=False)
+            self.proj_bn = BatchNorm(channels)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats_out: dict | None = None) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x), train, stats_out))
+        y = self.bn2(self.conv2(y), train, stats_out)
+        if self.proj is not None:
+            x = self.proj_bn(self.proj(x), train, stats_out)
+        return F.relu(y + x)
+
+
+class ResNetCIFAR(nn.Module):
+    """3-stage CIFAR ResNet with BatchNorm: depth = 6n + 2 (resnet56: n =
+    9), stage widths (width, 2 width, 4 width), strides (1, 2, 2), a global
+    mean pool and a dense head."""
+
+    def __init__(self, depth: int = 56, num_classes: int = 10,
+                 width: int = 16, in_channels: int = 3):
+        super().__init__()
+        n = (depth - 2) // 6
+        self.conv = Conv2d(in_channels, width, 3, bias=False)
+        self.bn = BatchNorm(width)
+        blocks, cin = [], width
+        for stage, (ch, st) in enumerate(zip((width, 2 * width, 4 * width),
+                                             (1, 2, 2))):
+            for blk in range(n):
+                stride = st if (stage > 0 and blk == 0) else 1
+                blocks.append(BasicBlock(cin, ch, stride))
+                cin = ch
+        self.blocks = nn.ModuleList(blocks)
+        self.head = nn.Linear(cin, num_classes)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats_out: dict | None = None) -> torch.Tensor:
+        x = F.relu(self.bn(self.conv(nchw(x)), train, stats_out))
+        for block in self.blocks:
+            x = block(x, train, stats_out)
+        return self.head(x.mean(dim=(2, 3)))

@@ -202,7 +202,7 @@ def test_unported_settings_raise():
     for bad in (dict(fed=tc.FedConfig(algorithm="fednova")),
                 dict(fed=tc.FedConfig(robust_method="median")),
                 dict(fed=tc.FedConfig(client_block_size=4)),
-                dict(train=tc.TrainConfig(compute_dtype="bfloat16")),
+                dict(fed=tc.FedConfig(server_optimizer="adam")),
                 dict(adversary=tc.AdversaryPolicy(mode="sign_flip"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfed.FedAvgSim(model, tdata, tc.ExperimentConfig(**bad),

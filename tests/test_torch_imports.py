@@ -18,6 +18,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fedml_tpu")
 SOURCES = sorted((ROOT / "fedml_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_round.py",
+    ROOT / "scripts" / "resnet_parity_spread.py",
     ROOT / "scripts" / "time_torch_flash.py"]
 
 
@@ -53,6 +54,11 @@ model = create_model(ModelConfig(name="transformer_lm", num_classes=37,
 params = model.init(torch.Generator().manual_seed(0))
 logits = model.apply_eval(params, torch.zeros(2, 16, dtype=torch.int32))
 assert logits.shape == (2, 16, 37)
+model = create_model(ModelConfig(name="resnet8", num_classes=10,
+                                 input_shape=(16, 16, 3)), device="cpu")
+variables = model.init(torch.Generator().manual_seed(0))
+logits, new_vars = model.apply_train(variables, torch.zeros(2, 16, 16, 3))
+assert logits.shape == (2, 10) and set(new_vars) == set(variables)
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "fedml_tpu")))
@@ -77,3 +83,16 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FedAvgSim(create_model(mcfg, device="cpu"), data, cfg)
     assert create_model(mcfg, device="cpu").device.type == "cpu"
+
+
+def test_cli_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    from fedml_tpu_torch.experiments import run as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--algorithm", "fedavg", "--dataset", "fake_cifar10", "--model",
+            "resnet8", "--input_shape", "32", "32", "3",
+            "--client_num_in_total", "4"]
+    cfg, args = cli.parse_args(argv)
+    assert args.device == "cuda" and cfg.model.name == "resnet8"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
