@@ -31,7 +31,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
 4. Main path: FedAvgSim over transformer_lm at create_model's widths on
    fake_shakespeare (20 clients, 10 a round, batch 32, SGD, 3 rounds);
    every train loss must be finite and the last test loss below the
-   initial model's.
+   initial model's. The cohort runs batched: the local step vmapped over
+   each size-sorted group of clients, one CUDA graph replay per step;
+   the phase prints the groups, their steps and the graph's replays.
 5. The kernel on the main path: the final global model is evaluated with
    build_evaluator twice, with full attention and with flash attention on
    the same weights; the losses must agree within 1e-4 relative and the
@@ -44,12 +46,17 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    LDA alpha 0.5, batch 32, SGD lr 0.03, 1 epoch, 10 clients a round, 3
    rounds with a global evaluation after each. Every loss must be finite,
    the returned parameters and statistics float32, and the last test loss
-   below the initial model's. It launches no hand-written kernel (its
-   convolutions, BatchNorm and GEMMs are torch ops on cuDNN and cuBLAS),
-   and the flash counters, set to 0 before it, must read 0 after it. Then
-   float32 local updates (real steps, in the batch order round 0 gave
-   them) run on the card and on the CPU from the same weights, TF32 off:
-   the first step of the cohort's largest client must agree within
+   below the initial model's. The cohort runs batched, as in phase 4
+   (5 groups of 2 clients), and the phase prints the groups, their steps
+   and the graph's replays; then one more round runs under
+   torch.cuda.set_sync_debug_mode("error"), so any host sync in a round
+   raises. It launches no hand-written kernel (its convolutions,
+   BatchNorm and GEMMs are torch ops on cuDNN and cuBLAS), and the flash
+   counters, set to 0 before it, must read 0 after it. Then float32 local
+   updates (real steps, in the batch order round 0 gave them) run on the
+   card, through the batched, graphed cohort on the group of the cohort's
+   largest client, and on the CPU, one client at a time, from the same
+   weights, TF32 off: the largest client's first step must agree within
    RESNET_PARITY (atol = rtol = 1e-3) in parameters and statistics, and
    all its steps, chaotic in float32 past the first, within SPREAD_FACTOR
    times the CPU's own spread under a one-rounding perturbation of the
@@ -58,9 +65,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    smoke figure, not a metric).
 7. A "kernels" JSON line with one entry per kernel (flash_attention, the
    float32 body, and flash_attention_mma, the bf16/fp16 body), with each
-   kernel's launches on the transformer path and on the ResNet-56 path,
-   the card's name and power limit, and last the result line
-   {"ok": true, "device": {...}}.
+   kernel's launches on the transformer path and on the ResNet-56 path
+   (the batched cohort runs no hand-written kernel), the card's name and
+   power limit, and last the result line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -409,6 +416,7 @@ def main_path(device: str = "cuda"):
     state = sim.run(metrics_sink=sink)
     torch.cuda.synchronize()
     t_rounds = time.perf_counter() - t0
+    cohort = cohort_report(sim)
     flash_model = flash_twin(model)
     t1 = time.perf_counter()
     flash_eval = build_evaluator(flash_model, sim.task)(
@@ -429,7 +437,7 @@ def main_path(device: str = "cuda"):
         "init_test_loss": init_eval["loss"], "full_eval": full_eval,
         "flash_eval": flash_eval, "seconds_flash_eval": t_flash_eval,
         "seconds_full_eval": t_full_eval, "flash_launches": launches,
-        "flash_mma_launches": mma_launches,
+        "flash_mma_launches": mma_launches, "cohort": cohort,
     }}), flush=True)
 
     losses = [rec["train_loss"] for rec in sink.history]
@@ -450,6 +458,23 @@ def main_path(device: str = "cuda"):
     if abs(flash_eval["acc"] - full_eval["acc"]) > 1e-4:
         raise RuntimeError(f"flash eval {flash_eval} != full {full_eval}")
     return launches, mma_launches
+
+
+def cohort_report(sim, replays_before: int = 0) -> dict:
+    """The batched cohort of ``sim``'s last round (clients and steps per
+    epoch of each group) and its CUDA graph's replays since
+    ``replays_before``; raises unless the rounds ran as graph replays."""
+    graph = sim.cohort_update.graph
+    report = {"groups": [{"clients": n, "steps_per_epoch": s}
+                         for n, s in sim.last_groups],
+              "graph_replays": graph.replays - replays_before,
+              "group_steps_last_round": sim.cfg.train.epochs * sum(
+                  s for _, s in sim.last_groups)}
+    print(json.dumps({"cohort": report}), flush=True)
+    if graph.graph is None or report["graph_replays"] <= 0:
+        raise RuntimeError(f"the cohort did not run as CUDA graph replays: "
+                           f"{report}")
+    return report
 
 
 def resnet_config():
@@ -479,12 +504,19 @@ def resnet_config():
 class UpdateRig:
     """Float32 local updates of ``cfg``'s model on the card and on the
     CPU (TF32 off), from start variables the caller gives, each client in
-    the batch order round 0 drew for it."""
+    the batch order round 0 drew for it: on the card through the batched
+    cohort (the client's size-sorted group of round 0, one CUDA graph
+    replay per step), on the CPU one client at a time."""
 
     def __init__(self, cfg, data):
         import dataclasses
 
+        import numpy as np
+
         from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+        from fedml_tpu_torch.algorithms.stack_utils import (
+            resolve_cohort_groups,
+        )
         from fedml_tpu_torch.models import create_model
 
         f32 = dataclasses.replace(cfg, train=dataclasses.replace(
@@ -497,23 +529,44 @@ class UpdateRig:
         self.counts = self.sims["cpu"].arrays.counts
         self.cohort = self.sims["cuda"].sampler(
             0, len(self.counts), f32.fed.clients_per_round).tolist()
+        # the round's groups: the cohort sorted by size, descending
+        order = np.argsort(-self.counts[self.cohort].numpy(), kind="stable")
+        sub = len(self.cohort) // resolve_cohort_groups(
+            f32.train.cohort_groups, len(self.cohort))
+        ranked = [self.cohort[i] for i in order]
+        self.groups = [ranked[i:i + sub] for i in range(0, len(ranked), sub)]
 
     def steps(self, c: int) -> int:
         return -(-int(self.counts[c]) // self.batch_size) * self.epochs
 
     def update(self, dev, start, c, first_step_only=False) -> dict:
         """Client ``c``'s local update on ``dev`` from ``start``, all its
-        real steps or only its first one; the result on the CPU."""
-        b = self.sims[dev].arrays
-        orders = [o.to(dev) for o in self.sims["cuda"].batch_orders(0, c)]
-        mask = b.mask[c]
+        real steps or only its first one; the result on the CPU. On the
+        card ``c``'s whole group runs, as many steps as its largest
+        client (gated no-op steps for the others)."""
+        cpu = self.sims["cpu"].arrays
+        lanes = next(g for g in self.groups if c in g) if dev == "cuda" \
+            else [c]
+        orders = torch.stack([torch.stack(list(
+            self.sims["cpu"].batch_orders(0, i))[:self.epochs])
+            for i in lanes]).long()
+        mask = cpu.mask[lanes]
+        steps = max(self.steps(i) for i in lanes) // self.epochs
         if first_step_only:  # only the first batch's rows are real
-            first = orders[0][:self.batch_size]
-            mask = torch.zeros_like(mask).index_copy(0, first, mask[first])
-            orders = orders[:1]
-        out, _, _ = self.sims[dev].local_update(
-            {k: v.to(dev) for k, v in start.items()}, b.idx[c], mask, b.x,
-            b.y, orders)
+            first = orders[:, 0, :self.batch_size]
+            mask = torch.zeros_like(mask).scatter(1, first,
+                                                  mask.gather(1, first))
+            orders, steps = orders[:, :1], 1
+        sim = self.sims[dev]
+        start = {k: v.to(dev) for k, v in start.items()}
+        if dev == "cuda":
+            out, _, _ = sim.cohort_update(
+                start, cpu.idx[lanes].to(dev), mask.to(dev), sim.arrays.x,
+                sim.arrays.y, orders.to(dev), steps)
+            out = {k: v[lanes.index(c)] for k, v in out.items()}
+        else:
+            out, _, _ = sim.local_update(start, cpu.idx[c], mask[0], cpu.x,
+                                         cpu.y, list(orders[0]), steps=steps)
         return {k: v.cpu() for k, v in out.items()}
 
     def perturbed(self, variables) -> dict:
@@ -533,20 +586,22 @@ class UpdateRig:
 
 
 def resnet_cpu_parity(cfg, data, variables) -> dict:
-    """Float32 local updates of ResNet-56 on the card and on the CPU from
-    the same ``variables`` for the largest client of round 0's cohort: its
-    first step alone must agree within RESNET_PARITY, and all its real
-    steps within SPREAD_FACTOR times the CPU's own spread under a PERTURB
+    """Float32 local updates of ResNet-56 from the same ``variables`` for
+    the largest client of round 0's cohort, on the card in its group
+    through the batched, graphed cohort and on the CPU alone: its first
+    step alone must agree within RESNET_PARITY, and all its real steps
+    within SPREAD_FACTOR times the CPU's own spread under a PERTURB
     relative change of the starting parameters. Raises otherwise."""
     rig = UpdateRig(cfg, data)
-    c = max(rig.cohort, key=lambda i: int(rig.counts[i]))
+    c = rig.groups[0][0]
     t0 = time.perf_counter()
     got, want = (rig.update(dev, variables, c, first_step_only=True)
                  for dev in ("cuda", "cpu"))
     for k in want:
         torch.testing.assert_close(got[k], want[k], **RESNET_PARITY)
-    report = {"client": c, "samples": int(rig.counts[c]), "first_step": {
-        "card_vs_cpu": rig.max_err(got, want), **RESNET_PARITY}}
+    report = {"client": c, "samples": int(rig.counts[c]),
+              "card_group": rig.groups[0], "first_step": {
+                  "card_vs_cpu": rig.max_err(got, want), **RESNET_PARITY}}
     got, want = rig.update("cuda", variables, c), rig.update("cpu",
                                                              variables, c)
     row = {"steps": rig.steps(c), "card_vs_cpu": rig.max_err(got, want),
@@ -585,18 +640,34 @@ def resnet_main_path(card: str) -> int:
     state = sim.run(metrics_sink=sink)
     torch.cuda.synchronize()
     t_rounds = time.perf_counter() - t0
+    cohort = cohort_report(sim)
+    # one more round with every host sync an error: the round reads
+    # nothing back from the device, and its graph replays one per step
+    before = sim.cohort_update.graph.replays
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, synced = sim.run_round(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    synced = {"train_loss": float(synced["train_loss"]),
+              "cohort": cohort_report(sim, before)}
+    if synced["cohort"]["graph_replays"] != synced["cohort"][
+            "group_steps_last_round"]:
+        raise RuntimeError(f"replays are not one per group-step: {synced}")
     launches = flash_attention.launches
 
     rounds = [{k: v for k, v in rec.items() if not k.startswith("_")}
               for rec in sink.history]
     losses = [r[k] for r in rounds for k in ("train_loss", "test_loss")]
+    losses.append(synced["train_loss"])
     not_f32 = sorted(k for k, v in state.variables.items()
                      if v.dtype != torch.float32)
     parity = resnet_cpu_parity(cfg, data, init_state.variables)
     print(json.dumps({"resnet56_main_path": {
         "rounds": cfg.fed.num_rounds, "seconds_rounds_with_eval": t_rounds,
         "init_test_loss": init_eval["loss"], "init_test_acc": init_eval["acc"],
-        "per_round": rounds, "flash_launches": launches,
+        "per_round": rounds, "flash_launches": launches, "cohort": cohort,
+        "round_under_sync_debug_error": synced,
         "cpu_parity_float32": parity, "card": card,
     }}), flush=True)
     if not all(math.isfinite(x) for x in losses):

@@ -2,24 +2,26 @@
 
 Padding discipline, as in the JAX package: every client's index row is
 padded to ``max_n``, and each epoch's batch order puts the real samples
-first (:func:`fedml_tpu_torch.core.random.padded_perm`), so a client takes
-exactly ``ceil(n_k / B)`` optimizer steps per epoch; the trailing batches
-hold only padding and leave the variables and the optimizer state as
-they are, which is the JAX package's gated no-op step. A partial last
-batch still holds padded rows (the client's own first sample): they carry
-no loss weight but enter BatchNorm's batch statistics, as in the JAX
+first (:func:`fedml_tpu_torch.core.random.padded_perm`), so a client's
+real data fills its first ``ceil(n_k / B)`` batches of an epoch. The
+local step is gated: a batch whose loss weights sum to 0 (all padding)
+leaves the parameters, the statistics and the optimizer state exactly as
+they were, so a client can take more steps than it has real batches, as
+a small client does in a group with a larger one. A partial last batch
+still holds padded rows (the client's own first sample): they carry no
+loss weight but enter BatchNorm's batch statistics, as in the JAX
 package, whose BatchNorm is not masked either.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 
+from fedml_tpu_torch.algorithms.graphs import GraphedStep
 from fedml_tpu_torch.config import TrainConfig
 from fedml_tpu_torch.core import tree as T
 from fedml_tpu_torch.models.base import FedModel, Params
@@ -41,8 +43,8 @@ class Task:
     metric_sums: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], dict]
 
 
-def zero_sums(device: torch.device | str = "cpu") -> dict:
-    return {k: torch.zeros((), device=device)
+def zero_sums(device: torch.device | str = "cpu", shape=()) -> dict:
+    return {k: torch.zeros(shape, device=device)
             for k in ("loss_sum", "correct", "count", "w_sum")}
 
 
@@ -115,10 +117,16 @@ class Optimizer:
     b2: float = 0.999
     eps: float = 1e-8
 
-    def init(self, params: Params) -> dict:
+    def init(self, params: Params, batch_shape=()) -> dict:
+        """Fresh state for ``params``; ``batch_shape`` is the leading shape
+        of stacked params (``(G,)`` for G clients), which adam's step
+        count takes. The state is all tensors, so a gate can select it and
+        vmap can batch it."""
         if self.kind == "adam":
+            device = next(iter(params.values())).device
             return {"mu": T.tree_zeros_like(params),
-                    "nu": T.tree_zeros_like(params), "count": 0}
+                    "nu": T.tree_zeros_like(params),
+                    "count": torch.zeros(batch_shape, device=device)}
         if self.momentum:
             return {"trace": T.tree_zeros_like(params)}
         return {}
@@ -137,12 +145,11 @@ class Optimizer:
                   for k in g}
             nu = {k: (1 - self.b2) * g[k] ** 2 + self.b2 * state["nu"][k]
                   for k in g}
-            # bias corrections in float32, as optax computes them
-            c = torch.tensor(float(count))
-            bc1 = 1 - torch.tensor(self.b1) ** c
-            bc2 = 1 - torch.tensor(self.b2) ** c
-            u = {k: (mu[k] / bc1.to(mu[k].device))
-                 / (torch.sqrt(nu[k] / bc2.to(nu[k].device)) + self.eps)
+            # bias corrections in float32, as optax computes them; made
+            # on the count's device, so a step creates no host tensor
+            bc1 = 1 - torch.full_like(count, self.b1) ** count
+            bc2 = 1 - torch.full_like(count, self.b2) ** count
+            u = {k: (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
                  for k in g}
             u = {k: u[k] + self.weight_decay * params[k] for k in u}
             new_state = {"mu": mu, "nu": nu, "count": count}
@@ -186,34 +193,38 @@ def compute_dtype(cfg: TrainConfig) -> torch.dtype:
     return dtype
 
 
-def build_local_update(model: FedModel, task: Task, cfg: TrainConfig,
-                       batch_size: int, max_n: int):
-    """Build ``local_update(global_vars, idx_row, mask_row, x, y, orders)
-    -> (variables, n_k, metric sums)``: ``cfg.epochs`` passes of minibatch
-    training over the client's padded data, epoch ``e`` in the batch order
-    ``orders[e]`` (a ``[max_n]`` index tensor with the real samples first,
-    from :func:`fedml_tpu_torch.core.random.padded_perm` or replayed from
-    the JAX package).
+def build_local_step(model: FedModel, task: Task, cfg: TrainConfig):
+    """One client's local step as a function of tensors alone (the JAX
+    package's ``step_body``). Returns ``(init_carry, step)``:
+
+    - ``init_carry(global_vars, lanes=None)``: the carry a client starts
+      a round from: ``params`` and ``stats`` (the global model's), the
+      optimizer's fresh state ``opt`` and zero metric ``sums``; with
+      ``lanes``, stacked for that many clients on a leading axis.
+    - ``step(carry, x_b, y_b, w_b, global_params) -> carry``: one
+      minibatch ``x_b``/``y_b`` with loss weights ``w_b``.
+      The gradient comes from ``torch.func.grad_and_value``, so the step
+      composes with ``torch.func.vmap``. It is gated: where the batch's
+      weight total is 0 the parameters, the statistics and the optimizer
+      state keep their old values (``torch.where``, no branch); the
+      metric sums add on every step.
 
     Only the parameters are differentiated and seen by the optimizer; the
     batch statistics (``model.stat_names``) are replaced after each step
-    by the ones the train-mode forward returned. Under a ``compute_dtype``
-    other than float32 the parameters and inputs are cast to it at the
-    loss boundary, the batch statistics stay float32, the logits and new
-    statistics come back as float32, and the master parameters and the
-    optimizer state stay float32 (the JAX package's policy)."""
-    if max_n % batch_size:
-        raise ValueError(f"max_n {max_n} is not a multiple of the batch "
-                         f"size {batch_size}")
-    steps_per_epoch = max_n // batch_size
+    by the ones the train-mode forward returned. Under a
+    ``compute_dtype`` other than float32 the parameters and inputs are
+    cast to it at the loss boundary, the batch statistics stay float32,
+    the logits and new statistics come back as float32, and the master
+    parameters and the optimizer state stay float32 (the JAX package's
+    policy)."""
     opt = make_client_optimizer(cfg)
     dtype = compute_dtype(cfg)
     stat_names = model.stat_names
 
     def loss_fn(params, stats, x_b, y_b, w_b, global_params):
         """Weighted-sum loss over the batch's weight total, so masked
-        samples add nothing; plus the FedProx term. Returns the loss, the
-        metric sums and the new batch statistics."""
+        samples add nothing; plus the FedProx term. Returns the loss and,
+        as aux, the metric sums and the new batch statistics."""
         compute_params, x_c = params, x_b
         if dtype != torch.float32:
             compute_params = {k: v.to(dtype) for k, v in params.items()}
@@ -226,36 +237,132 @@ def build_local_update(model: FedModel, task: Task, cfg: TrainConfig,
         if cfg.prox_mu > 0:
             diff = T.tree_sub(params, global_params)
             loss = loss + 0.5 * cfg.prox_mu * T.tree_dot(diff, diff)
-        return loss, sums, {k: new_vars[k].float() for k in stat_names}
+        return loss, (sums, {k: new_vars[k].float() for k in stat_names})
 
-    def local_update(global_vars, idx_row, mask_row, x, y, orders):
-        n_k = torch.sum(mask_row)
-        # real samples come first, so only these steps hold any
-        steps = min(math.ceil(float(n_k) / batch_size), steps_per_epoch)
+    grad_fn = torch.func.grad_and_value(loss_fn, has_aux=True)
+
+    def init_carry(global_vars: Params, lanes: int | None = None) -> dict:
+        def start(v):
+            v = v.detach()
+            return v if lanes is None else v.expand(lanes, *v.shape).clone()
+
+        params = {k: start(v) for k, v in global_vars.items()
+                  if k not in stat_names}
+        shape = () if lanes is None else (lanes,)
+        device = next(iter(params.values())).device
+        return {"params": params,
+                "stats": {k: start(global_vars[k]) for k in stat_names},
+                "opt": opt.init(params, shape),
+                "sums": zero_sums(device, shape)}
+
+    def step(carry, x_b, y_b, w_b, global_params):
+        params = carry["params"]
+        grads, (_, (sums, stats)) = grad_fn(
+            params, carry["stats"], x_b, y_b, w_b, global_params)
+        updates, opt_state = opt.update(grads, carry["opt"], params)
+        new = {"params": apply_updates(params, updates), "stats": stats,
+               "opt": opt_state}
+        valid = sums["w_sum"] > 0
+        out = T.tree_map(lambda n, o: torch.where(valid, n, o), new,
+                         {k: carry[k] for k in new})
+        out["sums"] = {k: carry["sums"][k] + sums[k] for k in sums}
+        return out
+
+    return init_carry, step
+
+
+def _finish(carry: dict, global_vars: Params) -> Params:
+    new_vars = {**carry["params"], **carry["stats"]}
+    return {k: new_vars[k] for k in global_vars}
+
+
+def build_local_update(model: FedModel, task: Task, cfg: TrainConfig,
+                       batch_size: int, max_n: int):
+    """Build ``local_update(global_vars, idx_row, mask_row, x, y, orders,
+    steps=None) -> (variables, n_k, metric sums)`` for one client:
+    ``cfg.epochs`` passes of :func:`build_local_step`'s gated step over
+    the client's padded data, epoch ``e`` in the batch order ``orders[e]``
+    (a ``[max_n]`` index tensor with the real samples first, from
+    :func:`fedml_tpu_torch.core.random.padded_perm` or replayed from the
+    JAX package). ``steps`` is the host's count of steps per epoch; by
+    default every batch of ``max_n`` is stepped, the trailing all-padding
+    ones as gated no-ops, as the JAX package's scan does."""
+    if max_n % batch_size:
+        raise ValueError(f"max_n {max_n} is not a multiple of the batch "
+                         f"size {batch_size}")
+    steps_per_epoch = max_n // batch_size
+    init_carry, step = build_local_step(model, task, cfg)
+    stat_names = model.stat_names
+
+    def local_update(global_vars, idx_row, mask_row, x, y, orders,
+                     steps: int | None = None):
         global_params = {k: v for k, v in global_vars.items()
                          if k not in stat_names}
-        params = {k: v.detach() for k, v in global_params.items()}
-        stats = {k: global_vars[k] for k in stat_names}
-        opt_state = opt.init(params)
-        msums = zero_sums(mask_row.device)
+        carry = init_carry(global_vars)
         for order in orders[:cfg.epochs]:
-            for step in range(steps):
-                take = order[step * batch_size:(step + 1) * batch_size]
+            for s in range(steps_per_epoch if steps is None else steps):
+                take = order[s * batch_size:(s + 1) * batch_size]
                 b_idx = idx_row[take].long()
-                w_b = mask_row[take]
-                live = {k: v.requires_grad_(True) for k, v in params.items()}
-                loss, sums, stats = loss_fn(live, stats, x[b_idx], y[b_idx],
-                                            w_b, global_params)
-                grads = torch.autograd.grad(loss, list(live.values()))
-                grads = dict(zip(live.keys(), grads))
-                with torch.no_grad():
-                    updates, opt_state = opt.update(grads, opt_state, params)
-                    params = apply_updates(params, updates)
-                msums = {k: msums[k] + sums[k].detach() for k in msums}
-        new_vars = {**params, **stats}
-        return {k: new_vars[k] for k in global_vars}, n_k, msums
+                carry = step(carry, x[b_idx], y[b_idx], mask_row[take],
+                             global_params)
+        return _finish(carry, global_vars), torch.sum(mask_row), \
+            carry["sums"]
 
     return local_update
+
+
+class CohortUpdate:
+    """``cohort_update(global_vars, idx_rows, mask_rows, x, y, orders,
+    steps) -> (stacked variables, n_k, metric sums)``: the local update of
+    :func:`build_local_update` for G clients at once, its step
+    ``torch.func.vmap``-ped over lanes stacked on a leading axis, with the
+    global variables and ``x``/``y`` shared by every lane (the JAX
+    package's ``in_axes=(None, 0, 0, None, None, 0)``). ``idx_rows`` and
+    ``mask_rows`` are ``[G, max_n]``, ``orders`` ``[G, epochs, max_n]``
+    int64; ``steps`` is the host's count of steps per epoch (the group's
+    largest client's real batches); a lane with fewer real batches steps
+    on padding, a gated no-op.
+
+    With ``graphed`` (the card) each step is one replay of a CUDA graph
+    (:class:`~fedml_tpu_torch.algorithms.graphs.GraphedStep`), captured
+    at the first call for its group size; that is the only path on the
+    card. Without it (the CPU) the same vmapped step runs eagerly."""
+
+    def __init__(self, model: FedModel, task: Task, cfg: TrainConfig,
+                 batch_size: int, graphed: bool):
+        self.batch_size = batch_size
+        self.epochs = cfg.epochs
+        self.stat_names = model.stat_names
+        self.init_carry, step = build_local_step(model, task, cfg)
+        self.vstep = torch.func.vmap(step, in_dims=(0, 0, 0, 0, None))
+        self.graph = GraphedStep(
+            lambda carry, gp, xy, batch: self.step(carry, *xy, *batch, gp)
+        ) if graphed else None
+
+    def step(self, carry, x, y, b_idx, w_b, global_params):
+        """One vmapped step of every lane: lane ``g`` takes rows
+        ``b_idx[g]`` of ``x``/``y`` with weights ``w_b[g]``."""
+        return self.vstep(carry, x[b_idx], y[b_idx], w_b, global_params)
+
+    def __call__(self, global_vars, idx_rows, mask_rows, x, y, orders,
+                 steps: int):
+        lanes, b = idx_rows.shape[0], self.batch_size
+        flat = orders[:, :self.epochs].reshape(lanes, -1)
+        b_all = torch.gather(idx_rows, 1, flat).long().view(
+            lanes, self.epochs, -1)
+        w_all = torch.gather(mask_rows, 1, flat).view(lanes, self.epochs, -1)
+        batches = [(b_all[:, e, s * b:(s + 1) * b],
+                    w_all[:, e, s * b:(s + 1) * b])
+                   for e in range(self.epochs) for s in range(steps)]
+        global_params = {k: v for k, v in global_vars.items()
+                         if k not in self.stat_names}
+        carry = self.init_carry(global_vars, lanes)
+        if self.graph is not None:
+            carry = self.graph.run(carry, global_params, (x, y), batches)
+        else:
+            for batch in batches:
+                carry = self.step(carry, x, y, *batch, global_params)
+        return _finish(carry, global_vars), mask_rows.sum(1), carry["sums"]
 
 
 # ---------------------------------------------------------------------------

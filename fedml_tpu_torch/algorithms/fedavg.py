@@ -4,9 +4,11 @@ mean on the server, evaluate the global model.
 The plain FedAvg path of ``fedml_tpu.algorithms.fedavg`` with the default
 defense (weighted mean, no clip, no noise), the non-finite screen, global
 momentum and the SGD server optimizer, in float32 or with a bf16 compute
-type. The cohort runs as a Python loop over clients. Settings of the JAX
-package that this package has not ported make :class:`FedAvgSim` raise
-``NotImplementedError``.
+type. The cohort runs batched, as in the JAX package: the local step
+vmapped over stacked clients, in size-sorted groups of
+``TrainConfig.cohort_groups``; eagerly on the CPU, one CUDA graph replay
+per step on a card. Settings of the JAX package that this package has
+not ported make :class:`FedAvgSim` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from fedml_tpu_torch.algorithms.base import (
+    CohortUpdate,
     Optimizer,
     apply_updates,
     build_evaluator,
@@ -23,11 +26,15 @@ from fedml_tpu_torch.algorithms.base import (
     finalize_sums,
     make_task,
 )
+from fedml_tpu_torch.algorithms.stack_utils import (
+    resolve_cohort_groups,
+    size_grouped_lanes,
+)
 from fedml_tpu_torch.config import ExperimentConfig, FedConfig
 from fedml_tpu_torch.core import random as R
 from fedml_tpu_torch.core import robust
 from fedml_tpu_torch.core import tree as T
-from fedml_tpu_torch.core.device import resolve_device
+from fedml_tpu_torch.core.device import resolve_device, to_device
 from fedml_tpu_torch.data.federated import FederatedData, arrays_and_batch
 from fedml_tpu_torch.models.base import FedModel, Params
 
@@ -160,9 +167,13 @@ class FedAvgSim:
     ``sampler(round, num_clients, clients_per_round)`` returns the round's
     cohort ids; the default draws from a generator seeded by
     ``(cfg.seed, round)``. ``batch_orders(round, client)`` returns the
-    client's per-epoch batch orders (real samples first); the default
-    draws them from a generator seeded by ``(cfg.seed, round, client)``.
-    Both hooks let a test replay the JAX package's draws."""
+    client's per-epoch batch orders (real samples first) as host tensors;
+    the default draws them from a generator seeded by ``(cfg.seed, round,
+    client)``. Both hooks let a test replay the JAX package's draws.
+
+    A round reads nothing back from the device: the cohort, the batch
+    orders and the sample counts that sort the cohort into groups and
+    set each group's steps are on the host (:meth:`_locals`)."""
 
     def __init__(self, model: FedModel, data: FederatedData,
                  cfg: ExperimentConfig, device: str | torch.device = "cuda",
@@ -189,9 +200,27 @@ class FedAvgSim:
                 f"extra vocab_size) to {self.arrays.num_classes}"
             )
         self.max_n = self.arrays.max_client_samples
+        # host copies, read once: the default batch orders and the
+        # cohort's grouping and step counts come from them
+        self._host_mask = self.arrays.mask.cpu()
+        self._host_counts = self.arrays.counts.cpu().numpy()
+        # the per-client update (the tests' reference, one client at a
+        # time) and the batched one the round runs
         self.local_update = build_local_update(
             model, self.task, cfg.train, self.batch_size, self.max_n
         )
+        self.cohort_update = CohortUpdate(
+            model, self.task, cfg.train, self.batch_size,
+            graphed=self.device.type == "cuda",
+        )
+        # cfg.train.cohort_fused (the JAX package's cohort-grouped network)
+        # is read and ignored: the cohort runs as the vmapped update
+        self._cohort_groups = resolve_cohort_groups(
+            cfg.train.cohort_groups,
+            min(cfg.fed.clients_per_round, self.arrays.num_clients),
+        )
+        # the last round's groups: (clients, steps per epoch) each
+        self.last_groups: list[tuple[int, int]] = []
         self.evaluator = build_evaluator(model, self.task)
         self.sampler = sampler or self._sample
         self.batch_orders = batch_orders or self._orders
@@ -203,7 +232,7 @@ class FedAvgSim:
 
     def _orders(self, round_idx, client):
         gen = R.generator(self.cfg.seed, round_idx, client)
-        mask_row = self.arrays.mask[client]
+        mask_row = self._host_mask[client]
         return [R.padded_perm(gen, mask_row, self.max_n)
                 for _ in range(self.cfg.train.epochs)]
 
@@ -232,27 +261,45 @@ class FedAvgSim:
         rejected = (ok.shape[0] - ok.sum()).float()
         return cleaned, n_k, rejected
 
-    def run_round(self, state: ServerState):
-        fed = self.cfg.fed
+    def _locals(self, state: ServerState):
+        """Sampling and the local updates, the round before aggregation:
+        returns the cohort's stacked variables, n_k and metric sums, in
+        cohort order.
+
+        The cohort's batch orders go to the device as one ``[C, epochs,
+        max_n]`` tensor; the lanes are sorted by their host sample counts
+        into ``cohort_groups`` groups, and each group takes
+        ``min(ceil(max n_k / B), steps per epoch)`` steps per epoch, set
+        by its largest client (the JAX package's ``cohort_steps``)."""
         a = self.arrays
-        cohort = self.sampler(state.round, a.num_clients,
-                              fed.clients_per_round)
-        results, counts, sums = [], [], []
-        for c in torch.as_tensor(cohort).tolist():
-            params, n_k, msums = self.local_update(
-                state.variables, a.idx[c], a.mask[c], a.x, a.y,
-                orders=self.batch_orders(state.round, c),
-            )
-            results.append(params)
-            counts.append(n_k)
-            sums.append(msums)
-        stacked = T.tree_stack(results)
-        n_k = torch.stack(counts)
+        epochs = self.cfg.train.epochs
+        cohort = torch.as_tensor(self.sampler(
+            state.round, a.num_clients, self.cfg.fed.clients_per_round
+        )).tolist()
+        orders = torch.stack([
+            torch.stack(list(self.batch_orders(state.round, c))[:epochs])
+            for c in cohort]).long()
+        self.last_groups = []
+
+        def group(ids, orders, counts):
+            steps = min(-(-int(counts.max()) // self.batch_size),
+                        self.max_n // self.batch_size)
+            self.last_groups.append((len(counts), steps))
+            return self.cohort_update(
+                state.variables, a.idx.index_select(0, ids),
+                a.mask.index_select(0, ids), a.x, a.y, orders, steps)
+
+        lanes = (to_device(torch.tensor(cohort), self.device),
+                 to_device(orders, self.device))
+        return size_grouped_lanes(group, lanes, self._host_counts[cohort],
+                                  self._cohort_groups)
+
+    def run_round(self, state: ServerState):
+        stacked, n_k, sums = self._locals(state)
         stacked, n_k, rejected = self._screen_nonfinite(state, stacked, n_k)
-        new_state = server_update(fed, state, stacked, n_k, local_reducer(),
-                                  self.model.stat_names)
-        reduced = {k: sum(s[k] for s in sums) for k in sums[0]}
-        fin = finalize_sums(reduced)
+        new_state = server_update(self.cfg.fed, state, stacked, n_k,
+                                  local_reducer(), self.model.stat_names)
+        fin = finalize_sums({k: v.sum() for k, v in sums.items()})
         return new_state, {"train_loss": fin["loss"],
                            "train_acc": fin["acc"],
                            "nonfinite_rejected": rejected}

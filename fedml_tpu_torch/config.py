@@ -60,13 +60,12 @@ class TrainConfig:
     # params, optimizer state and BN statistics stay float32; the network
     # runs in bf16)
     compute_dtype: str = "float32"
-    # The next three are execution-layout settings of the JAX package's
-    # compiled client loop (scan unroll factor, the cohort-grouped
-    # network, size-sorted cohort sub-groups). The reference pins that
-    # none of them changes a result. The port's client loop is a Python
-    # loop over clients and their real steps, so it reads them and does
-    # nothing with them; they are kept so that one config file drives
-    # both packages.
+    # Execution-layout settings of the JAX package's compiled client loop,
+    # none of which changes a result (the reference pins that). The port
+    # runs the cohort in cohort_groups size-sorted groups (0: groups of
+    # about 5 clients). It reads scan_unroll (the scan's unroll factor)
+    # and cohort_fused (the cohort-grouped network) and does nothing with
+    # them; they are kept so that one config file drives both packages.
     scan_unroll: int = 1
     cohort_fused: bool = True
     cohort_groups: int = 0

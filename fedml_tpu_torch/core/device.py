@@ -16,3 +16,12 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device``. To a card it goes through pinned memory
+    without blocking: the host does not wait for the device, and a CUDA
+    stream is not synchronized (a pageable copy would be)."""
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)

@@ -2,6 +2,8 @@
 
 A tree here is a flat ``dict`` from parameter name to tensor (a
 ``state_dict``); a stacked tree has a leading client axis on every tensor.
+:func:`tree_map` also walks nested dicts, tuples and lists (a local
+step's carry, a cohort's lane arguments).
 """
 
 from __future__ import annotations
@@ -9,6 +11,25 @@ from __future__ import annotations
 import torch
 
 Tree = dict[str, torch.Tensor]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` applied leaf by leaf over ``tree`` and the trees ``rest`` of
+    the same structure (nested dicts, tuples and lists of tensors)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *leaves)
+                          for leaves in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree :func:`tree_map` walks, in its order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
 
 
 def tree_zeros_like(tree: Tree) -> Tree:
@@ -29,10 +50,6 @@ def tree_scale(tree: Tree, s) -> Tree:
 
 def tree_dot(a: Tree, b: Tree) -> torch.Tensor:
     return sum(torch.sum(a[k] * b[k]) for k in a)
-
-
-def tree_stack(trees: list[Tree]) -> Tree:
-    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
 def tree_weighted_sum(stacked: Tree, weights: torch.Tensor) -> Tree:

@@ -6,18 +6,30 @@
 
 Builds one of chip_smoke.py's configurations: ``resnet56`` (the default:
 bench.py's headline, ResNet-56 with BatchNorm and bf16 compute on
-fake_cifar10, 100 clients, 10 a round, batch 32) or ``transformer_lm``
-(on fake_shakespeare). It runs one warm-up round, times the next round
-untraced, then traces with torch.profiler that same round again from the
-same state, and for the transformer one evaluation of the global model
+fake_cifar10, 100 clients, 10 a round, batch 32, 5 groups of 2 clients)
+or ``transformer_lm`` (on fake_shakespeare). It runs one warm-up round
+(which captures the cohort's CUDA graph), times the next round untraced,
+then traces with torch.profiler that same round again from the same
+state, and for the transformer one evaluation of the global model
 through the flash-attention kernel. For each it prints one JSON line: the
 wall time (host clock ending in a synchronize; for the round also the
-untraced wall time and the idle share estimated from it),
-the device's busy time (the union of the traced kernels' intervals), the
-idle share, the kernel count, the kernels that take the most device time,
-the device time by kernel family, the host ops that take the most CPU
-time, and for the convolutions which memory layout cuDNN's kernels use.
-``--trace`` also writes the round's Chrome trace.
+untraced wall time and the idle share estimated from it), the device's
+busy time (the union of the traced kernels' intervals), the idle share,
+the kernels that take the most device time, the device time by kernel
+family, the host ops that take the most CPU time, and for the
+convolutions which memory layout cuDNN's kernels use.
+
+How kernels are counted: ``kernels`` is every device activity CUPTI
+records in the window (kernels, memcpys and memsets), and a kernel that
+runs as a node of a CUDA graph is recorded like any other, once per
+replay; ``host_launches`` counts the host's launch calls by CUDA runtime
+or driver function (``cudaLaunchKernel``, ``cudaGraphLaunch``,
+``cudaMemcpyAsync``, ...), so kernels launched one by one and graph
+launches are told apart. The round's row adds its groups (clients and
+steps per epoch of each), its graph replays, and the device activities
+per replay: the window's activities less the host-launched kernels and
+copies, over the replays. ``--trace`` also writes the round's Chrome
+trace.
 """
 
 from __future__ import annotations
@@ -47,6 +59,11 @@ FAMILIES = (
     ("elementwise", re.compile(r"elementwise|vectorized", re.I)),
     ("copy", re.compile(r"memcpy|memset|copy", re.I)),
 )
+
+
+# host calls that put work on the device: one kernel or copy each, or one
+# whole graph (cudaGraphLaunch)
+HOST_LAUNCH = re.compile(r"^(cuda|cu)(Launch|GraphLaunch|Memcpy|Memset)")
 
 
 def family(name: str) -> str:
@@ -87,11 +104,13 @@ def device_summary(prof, wall_s: float, top: int = 12) -> dict:
     for name, us in per_name.items():
         families[family(name)] += us
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    launches = {a.key: a.count for a in host if HOST_LAUNCH.match(a.key)}
     return {
         "wall_s": wall_s,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
         "kernels": len(spans),
+        "host_launches": launches,
         "top_kernels_us": {name[:100]: us for name, us in heavy},
         "device_us_by_family": dict(families),
         "conv_device_us_by_layout": conv_layouts(per_name),
@@ -136,24 +155,39 @@ def main() -> int:
     cfg = resnet_config() if args.model == "resnet56" else smoke_config()
     model = create_model(cfg.model)
     sim = FedAvgSim(model, load_dataset(cfg.data), cfg)
-    state, _ = sim.run_round(sim.init())  # warm-up: kernels, allocator
+    # warm-up: the graph's capture, kernels, allocator
+    state, _ = sim.run_round(sim.init())
     torch.cuda.synchronize()
     cohort = sim.sampler(state.round, sim.arrays.num_clients,
                          cfg.fed.clients_per_round)
     counts = sim.arrays.counts[torch.as_tensor(cohort)]
-    steps = cfg.train.epochs * int(
+    # the clients' own real steps, summed (a per-client loop runs exactly
+    # these), and the steps of the groups the batched cohort runs
+    client_steps = cfg.train.epochs * int(
         torch.sum((counts + sim.batch_size - 1) // sim.batch_size))
     # the same round untraced, from the same state: the trace slows the
     # host, so the idle share of an untraced round is estimated from this
     # wall time and the traced busy time
+    graph = sim.cohort_update.graph
     t0 = time.perf_counter()
     sim.run_round(state)
     torch.cuda.synchronize()
     wall_untraced = time.perf_counter() - t0
+    before = graph.replays
     (state, _), round_row = traced(lambda: sim.run_round(state), args.trace)
+    replays = graph.replays - before
     busy = round_row.get("device_busy_s")
-    round_row = {"model": args.model, "local_steps": steps,
-                 "kernels_per_step": round_row.get("kernels", 0) / steps,
+    host = round_row.get("host_launches", {})
+    one_by_one = sum(n for k, n in host.items() if "Graph" not in k)
+    round_row = {"model": args.model, "client_steps": client_steps,
+                 "groups": [{"clients": n, "steps_per_epoch": s}
+                            for n, s in sim.last_groups],
+                 "group_steps": cfg.train.epochs * sum(
+                     s for _, s in sim.last_groups),
+                 "graph_replays": replays,
+                 "device_activities_per_replay": (
+                     (round_row.get("kernels", 0) - one_by_one) / replays
+                     if replays else "not measured"),
                  "wall_untraced_s": wall_untraced,
                  "idle_share_untraced_estimate": (
                      1.0 - busy / wall_untraced

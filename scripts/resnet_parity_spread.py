@@ -7,9 +7,10 @@ on one NVIDIA card and its host's CPU.
 For every client of round 0's cohort at chip_smoke.py's ResNet-56
 configuration (float32, TF32 off, the same random initial weights), it
 runs the client's local update, all its real steps in round 0's batch
-order, four ways: on the card and on the CPU from the initial weights,
-and on each from the weights perturbed by one float32 rounding
-(chip_smoke's PERTURB). It prints one JSON line per client: its samples
+order, four ways: on the card (the client's size-sorted group through
+the batched cohort, one CUDA graph replay per step) and on the CPU (the
+client alone) from the initial weights, and on each from the weights
+perturbed by one float32 rounding (chip_smoke's PERTURB). It prints one JSON line per client: its samples
 and steps, the largest parameter and statistic differences card vs CPU,
 CPU vs perturbed CPU and card vs perturbed card, and the largest
 parameter change of the update itself. These are the numbers behind

@@ -236,16 +236,18 @@ def test_nonfinite_screen_matches_jax_and_drops_the_client():
                           tdata, cfg, device="cpu")
     state = tsim.init()
 
-    def local_update(params, idx_row, mask_row, x, y, orders):
-        # client 1 is the one with COUNTS[1] samples
-        nan = int(mask_row.sum()) == COUNTS[1]
-        shift = float("nan") if nan else 1.0
-        out = {k: v + shift for k, v in params.items()}
-        return out, torch.sum(mask_row), {
-            k: torch.zeros(()) for k in ("loss_sum", "correct", "count",
-                                         "w_sum")}
+    def cohort_update(params, idx_rows, mask_rows, x, y, orders, steps):
+        # the round's batched update; client 1 is the one with COUNTS[1]
+        # samples
+        n_k = mask_rows.sum(1)
+        shift = torch.where(n_k == COUNTS[1], float("nan"), 1.0)
+        out = {k: v[None] + shift.reshape((-1,) + (1,) * v.ndim)
+               for k, v in params.items()}
+        return out, n_k, {
+            k: torch.zeros(len(n_k)) for k in ("loss_sum", "correct",
+                                               "count", "w_sum")}
 
-    tsim.local_update = local_update
+    tsim.cohort_update = cohort_update
     new_state, metrics = tsim.run_round(state)
     assert float(metrics["nonfinite_rejected"]) == 1.0
     for k, v in state.variables.items():

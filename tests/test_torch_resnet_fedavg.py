@@ -151,17 +151,19 @@ def test_server_update_keeps_stats_out_of_the_optimizer():
                 np.asarray(jstate.variables["batch_stats"][k]), rtol=1e-6)
 
 
-def test_two_fedavg_rounds_match_jax():
-    """Two rounds of 3 of 4 clients with the JAX package's cohorts and
-    batch orders replayed, server_lr 0.7 and gmf 0.5: parameters, batch
-    statistics, train metrics and the global evaluation (on the running
-    statistics) agree."""
+@pytest.mark.parametrize("clients,groups", [(3, 0), (4, 2)])
+def test_two_fedavg_rounds_match_jax(clients, groups):
+    """Two rounds of 3 of 4 clients (one group) and of 4 of 4 clients in
+    2 size-sorted groups, with the JAX package's cohorts and batch orders
+    replayed, server_lr 0.7 and gmf 0.5: parameters, batch statistics,
+    train metrics and the global evaluation (on the running statistics)
+    agree."""
     flax_net, variables, model, params = flax_resnet8(seed=2)
     jdata, tdata = _data()
     common = dict(
         data=dict(num_clients=len(COUNTS), batch_size=B),
-        train=dict(lr=0.1, momentum=0.5, epochs=1),
-        fed=dict(num_rounds=2, clients_per_round=3, server_lr=0.7,
+        train=dict(lr=0.1, momentum=0.5, epochs=1, cohort_groups=groups),
+        fed=dict(num_rounds=2, clients_per_round=clients, server_lr=0.7,
                  gmf=0.5),
     )
 
