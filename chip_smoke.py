@@ -63,11 +63,26 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    start.
    It prints a "resnet56_main_path" line (its seconds are a one-sample
    smoke figure, not a metric).
-7. A "kernels" JSON line with one entry per kernel (flash_attention, the
+7. The reference bench's FedAvg families (bench.py FAMILY_SPECS, copied
+   here as FAMILY_SPECS): mnist_lr, femnist_cnn, cifar_mobilenet,
+   fedopt_resnet18gn (server adam), shakespeare_lstm and
+   stackoverflow_lstm, each at its published shape (clients, cohort,
+   batch, widths) with bf16 compute on the graphed, batched cohort. Each
+   runs 2 FedAvgSim rounds and prints a "family" line: its clients, the
+   group steps and graph replays of round 2, the test loss at init and
+   after round 2, and round 2's wall time (host clock ending in a
+   synchronize; one sample, a smoke figure). Losses must be finite and
+   the variables float32, the cohort must run as graph replays, and the
+   flash counters, set to 0 before each family, must read 0 after it.
+   Then the first local step of round 1's largest client, in float32
+   with TF32 off, through its graphed group on the card and alone on the
+   CPU, must agree within the family's band (FAMILY_PARITY).
+8. A "kernels" JSON line with one entry per kernel (flash_attention, the
    float32 body, and flash_attention_mma, the bf16/fp16 body), with each
-   kernel's launches on the transformer path and on the ResNet-56 path
-   (the batched cohort runs no hand-written kernel), the card's name and
-   power limit, and last the result line {"ok": true, "device": {...}}.
+   kernel's launches on the transformer path, on the ResNet-56 path and
+   on each family (the batched cohort runs no hand-written kernel), the
+   card's name and power limit, and last the result line {"ok": true,
+   "device": {...}}.
 """
 
 from __future__ import annotations
@@ -683,17 +698,196 @@ def resnet_main_path(card: str) -> int:
     return launches
 
 
-def kernel_entry(name, source, launches, resnet_launches, rows, row,
+# bench.py's FAMILY_SPECS (the reference bench's config families, each
+# one of the reference FedML benchmark's published shapes), without the
+# bench's metric names and torch baselines
+FAMILY_SPECS = {
+    # 1000-client cross-device MNIST + LR
+    "mnist_lr": dict(
+        dataset="mnist", n_train=60000, num_clients=1000,
+        model=("lr", 10, (28, 28, 1)), batch=10, lr=0.03, cpr=10),
+    # FEMNIST + the FedAvg CNN, non-IID, 3400 clients
+    "femnist_cnn": dict(
+        dataset="femnist", n_train=170000, num_clients=3400,
+        model=("cnn_fedavg", 62, (28, 28, 1)), batch=20, lr=0.1, cpr=10),
+    # CIFAR-10 + MobileNet, cross-silo
+    "cifar_mobilenet": dict(
+        dataset="cifar10", n_train=6000, num_clients=100,
+        model=("mobilenet", 10, (32, 32, 3)), batch=32, lr=0.03, cpr=10),
+    # FedOpt (server adam) on ResNet-18-GN, fed_cifar100
+    "fedopt_resnet18gn": dict(
+        dataset="fed_cifar100", n_train=50000, num_clients=500,
+        model=("resnet18_gn", 100, (32, 32, 3)), batch=20, lr=0.1, cpr=10,
+        server_optimizer="adam", server_lr=1e-3),
+    # Shakespeare next-char LSTM: 715 clients, batch 4, lr 1.0
+    "shakespeare_lstm": dict(
+        dataset="shakespeare", n_train=14300, num_clients=715,
+        model=("rnn", 90, (80,)), batch=4, lr=1.0, cpr=10),
+    # StackOverflow next-word LSTM(670), vocab 2000, 50 clients a round;
+    # population 342,477 scaled to 3,424 (only the sampling changes)
+    "stackoverflow_lstm": dict(
+        dataset="stackoverflow_nwp", n_train=68480, num_clients=3424,
+        model=("rnn_stackoverflow", 2000, (20,)), batch=16,
+        lr=10 ** -0.5, cpr=50, model_extra=(("vocab_size", 2000),)),
+}
+# card vs CPU, the first float32 local step of each family's largest
+# client (TF32 off): the convolution families at ResNet-56's band, the
+# dense and LSTM families at a tighter one, about 100 times what an H100
+# measured (at most 6e-8: only the order of the sums differs in their
+# matmuls)
+DENSE_PARITY = dict(atol=1e-5, rtol=1e-5)
+FAMILY_PARITY = {
+    "mnist_lr": DENSE_PARITY,
+    "femnist_cnn": RESNET_PARITY,
+    "cifar_mobilenet": RESNET_PARITY,
+    "fedopt_resnet18gn": RESNET_PARITY,
+    "shakespeare_lstm": DENSE_PARITY,
+    "stackoverflow_lstm": DENSE_PARITY,
+}
+
+
+def family_setup(name: str):
+    """(config, federated data) of one of FAMILY_SPECS, as bench.py's
+    build_family_sim makes them: hetero LDA alpha 0.5, 1 epoch, bf16
+    compute, the bench's procedural data at the family's sizes."""
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from fedml_tpu_torch.data import (
+        make_fake_image_dataset,
+        make_fake_text_dataset,
+    )
+
+    spec = FAMILY_SPECS[name]
+    model, num_classes, shape = spec["model"]
+    dcfg = DataConfig(dataset=spec["dataset"],
+                      num_clients=spec["num_clients"],
+                      partition_method="hetero", partition_alpha=0.5,
+                      batch_size=spec["batch"], seed=0)
+    cfg = ExperimentConfig(
+        data=dcfg,
+        model=ModelConfig(name=model, num_classes=num_classes,
+                          input_shape=shape,
+                          extra=spec.get("model_extra", ())),
+        train=TrainConfig(lr=spec["lr"], epochs=1, compute_dtype="bfloat16",
+                          scan_unroll=8),
+        fed=FedConfig(num_rounds=2, clients_per_round=spec["cpr"],
+                      eval_every=10 ** 9,
+                      server_optimizer=spec.get("server_optimizer", "sgd"),
+                      server_lr=spec.get("server_lr", 1.0)),
+        seed=0)
+    text = spec["dataset"] in ("shakespeare", "stackoverflow_nwp")
+    n_test = max(500 if text else 1000, spec["n_train"] // 10)
+    if spec["dataset"] == "shakespeare":
+        data = make_fake_text_dataset(dcfg, n_train=spec["n_train"],
+                                      n_test=n_test)
+    elif spec["dataset"] == "stackoverflow_nwp":
+        data = make_fake_text_dataset(dcfg, seq_len=20, vocab=2000,
+                                      n_train=spec["n_train"], n_test=n_test)
+    else:
+        data = make_fake_image_dataset(spec["dataset"], dcfg,
+                                       n_train=spec["n_train"], n_test=n_test)
+    return cfg, data
+
+
+def family_parity(name, cfg, data, variables) -> dict:
+    """The first float32 local step of round 1's largest client, on the
+    card through its graphed group and on the CPU alone, from the same
+    ``variables``; raises outside FAMILY_PARITY."""
+    rig = UpdateRig(cfg, data)
+    c = rig.groups[0][0]
+    got, want = (rig.update(dev, variables, c, first_step_only=True)
+                 for dev in ("cuda", "cpu"))
+    band = FAMILY_PARITY[name]
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], **band)
+    # the largest share of the band an element takes (1: at its edge)
+    used = max(((got[k] - want[k]).abs()
+                / (band["atol"] + band["rtol"] * want[k].abs())).max().item()
+               for k in want)
+    return {"client": c, "samples": int(rig.counts[c]),
+            "card_group": rig.groups[0], "card_vs_cpu": rig.max_err(got, want),
+            "band_used": used, **band}
+
+
+def family_path(name: str, card: str) -> int:
+    """Phase 7 for one family: 2 FedAvgSim rounds at its published shape,
+    then the card-vs-CPU first step. Returns the flash kernels' launches
+    in the rounds (0: no family has attention)."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+
+    t_setup = time.perf_counter()
+    cfg, data = family_setup(name)
+    sim = FedAvgSim(create_model(cfg.model), data, cfg)
+    init_state = sim.init()
+    init_eval = sim.evaluate_global(init_state)
+    t_setup = time.perf_counter() - t_setup
+
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    state, m1 = sim.run_round(init_state)  # captures the cohort's graph
+    torch.cuda.synchronize()
+    before = sim.cohort_update.graph.replays
+    t0 = time.perf_counter()
+    state, m2 = sim.run_round(state)
+    torch.cuda.synchronize()
+    t_round2 = time.perf_counter() - t0
+    launches = flash_attention.launches
+    cohort = cohort_report(sim, before)
+    final = sim.evaluate_global(state)
+    not_f32 = sorted(k for k, v in state.variables.items()
+                     if v.dtype != torch.float32)
+    losses = [float(m1["train_loss"]), float(m2["train_loss"]),
+              init_eval["loss"], final["loss"]]
+    parity = family_parity(name, cfg, data, init_state.variables)
+    print(json.dumps({"family": {
+        "name": name, "model": cfg.model.name,
+        "clients": cfg.data.num_clients,
+        "clients_per_round": cfg.fed.clients_per_round,
+        "batch": cfg.data.batch_size,
+        "server_optimizer": cfg.fed.server_optimizer,
+        "parameters": sum(v.numel() for k, v in state.variables.items()
+                          if k not in sim.model.stat_names),
+        "group_steps_round2": cohort["group_steps_last_round"],
+        "graph_replays_round2": cohort["graph_replays"],
+        "groups_round2": cohort["groups"],
+        "train_loss": losses[:2], "init_test_loss": init_eval["loss"],
+        "test_loss_round2": final["loss"], "test_acc_round2": final["acc"],
+        "round2_wall_s": t_round2, "setup_s": t_setup,
+        "flash_launches": launches, "first_step_float32": parity,
+        "card": card,
+    }}), flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{name}: non-finite loss {losses}")
+    if not_f32:
+        raise RuntimeError(f"{name}: variables not float32: {not_f32}")
+    if cohort["graph_replays"] != cohort["group_steps_last_round"]:
+        raise RuntimeError(f"{name}: replays are not one per group-step: "
+                           f"{cohort}")
+    if launches != 0:
+        raise RuntimeError(f"{name} launched flash attention {launches} "
+                           "times")
+    del sim
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kernel_entry(name, source, launches, path_launches, rows, row,
                  note=None) -> dict:
     """One entry of the "kernels" line: the timed ``row``'s numbers, the
     largest error over ``rows``, and the launches on each main path
-    (``launches``: the transformer's)."""
+    (``launches``: the transformer's; ``path_launches``: the others')."""
     entry = {
         "name": name, "route": "cuda", "source": source,
         "replaces": "fedml_tpu/ops/flash_attention.py:119",
         "launches": launches,
-        "launches_by_path": {"transformer_lm": launches,
-                             "resnet56": resnet_launches},
+        "launches_by_path": {"transformer_lm": launches, **path_launches},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "library_ratio", "shape",
@@ -716,25 +910,27 @@ def main() -> int:
     # 4-5. the transformer path, and the kernels' launches on it
     launches, mma_launches = main_path()
     # 6. the ResNet-56 path (no hand-written kernel on it)
-    resnet_launches = resnet_main_path(card)
+    paths = {"resnet56": resnet_main_path(card)}
+    # 7. the bench's families (no hand-written kernel on any)
+    for name in FAMILY_SPECS:
+        paths[name] = family_path(name, card)
 
-    # 7. report: the float32 entry's times are at the transformer path's
+    # 8. report: the float32 entry's times are at the transformer path's
     # shape, the tensor-core entry's at long context in bf16
     source = "fedml_tpu_torch/csrc/flash_attention.cu"
     f32 = [r for r in rows if r["dtype"] == "float32"]
     half = [r for r in rows if r["dtype"] != "float32"]
     print(json.dumps({"kernels": [
-        kernel_entry("flash_attention", source, launches, resnet_launches,
-                     f32, next(r for r in f32 if r["causal"]
-                               and r["shape"] == list(MAIN_SHAPE))),
+        kernel_entry("flash_attention", source, launches, paths, f32,
+                     next(r for r in f32 if r["causal"]
+                          and r["shape"] == list(MAIN_SHAPE))),
         kernel_entry(
-            "flash_attention_mma", source, mma_launches, resnet_launches,
-            half, next(
-                r for r in half if r["causal"] and r["dtype"] == "bfloat16"
-                and r["shape"] == list(LONG_SHAPE)),
+            "flash_attention_mma", source, mma_launches, paths, half,
+            next(r for r in half if r["causal"] and r["dtype"] == "bfloat16"
+                 and r["shape"] == list(LONG_SHAPE)),
             note="bf16/fp16 only: the transformer path evaluates in "
-                 "float32 and the ResNet-56 path has no attention, so "
-                 "neither launches this kernel"),
+                 "float32 and no other path has attention, so none "
+                 "launches this kernel"),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

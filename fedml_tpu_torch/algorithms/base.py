@@ -101,12 +101,30 @@ def make_task(name: str) -> Task:
 # ---------------------------------------------------------------------------
 
 
+# the accumulators' starting values of optax.adagrad (scale_by_rss) and
+# optax.yogi (scale_by_yogi, both moments)
+ADAGRAD_INITIAL_ACCUMULATOR = 0.1
+YOGI_INITIAL_ACCUMULATOR = 1e-6
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """``kind`` "sgd": clip -> add weight decay -> momentum trace ->
-    scale by -lr (``optax.chain(clip_by_global_norm, add_decayed_weights,
-    sgd)``); ``kind`` "adam": clip -> adam moments with bias correction ->
-    add weight decay -> scale by -lr (``optax.adamw``)."""
+    """optax's transformations, on dicts of tensors. Each ends by scaling
+    by -lr.
+
+    - "sgd": clip -> add weight decay -> momentum trace
+      (``optax.chain(clip_by_global_norm, add_decayed_weights, sgd)``).
+    - "adam": clip -> adam moments with bias correction -> add weight
+      decay (``optax.adamw``; with weight decay 0 it is ``optax.adam``).
+    - "adagrad": ``optax.adagrad``: the sum of squares starts at
+      ``ADAGRAD_INITIAL_ACCUMULATOR``, the update is ``g * rsqrt(sum +
+      eps)`` (eps inside the root; 0 where the sum is 0). Use eps 1e-7.
+    - "yogi": ``optax.yogi``: both moments start at
+      ``YOGI_INITIAL_ACCUMULATOR``; ``nu <- nu - (1 - b2) * sign(nu - g^2)
+      * g^2``; adam's bias correction and ``mu / (sqrt(nu) + eps)``. Use
+      eps 1e-3.
+
+    The server optimizers are these with no clip and no weight decay."""
 
     kind: str
     lr: float
@@ -119,14 +137,19 @@ class Optimizer:
 
     def init(self, params: Params, batch_shape=()) -> dict:
         """Fresh state for ``params``; ``batch_shape`` is the leading shape
-        of stacked params (``(G,)`` for G clients), which adam's step
-        count takes. The state is all tensors, so a gate can select it and
-        vmap can batch it."""
-        if self.kind == "adam":
+        of stacked params (``(G,)`` for G clients), which the step count
+        of adam and yogi takes. The state is all tensors, so a gate can
+        select it and vmap can batch it."""
+        def full(value):
+            return {k: torch.full_like(v, value) for k, v in params.items()}
+
+        if self.kind in ("adam", "yogi"):
             device = next(iter(params.values())).device
-            return {"mu": T.tree_zeros_like(params),
-                    "nu": T.tree_zeros_like(params),
+            start = 0.0 if self.kind == "adam" else YOGI_INITIAL_ACCUMULATOR
+            return {"mu": full(start), "nu": full(start),
                     "count": torch.zeros(batch_shape, device=device)}
+        if self.kind == "adagrad":
+            return {"sum_of_squares": full(ADAGRAD_INITIAL_ACCUMULATOR)}
         if self.momentum:
             return {"trace": T.tree_zeros_like(params)}
         return {}
@@ -139,12 +162,16 @@ class Optimizer:
             clipped = {k: (x / g_norm) * self.clip_norm for k, x in g.items()}
             keep = g_norm < self.clip_norm
             g = {k: torch.where(keep, g[k], clipped[k]) for k in g}
-        if self.kind == "adam":
+        if self.kind in ("adam", "yogi"):
             count = state["count"] + 1
             mu = {k: (1 - self.b1) * g[k] + self.b1 * state["mu"][k]
                   for k in g}
-            nu = {k: (1 - self.b2) * g[k] ** 2 + self.b2 * state["nu"][k]
-                  for k in g}
+            if self.kind == "adam":
+                nu = {k: (1 - self.b2) * g[k] ** 2 + self.b2 * state["nu"][k]
+                      for k in g}
+            else:
+                nu = {k: v - (1 - self.b2) * torch.sign(v - g[k] ** 2)
+                      * g[k] ** 2 for k, v in state["nu"].items()}
             # bias corrections in float32, as optax computes them; made
             # on the count's device, so a step creates no host tensor
             bc1 = 1 - torch.full_like(count, self.b1) ** count
@@ -153,6 +180,11 @@ class Optimizer:
                  for k in g}
             u = {k: u[k] + self.weight_decay * params[k] for k in u}
             new_state = {"mu": mu, "nu": nu, "count": count}
+        elif self.kind == "adagrad":
+            sums = {k: g[k] ** 2 + state["sum_of_squares"][k] for k in g}
+            u = {k: torch.where(sums[k] > 0, torch.rsqrt(sums[k] + self.eps),
+                                0.0) * g[k] for k in g}
+            new_state = {"sum_of_squares": sums}
         elif self.kind == "sgd":
             if self.weight_decay > 0:
                 g = {k: g[k] + self.weight_decay * params[k] for k in g}

@@ -1,13 +1,14 @@
 """FedAvg: sample a cohort, train each client locally, take the weighted
 mean on the server, evaluate the global model.
 
-The plain FedAvg path of ``fedml_tpu.algorithms.fedavg`` with the default
-defense (weighted mean, no clip, no noise), the non-finite screen, global
-momentum and the SGD server optimizer, in float32 or with a bf16 compute
-type. The cohort runs batched, as in the JAX package: the local step
-vmapped over stacked clients, in size-sorted groups of
-``TrainConfig.cohort_groups``; eagerly on the CPU, one CUDA graph replay
-per step on a card. Settings of the JAX package that this package has
+The FedAvg family of ``fedml_tpu.algorithms.fedavg`` (fedavg, fedopt,
+fedprox through ``TrainConfig.prox_mu``, fednova) with the default defense
+(weighted mean, no clip, no noise), the non-finite screen, global
+momentum and the server optimizers sgd, adam, adagrad and yogi, in
+float32 or with a bf16 compute type. The cohort runs batched, as in the
+JAX package: the local step vmapped over stacked clients, in size-sorted
+groups of ``TrainConfig.cohort_groups``; eagerly on the CPU, one CUDA
+graph replay per step on a card. Settings of the JAX package that this package has
 not ported make :class:`FedAvgSim` raise ``NotImplementedError``.
 """
 
@@ -40,21 +41,22 @@ from fedml_tpu_torch.models.base import FedModel, Params
 
 # (setting, its default, the ROADMAP item that ports it)
 _NOT_PORTED = (
-    ("fed.robust_method", "mean", "robust methods other than mean"),
-    ("fed.robust_norm_clip", 0.0, "robust methods other than mean"),
-    ("fed.robust_noise_stddev", 0.0, "robust methods other than mean"),
-    ("fed.server_optimizer", "sgd", "the other server optimizers"),
-    ("fed.elastic_buckets", False, "Slice 2 item 9 (core/elastic.py)"),
-    ("fed.client_block_size", 0, "Slice 2 item 9 (core/bulk.py)"),
-    ("fed.fuse_rounds", 1, "Slice 2 item 8 (core/fuse.py)"),
-    ("fed.compress", "none", "Slice 2 item 10 (core/compress.py)"),
-    ("fed.peft", "none", "Slice 3 item 15 (PEFT)"),
+    ("fed.robust_method", "mean", "Queue A item 9 (core/robust.py)"),
+    ("fed.robust_norm_clip", 0.0, "Queue A item 9 (core/robust.py)"),
+    ("fed.robust_noise_stddev", 0.0, "Queue A item 9 (core/robust.py)"),
+    ("fed.elastic_buckets", False, "Queue A item 7 (core/elastic.py)"),
+    ("fed.client_block_size", 0, "Queue A item 7 (core/bulk.py)"),
+    ("fed.fuse_rounds", 1, "Queue A item 6 (core/fuse.py)"),
+    ("fed.compress", "none", "Queue A item 8 (core/compress.py)"),
+    ("fed.peft", "none", "Queue A item 12 (PEFT)"),
 )
 
 
 def check_ported(cfg: ExperimentConfig) -> None:
     """Raise ``NotImplementedError`` for a setting this package does not
-    port yet, naming the ROADMAP item that will."""
+    port yet, naming the ROADMAP item that will; ``ValueError`` for
+    fednova with a reducing defense, as the JAX package does."""
+    robust.check_fednova_compat(cfg.fed.algorithm, cfg.fed.robust_method)
     for path, default, item in _NOT_PORTED:
         section, field = path.split(".")
         value = getattr(getattr(cfg, section), field)
@@ -63,15 +65,10 @@ def check_ported(cfg: ExperimentConfig) -> None:
                 f"{path}={value!r} is not ported to fedml_tpu_torch yet "
                 f"(ROADMAP: {item})"
             )
-    if cfg.fed.algorithm == "fednova":
-        raise NotImplementedError(
-            "algorithm='fednova' is not ported to fedml_tpu_torch yet "
-            "(ROADMAP: FedNova)"
-        )
     if cfg.adversary.enabled():
         raise NotImplementedError(
             "adversary injection is not ported to fedml_tpu_torch yet "
-            "(ROADMAP: Slice 2 item 10, core/adversary.py)"
+            "(ROADMAP: Queue A item 8, core/adversary.py)"
         )
 
 
@@ -107,14 +104,33 @@ def local_reducer() -> Reducer:
 
 def make_server_optimizer(name: str, lr: float, momentum: float
                           ) -> Optimizer:
-    """Server optimizer; "sgd" with lr 1 and no momentum is plain
-    FedAvg."""
+    """Server optimizers with optax's defaults (``optax.sgd``,
+    ``optax.adam``, ``optax.adagrad``, ``optax.yogi``); "sgd" with lr 1
+    and no momentum is plain FedAvg."""
     if name == "sgd":
         return Optimizer("sgd", lr, momentum=momentum)
-    raise NotImplementedError(
-        f"server optimizer {name!r} is not ported to fedml_tpu_torch yet "
-        "(ROADMAP: the other server optimizers)"
-    )
+    if name == "adam":
+        return Optimizer("adam", lr)
+    if name == "adagrad":
+        return Optimizer("adagrad", lr, eps=1e-7)
+    if name == "yogi":
+        return Optimizer("yogi", lr, eps=1e-3)
+    raise ValueError(f"unknown server optimizer: {name}")
+
+
+class LocalSteps(NamedTuple):
+    """How many local steps a client takes: FedNova's tau."""
+
+    batch_size: int
+    steps_per_epoch: int
+    epochs: int
+
+    def tau(self, n_k: torch.Tensor) -> torch.Tensor:
+        """``[C]``: each client's real steps, ``clip(ceil(n_k / B), 1,
+        steps_per_epoch) * epochs`` (real samples fill the first batches
+        of an epoch, so this is exact)."""
+        return torch.clamp(torch.ceil(n_k / self.batch_size), 1,
+                           self.steps_per_epoch) * self.epochs
 
 
 def _server_delta_step(fed: FedConfig, state: ServerState, params: Params,
@@ -138,16 +154,34 @@ def _server_delta_step(fed: FedConfig, state: ServerState, params: Params,
 @torch.no_grad()
 def server_update(fed: FedConfig, state: ServerState, stacked_vars: Params,
                   n_k: torch.Tensor, red: Reducer,
-                  stat_names: tuple[str, ...] = ()) -> ServerState:
+                  stat_names: tuple[str, ...] = (),
+                  steps: LocalSteps | None = None) -> ServerState:
     """One server step from stacked client results. Parameters: the
     weighted mean of the clients' deltas, then
     :func:`_server_delta_step`. Batch statistics (``stat_names``): the
     plain weighted mean of the clients' values; they never pass through
-    the global momentum or the server optimizer."""
+    the global momentum or the server optimizer.
+
+    FedNova (``fed.algorithm == "fednova"``, which needs ``steps``): each
+    delta is normalized by its client's steps ``tau_k``, and the aggregate
+    is ``tau_eff * wmean(delta_k / tau_k, n_k)`` with ``tau_eff = sum(n_k
+    tau_k) / sum(n_k)``. A padded or screened row has weight 0 wherever
+    ``n_k`` appears, so it adds nothing."""
+    robust.check_fednova_compat(fed.algorithm, fed.robust_method)
     params = {k: v for k, v in state.variables.items()
               if k not in stat_names}
     deltas = {k: stacked_vars[k] - v[None] for k, v in params.items()}
-    agg_delta = red.wmean(deltas, n_k)
+    if fed.algorithm == "fednova":
+        if steps is None:
+            raise ValueError("fednova's server step needs the clients' "
+                             "LocalSteps")
+        tau = steps.tau(n_k)
+        tau_eff = torch.sum(n_k * tau) / torch.sum(n_k)
+        normed = {k: v / tau.reshape((-1,) + (1,) * (v.ndim - 1))
+                  for k, v in deltas.items()}
+        agg_delta = T.tree_scale(red.wmean(normed, n_k), tau_eff)
+    else:
+        agg_delta = red.wmean(deltas, n_k)
     new_params, new_opt_state, new_momentum = _server_delta_step(
         fed, state, params, agg_delta
     )
@@ -200,6 +234,9 @@ class FedAvgSim:
                 f"extra vocab_size) to {self.arrays.num_classes}"
             )
         self.max_n = self.arrays.max_client_samples
+        self.local_steps = LocalSteps(self.batch_size,
+                                      self.max_n // self.batch_size,
+                                      cfg.train.epochs)
         # host copies, read once: the default batch orders and the
         # cohort's grouping and step counts come from them
         self._host_mask = self.arrays.mask.cpu()
@@ -298,7 +335,8 @@ class FedAvgSim:
         stacked, n_k, sums = self._locals(state)
         stacked, n_k, rejected = self._screen_nonfinite(state, stacked, n_k)
         new_state = server_update(self.cfg.fed, state, stacked, n_k,
-                                  local_reducer(), self.model.stat_names)
+                                  local_reducer(), self.model.stat_names,
+                                  self.local_steps)
         fin = finalize_sums({k: v.sum() for k, v in sums.items()})
         return new_state, {"train_loss": fin["loss"],
                            "train_acc": fin["acc"],

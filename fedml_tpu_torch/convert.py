@@ -5,9 +5,11 @@ The input is the flax variables as nested dicts of numpy arrays. Flax
 ``Dense`` kernels are ``[in, out]`` and become ``Linear.weight`` ``[out,
 in]``; ``Conv`` kernels are HWIO and become OIHW; ``Embed.embedding``
 becomes ``Embedding.weight``; ``LayerNorm`` and ``BatchNorm``
-``scale``/``bias`` become ``weight``/``bias``, and ``batch_stats``
-``mean``/``var`` become ``BatchNorm``'s ``running_mean``/``running_var``.
-Flax's automatic module names are mapped explicitly.
+``scale``/``bias`` (and ``GroupNorm``'s) become ``weight``/``bias``, and
+``batch_stats`` ``mean``/``var`` become ``BatchNorm``'s
+``running_mean``/``running_var``. An ``OptimizedLSTMCell``'s eight kernels
+pack into the port's ``LSTM`` (gates i, f, g, o). Flax's automatic module
+names are mapped explicitly.
 """
 
 from __future__ import annotations
@@ -59,17 +61,29 @@ def transformer_state_dict(
 
 
 # flax automatic names -> port module names, by architecture (the port's
-# class name); "fc1" and "head" are named alike on both sides
+# class name); "fc1" and "head" are named alike on both sides. A norm is
+# BatchNorm_k or GroupNorm_k, whichever the model has.
+_RESNET_TOP = {"Conv2D_0": "conv", "BatchNorm_0": "bn", "GroupNorm_0": "bn"}
 _VISION_TOP = {
     "LogisticRegression": {"Dense_0": "linear"},
     "CNNOriginalFedAvg": {"Conv2D_0": "conv1", "Conv2D_1": "conv2"},
-    "ResNetCIFAR": {"Conv2D_0": "conv", "BatchNorm_0": "bn"},
+    "ResNetCIFAR": _RESNET_TOP,
+    "ResNet18GN": _RESNET_TOP,
+    "MobileNet": {"Conv2D_0": "conv", "BatchNorm_0": "bn",
+                  "Dense_0": "head"},
 }
-# inside a BasicBlock: in a projecting block the third conv and BatchNorm
-# are the shortcut's
-_BASIC_BLOCK = {"Conv2D_0": "conv1", "BatchNorm_0": "bn1",
-                "Conv2D_1": "conv2", "BatchNorm_1": "bn2",
-                "Conv2D_2": "proj", "BatchNorm_2": "proj_bn"}
+# inside a block (BasicBlock_k or DepthwiseSeparable_k, numbered across
+# the whole model as blocks.k): in a projecting BasicBlock the third conv
+# and norm are the shortcut's
+_BLOCKS = {
+    "BasicBlock": {"Conv2D_0": "conv1", "Conv2D_1": "conv2",
+                   "Conv2D_2": "proj",
+                   **{f"{kind}_{i}": name for kind in ("BatchNorm",
+                                                       "GroupNorm")
+                      for i, name in enumerate(("bn1", "bn2", "proj_bn"))}},
+    "DepthwiseSeparable": {"Conv2D_0": "dw", "BatchNorm_0": "dw_bn",
+                           "Conv2D_1": "pw", "BatchNorm_1": "pw_bn"},
+}
 _VISION_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
                 "mean": "running_mean", "var": "running_var"}
 
@@ -78,21 +92,23 @@ def vision_state_dict(variables: Mapping[str, Any], arch: str
                       ) -> dict[str, torch.Tensor]:
     """Flax variables (``{"params": ..., "batch_stats": ...}``) of a vision
     model to the port's variables; ``arch`` is the port's class name
-    (``LogisticRegression``, ``CNNOriginalFedAvg`` or ``ResNetCIFAR``).
-    ``BasicBlock_k`` is numbered across all three stages and becomes
-    ``blocks.k``."""
+    (``LogisticRegression``, ``CNNOriginalFedAvg``, ``ResNetCIFAR``,
+    ``ResNet18GN`` or ``MobileNet``). ``BasicBlock_k`` (numbered across
+    all stages) and ``DepthwiseSeparable_k`` become ``blocks.k``."""
     top = _VISION_TOP[arch]
     out = {}
 
     def module_name(path):
-        parts = []
+        parts, block = [], None
         for i, name in enumerate(path):
-            if name.startswith("BasicBlock_"):
-                parts.append(f"blocks.{int(name[len('BasicBlock_'):])}")
+            kind, _, k = name.rpartition("_")
+            if kind in _BLOCKS:
+                parts.append(f"blocks.{int(k)}")
+                block = _BLOCKS[kind]
             elif i == 0:
                 parts.append(top.get(name, name))
             else:
-                parts.append(_BASIC_BLOCK[name])
+                parts.append(block[name])
         return ".".join(parts)
 
     def walk(tree, path):
@@ -108,4 +124,44 @@ def vision_state_dict(variables: Mapping[str, Any], arch: str
 
     for collection in ("params", "batch_stats"):
         walk(variables.get(collection, {}), ())
+    return out
+
+
+# the gates of an OptimizedLSTMCell, in the port's packing order
+_GATES = ("i", "f", "g", "o")
+# flax automatic names of the LSTM models -> port module names
+_NLP_TOP = {
+    "CharLSTM": {"Embed_0": "embed", "OptimizedLSTMCell_0": "lstm1",
+                 "OptimizedLSTMCell_1": "lstm2", "Dense_0": "head"},
+    "NWPLSTM": {"Embed_0": "embed", "OptimizedLSTMCell_0": "lstm",
+                "Dense_0": "fc", "Dense_1": "head"},
+}
+
+
+def nlp_state_dict(variables: Mapping[str, Any], arch: str
+                   ) -> dict[str, torch.Tensor]:
+    """Flax variables of ``fedml_tpu.models.nlp``'s ``CharLSTM`` or
+    ``NWPLSTM`` (``arch``) to the port's. An ``OptimizedLSTMCell_k``'s
+    input kernels ``ii, if, ig, io`` (``[in, H]``, no bias) become
+    ``weight_ih`` ``[4H, in]``, its hidden kernels ``hi, hf, hg, ho``
+    become ``weight_hh`` ``[4H, H]`` and their biases ``bias`` ``[4H]``,
+    gates in that order."""
+    out = {}
+    for scope, tree in variables["params"].items():
+        name = _NLP_TOP[arch][scope]
+        if scope.startswith("OptimizedLSTMCell_"):
+            packed = {
+                "weight_ih": [tree[f"i{g}"]["kernel"] for g in _GATES],
+                "weight_hh": [tree[f"h{g}"]["kernel"] for g in _GATES],
+                "bias": [tree[f"h{g}"]["bias"] for g in _GATES],
+            }
+            for leaf, parts in packed.items():
+                arr = np.concatenate([np.asarray(p) for p in parts], -1)
+                out[f"{name}.{leaf}"] = torch.tensor(
+                    arr.T if arr.ndim == 2 else arr)
+            continue
+        for key, val in tree.items():
+            arr = np.asarray(val)
+            out[f"{name}.{_LEAF[key]}"] = torch.tensor(
+                arr.T if key == "kernel" else arr)
     return out

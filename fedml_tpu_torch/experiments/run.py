@@ -1,10 +1,11 @@
 """CLI entry: ``python -m fedml_tpu_torch.experiments.run ...``.
 
-The ``fedavg`` subset of ``fedml_tpu.experiments.run``, with its flag
-names. Config precedence: ``--config`` JSON (the full
-:class:`ExperimentConfig` shape, the same file the JAX package reads)
-overridden by explicit flags. Client momentum and weight decay come in
-through ``--config``. The run goes on ``--device`` (default ``cuda``,
+The FedAvg family of ``fedml_tpu.experiments.run`` (``--algorithm``
+fedavg, fedopt, fedprox, fednova), with its flag names. Config
+precedence: ``--config`` JSON (the full :class:`ExperimentConfig` shape,
+the same file the JAX package reads) overridden by explicit flags. Client
+momentum and weight decay come in through ``--config``, and so does
+FedProx's ``prox_mu``. The run goes on ``--device`` (default ``cuda``,
 which raises without a card); it prints the run's summary as one JSON
 line. A setting the port does not have yet raises ``NotImplementedError``
 naming its ROADMAP item.
@@ -113,20 +114,27 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
     return cfg, a
 
 
+# --algorithm -> the FedConfig.algorithm FedAvgSim runs, as the JAX
+# package's harness maps them (fedprox is fedavg with TrainConfig.prox_mu)
+FEDAVG_FAMILY = {"fedavg": "fedavg", "fedopt": "fedopt",
+                 "fedprox": "fedavg", "fednova": "fednova"}
+
+
 def run(cfg: ExperimentConfig, device: str = "cuda") -> dict:
-    """One FedAvg simulation of ``cfg`` on ``device``; returns its
+    """One FedAvg-family simulation of ``cfg`` on ``device``; returns its
     summary (the last value of every logged metric, and the run name)."""
     from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
     from fedml_tpu_torch.data import load_dataset
     from fedml_tpu_torch.metrics import MetricsSink
     from fedml_tpu_torch.models import create_model
 
-    # FedAvgSim runs fedavg and refuses fednova by its own ROADMAP item
-    if cfg.fed.algorithm not in ("fedavg", "fednova"):
+    if cfg.fed.algorithm not in FEDAVG_FAMILY:
         raise NotImplementedError(
             f"algorithm={cfg.fed.algorithm!r} is not ported to "
-            "fedml_tpu_torch yet (ROADMAP: Queue A slice 4, the other "
+            "fedml_tpu_torch yet (ROADMAP: Queue A item 13, the other "
             "algorithm families)")
+    cfg = dataclasses.replace(cfg, fed=dataclasses.replace(
+        cfg.fed, algorithm=FEDAVG_FAMILY[cfg.fed.algorithm]))
     model = create_model(cfg.model, device)
     sim = FedAvgSim(model, load_dataset(cfg.data), cfg, device)
     sink = MetricsSink()

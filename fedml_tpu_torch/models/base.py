@@ -91,6 +91,57 @@ class BatchNorm(nn.Module):
         return y
 
 
+GN_EPS = 1e-6  # flax nn.GroupNorm's epsilon
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               num_groups: int) -> torch.Tensor:
+    """Flax ``nn.GroupNorm`` over the channel dim 1 of ``x``: the channels
+    split into ``num_groups`` contiguous groups, each normalized by its own
+    mean and variance over its channels and the spatial dims, per sample.
+
+    The statistics are float32 whatever ``x``'s type (flax's
+    ``force_float32_reductions``), the variance in the fast form E[x^2] -
+    E[x]^2 clipped at 0; the normalization (epsilon ``GN_EPS``) and the
+    per-channel scale and bias run in float32, and the result takes the
+    type ``x``, ``scale`` and ``bias`` promote to. No running statistics:
+    train and eval are the same function. Not ``nn.GroupNorm``, whose
+    epsilon and two-pass variance differ."""
+    c = x.shape[1]
+    xf = x.float().unflatten(1, (num_groups, c // num_groups))
+    dims = tuple(range(2, xf.ndim))
+    mean = xf.mean(dims, keepdim=True)
+    var = torch.clamp(torch.mean(xf * xf, dims, keepdim=True) - mean * mean,
+                      min=0.0)
+    per_channel = (1,) + xf.shape[1:3] + (1,) * (xf.ndim - 3)
+    mul = torch.rsqrt(var + GN_EPS) * scale.float().reshape(per_channel)
+    y = ((xf - mean) * mul).flatten(1, 2)
+    y = y + bias.float().reshape((1, -1) + (1,) * (x.ndim - 2))
+    out = torch.promote_types(torch.promote_types(x.dtype, scale.dtype),
+                              bias.dtype)
+    return y.to(out)
+
+
+class GroupNorm(nn.Module):
+    """:func:`group_norm` with its scale and bias as parameters
+    (``weight`` and ``bias``). It takes :class:`BatchNorm`'s ``train`` and
+    ``stats_out`` arguments and ignores them, so a block can hold either
+    norm."""
+
+    def __init__(self, num_groups: int, num_features: int):
+        super().__init__()
+        if num_features % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide "
+                             f"{num_features} channels")
+        self.num_groups = num_groups
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats_out: dict | None = None) -> torch.Tensor:
+        return group_norm(x, self.weight, self.bias, self.num_groups)
+
+
 def _lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
     """Flax's lecun_normal: a normal truncated to two standard deviations,
     with the factor that restores the variance the truncation removes."""
@@ -99,21 +150,37 @@ def _lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
                                  2 * std, generator=gen)
 
 
+def _orthogonal_blocks(shape, gen: torch.Generator) -> torch.Tensor:
+    """Flax's orthogonal initializer for each ``[H, H]`` block of a
+    ``[k H, H]`` tensor (the LSTM's recurrent kernels, one per gate)."""
+    h = shape[1]
+    blocks = [torch.linalg.qr(torch.randn(h, h, generator=gen))
+              for _ in range(shape[0] // h)]
+    # signs of R's diagonal make the draw uniform over orthogonal matrices
+    return torch.cat([q * torch.sign(torch.diagonal(r))[None]
+                      for q, r in blocks])
+
+
 def _init_tensor(mod: nn.Module, leaf: str, shape, gen: torch.Generator):
-    """Flax's default initializers: Dense and Conv kernels lecun-normal
-    (fan_in = in features, or kh * kw * in channels for a conv), embeddings
-    normal with std 1/sqrt(features), LayerNorm and BatchNorm scale ones,
-    every bias zeros, BatchNorm running mean zeros and variance ones."""
+    """Flax's default initializers: Dense and Conv kernels and an LSTM's
+    input kernels lecun-normal (fan_in = in features, or kh * kw * in
+    channels per group for a conv), an LSTM's recurrent kernels orthogonal,
+    embeddings normal with std 1/sqrt(features), LayerNorm, BatchNorm and
+    GroupNorm scale ones, every bias zeros, BatchNorm running mean zeros
+    and variance ones."""
     if leaf in ("bias", "running_mean"):
         return torch.zeros(shape)
-    if leaf == "running_var" or isinstance(mod, (nn.LayerNorm, BatchNorm)):
+    if leaf == "running_var" or isinstance(
+            mod, (nn.LayerNorm, BatchNorm, GroupNorm)):
         return torch.ones(shape)
     if isinstance(mod, nn.Embedding):
         return torch.empty(shape).normal_(0.0, shape[1] ** -0.5,
                                           generator=gen)
-    if isinstance(mod, (nn.Linear, nn.Conv2d)):
+    if leaf == "weight_hh":
+        return _orthogonal_blocks(shape, gen)
+    if isinstance(mod, (nn.Linear, nn.Conv2d)) or leaf == "weight_ih":
         return _lecun_normal(shape, math.prod(shape[1:]), gen)
-    raise TypeError(f"no initializer for {type(mod).__name__}")
+    raise TypeError(f"no initializer for {type(mod).__name__}.{leaf}")
 
 
 @dataclasses.dataclass(frozen=True)

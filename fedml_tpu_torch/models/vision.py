@@ -1,8 +1,9 @@
-"""Vision models: logistic regression, the FedAvg-paper CNN and the CIFAR
-ResNets with BatchNorm.
+"""Vision models: logistic regression, the FedAvg-paper CNN, the CIFAR
+ResNets with BatchNorm or GroupNorm, ResNet-18 with GroupNorm and
+MobileNet (V1).
 
-Same architectures as ``fedml_tpu.models.vision`` at ``cohort=1``,
-``space_to_depth=False`` and ``norm="bn"``. Inputs are NHWC, as the data
+Same architectures as ``fedml_tpu.models.vision`` at ``cohort=1`` and
+``space_to_depth=False``. Inputs are NHWC, as the data
 layer stores them; the conv models view them as NCHW at their input
 (:func:`nchw`), and conv weights are OIHW. Flax's "SAME" padding is
 reproduced exactly: at stride 2 on an even input it pads (0, 1), which no
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fedml_tpu_torch.models.base import BatchNorm
+from fedml_tpu_torch.models.base import BatchNorm, GroupNorm
 
 
 def same_padding(in_spatial, kernel_spatial, strides
@@ -48,21 +49,33 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with flax's ``padding="SAME"``, resolved from the
-    input's size at every call."""
+    input's size at every call. ``groups`` is flax's
+    ``feature_group_count`` (``in_channels`` for a depthwise conv)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, bias: bool = True):
+                 stride: int = 1, bias: bool = True, groups: int = 1):
         super().__init__(in_channels, out_channels, kernel_size, stride,
-                         padding=0, bias=bias)
+                         padding=0, bias=bias, groups=groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (top, bottom), (left, right) = same_padding(
             x.shape[2:], self.kernel_size, self.stride)
         if top == bottom and left == right:
             return F.conv2d(x, self.weight, self.bias, self.stride,
-                            (top, left))
+                            (top, left), groups=self.groups)
         x = F.pad(x, (left, right, top, bottom))  # keeps x's layout
-        return F.conv2d(x, self.weight, self.bias, self.stride)
+        return F.conv2d(x, self.weight, self.bias, self.stride,
+                        groups=self.groups)
+
+
+def norm_layer(kind: str, channels: int) -> nn.Module:
+    """The JAX package's ``_norm`` at ``cohort=1``: "bn" is flax
+    BatchNorm (momentum 0.9), "gn" flax GroupNorm with 2 groups."""
+    if kind == "bn":
+        return BatchNorm(channels)
+    if kind == "gn":
+        return GroupNorm(2, channels)
+    raise ValueError(f"unknown norm {kind!r} (the port has bn and gn)")
 
 
 class LogisticRegression(nn.Module):
@@ -99,18 +112,21 @@ class CNNOriginalFedAvg(nn.Module):
 
 class BasicBlock(nn.Module):
     """CIFAR ResNet basic block; a block that changes the shape projects
-    its shortcut with a 1x1 conv and BatchNorm."""
+    its shortcut with a 1x1 conv and a norm. ``norm`` is "bn" or "gn"
+    (:func:`norm_layer`); the norm layers are ``bn1``, ``bn2`` and
+    ``proj_bn`` whichever it is."""
 
-    def __init__(self, in_channels: int, channels: int, stride: int = 1):
+    def __init__(self, in_channels: int, channels: int, stride: int = 1,
+                 norm: str = "bn"):
         super().__init__()
         self.conv1 = Conv2d(in_channels, channels, 3, stride, bias=False)
-        self.bn1 = BatchNorm(channels)
+        self.bn1 = norm_layer(norm, channels)
         self.conv2 = Conv2d(channels, channels, 3, bias=False)
-        self.bn2 = BatchNorm(channels)
+        self.bn2 = norm_layer(norm, channels)
         self.proj = self.proj_bn = None
         if stride != 1 or in_channels != channels:
             self.proj = Conv2d(in_channels, channels, 1, stride, bias=False)
-            self.proj_bn = BatchNorm(channels)
+            self.proj_bn = norm_layer(norm, channels)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 stats_out: dict | None = None) -> torch.Tensor:
@@ -122,23 +138,102 @@ class BasicBlock(nn.Module):
 
 
 class ResNetCIFAR(nn.Module):
-    """3-stage CIFAR ResNet with BatchNorm: depth = 6n + 2 (resnet56: n =
-    9), stage widths (width, 2 width, 4 width), strides (1, 2, 2), a global
-    mean pool and a dense head."""
+    """3-stage CIFAR ResNet: depth = 6n + 2 (resnet56: n = 9), stage widths
+    (width, 2 width, 4 width), strides (1, 2, 2), a global mean pool and a
+    dense head; ``norm`` "bn" (BatchNorm) or "gn" (GroupNorm, 2 groups)."""
 
     def __init__(self, depth: int = 56, num_classes: int = 10,
-                 width: int = 16, in_channels: int = 3):
+                 width: int = 16, in_channels: int = 3, norm: str = "bn"):
         super().__init__()
         n = (depth - 2) // 6
         self.conv = Conv2d(in_channels, width, 3, bias=False)
-        self.bn = BatchNorm(width)
+        self.bn = norm_layer(norm, width)
         blocks, cin = [], width
         for stage, (ch, st) in enumerate(zip((width, 2 * width, 4 * width),
                                              (1, 2, 2))):
             for blk in range(n):
                 stride = st if (stage > 0 and blk == 0) else 1
-                blocks.append(BasicBlock(cin, ch, stride))
+                blocks.append(BasicBlock(cin, ch, stride, norm))
                 cin = ch
+        self.blocks = nn.ModuleList(blocks)
+        self.head = nn.Linear(cin, num_classes)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats_out: dict | None = None) -> torch.Tensor:
+        x = F.relu(self.bn(self.conv(nchw(x)), train, stats_out))
+        for block in self.blocks:
+            x = block(x, train, stats_out)
+        return self.head(x.mean(dim=(2, 3)))
+
+
+class ResNet18GN(nn.Module):
+    """ImageNet-style ResNet-18 with GroupNorm (2 groups), for fed_cifar100:
+    a 3x3 stem of 64 channels at stride 1, four stages of two basic blocks
+    at widths 64, 128, 256 and 512 (stride 2 into stages 2-4), a global
+    mean pool and a dense head; about 11M parameters at 100 classes."""
+
+    def __init__(self, num_classes: int = 100, in_channels: int = 3):
+        super().__init__()
+        self.conv = Conv2d(in_channels, 64, 3, bias=False)
+        self.bn = GroupNorm(2, 64)
+        blocks, cin = [], 64
+        for stage, ch in enumerate((64, 128, 256, 512)):
+            for blk in range(2):
+                stride = 2 if (stage > 0 and blk == 0) else 1
+                blocks.append(BasicBlock(cin, ch, stride, "gn"))
+                cin = ch
+        self.blocks = nn.ModuleList(blocks)
+        self.head = nn.Linear(cin, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.bn(self.conv(nchw(x))))
+        for block in self.blocks:
+            x = block(x)
+        return self.head(x.mean(dim=(2, 3)))
+
+
+class DepthwiseSeparable(nn.Module):
+    """A 3x3 depthwise conv (one filter per input channel, at ``stride``)
+    and a 1x1 pointwise conv to ``channels``, each followed by BatchNorm
+    and a ReLU; no conv has a bias."""
+
+    def __init__(self, in_channels: int, channels: int, stride: int = 1):
+        super().__init__()
+        self.dw = Conv2d(in_channels, in_channels, 3, stride, bias=False,
+                         groups=in_channels)
+        self.dw_bn = BatchNorm(in_channels)
+        self.pw = Conv2d(in_channels, channels, 1, bias=False)
+        self.pw_bn = BatchNorm(channels)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats_out: dict | None = None) -> torch.Tensor:
+        x = F.relu(self.dw_bn(self.dw(x), train, stats_out))
+        return F.relu(self.pw_bn(self.pw(x), train, stats_out))
+
+
+# MobileNet V1's depthwise-separable blocks: (channels, stride)
+MOBILENET_PLAN = ((64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2),
+                  *((512, 1),) * 5, (1024, 2), (1024, 1))
+
+
+class MobileNet(nn.Module):
+    """MobileNet V1: a 3x3 stem of 32 channels at stride 1 with BatchNorm,
+    the 13 blocks of ``MOBILENET_PLAN``, a global mean pool and a dense
+    head. Every width ``ch`` becomes ``max(8, int(ch * width_mult))``."""
+
+    def __init__(self, num_classes: int = 10, width_mult: float = 1.0,
+                 in_channels: int = 3):
+        super().__init__()
+
+        def c(ch):
+            return max(8, int(ch * width_mult))
+
+        self.conv = Conv2d(in_channels, c(32), 3, bias=False)
+        self.bn = BatchNorm(c(32))
+        blocks, cin = [], c(32)
+        for ch, stride in MOBILENET_PLAN:
+            blocks.append(DepthwiseSeparable(cin, c(ch), stride))
+            cin = c(ch)
         self.blocks = nn.ModuleList(blocks)
         self.head = nn.Linear(cin, num_classes)
 

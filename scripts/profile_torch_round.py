@@ -2,12 +2,15 @@
 """Where the time goes in the PyTorch port's main paths, on one NVIDIA card.
 
     python3 scripts/profile_torch_round.py [--model resnet56|transformer_lm]
-        [--trace PATH]
+        [--family NAME] [--trace PATH]
 
 Builds one of chip_smoke.py's configurations: ``resnet56`` (the default:
 bench.py's headline, ResNet-56 with BatchNorm and bf16 compute on
 fake_cifar10, 100 clients, 10 a round, batch 32, 5 groups of 2 clients)
-or ``transformer_lm`` (on fake_shakespeare). It runs one warm-up round
+or ``transformer_lm`` (on fake_shakespeare), or with ``--family`` one of
+the bench's FedAvg families (chip_smoke.py FAMILY_SPECS: mnist_lr,
+femnist_cnn, cifar_mobilenet, fedopt_resnet18gn, shakespeare_lstm,
+stackoverflow_lstm) at its published shape. It runs one warm-up round
 (which captures the cohort's CUDA graph), times the next round untraced,
 then traces with torch.profiler that same round again from the same
 state, and for the transformer one evaluation of the global model
@@ -137,13 +140,23 @@ def main() -> int:
     ap.add_argument("--model", default="resnet56",
                     choices=["resnet56", "transformer_lm"],
                     help="which of chip_smoke.py's configurations to trace")
+    ap.add_argument("--family", default=None,
+                    help="trace one of chip_smoke.py's FAMILY_SPECS "
+                         "instead of --model")
     ap.add_argument("--trace", default=None,
                     help="write the round's Chrome trace to this path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_round: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import card_line, flash_twin, resnet_config, smoke_config
+    from chip_smoke import (
+        FAMILY_SPECS,
+        card_line,
+        family_setup,
+        flash_twin,
+        resnet_config,
+        smoke_config,
+    )
     from fedml_tpu_torch.algorithms.base import build_evaluator
     from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
     from fedml_tpu_torch.data import load_dataset
@@ -152,9 +165,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(card_line(), flush=True)
-    cfg = resnet_config() if args.model == "resnet56" else smoke_config()
+    if args.family is not None:
+        if args.family not in FAMILY_SPECS:
+            ap.error(f"--family: one of {sorted(FAMILY_SPECS)}")
+        cfg, data = family_setup(args.family)
+    else:
+        cfg = resnet_config() if args.model == "resnet56" else smoke_config()
+        data = load_dataset(cfg.data)
     model = create_model(cfg.model)
-    sim = FedAvgSim(model, load_dataset(cfg.data), cfg)
+    sim = FedAvgSim(model, data, cfg)
     # warm-up: the graph's capture, kernels, allocator
     state, _ = sim.run_round(sim.init())
     torch.cuda.synchronize()
@@ -179,7 +198,8 @@ def main() -> int:
     busy = round_row.get("device_busy_s")
     host = round_row.get("host_launches", {})
     one_by_one = sum(n for k, n in host.items() if "Graph" not in k)
-    round_row = {"model": args.model, "client_steps": client_steps,
+    round_row = {"model": cfg.model.name, "family": args.family,
+                 "client_steps": client_steps,
                  "groups": [{"clients": n, "steps_per_epoch": s}
                             for n, s in sim.last_groups],
                  "group_steps": cfg.train.epochs * sum(
@@ -194,7 +214,7 @@ def main() -> int:
                      if isinstance(busy, float) else "not measured"),
                  **round_row}
     print(json.dumps({"profile_round": round_row}), flush=True)
-    if args.model == "transformer_lm":
+    if args.family is None and args.model == "transformer_lm":
         flash_eval = build_evaluator(flash_twin(model), sim.task)
         a = sim.arrays
         flash_eval(state.variables, a.test_x, a.test_y)

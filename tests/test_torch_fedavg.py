@@ -199,10 +199,9 @@ def test_two_fedavg_rounds_match_jax():
 def test_unported_settings_raise():
     _, tdata = _data()
     model = create_model(tc.ModelConfig(**MODEL), "cpu")
-    for bad in (dict(fed=tc.FedConfig(algorithm="fednova")),
-                dict(fed=tc.FedConfig(robust_method="median")),
+    for bad in (dict(fed=tc.FedConfig(robust_method="median")),
                 dict(fed=tc.FedConfig(client_block_size=4)),
-                dict(fed=tc.FedConfig(server_optimizer="adam")),
+                dict(fed=tc.FedConfig(fuse_rounds=2)),
                 dict(adversary=tc.AdversaryPolicy(mode="sign_flip"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfed.FedAvgSim(model, tdata, tc.ExperimentConfig(**bad),

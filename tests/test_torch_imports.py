@@ -59,6 +59,12 @@ model = create_model(ModelConfig(name="resnet8", num_classes=10,
 variables = model.init(torch.Generator().manual_seed(0))
 logits, new_vars = model.apply_train(variables, torch.zeros(2, 16, 16, 3))
 assert logits.shape == (2, 10) and set(new_vars) == set(variables)
+for name, shape in (("resnet8_gn", (16, 16, 3)), ("char_lstm", (12,))):
+    model = create_model(ModelConfig(name=name, num_classes=90,
+                                     input_shape=shape), device="cpu")
+    variables = model.init(torch.Generator().manual_seed(0))
+    x = torch.zeros((2,) + shape, dtype=model.input_dtype)
+    assert model.apply_train(variables, x)[0].shape[-1] in (10, 90)
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "fedml_tpu")))

@@ -269,7 +269,7 @@ def test_init_follows_flax_initializers():
 
 
 @pytest.mark.parametrize("name,extra,item", [
-    ("resnet56_gn", (), "GroupNorm"), ("resnet18_gn", (), "GroupNorm"),
+    ("resnet56_gn_s2d", (), "resnet56_s2d"),
     ("resnet56_s2d", (), "resnet56_s2d"),
     ("resnet56_s2d_exact", (), "resnet56_s2d"),
     ("resnet56", (("norm", "syncbn:data"),), "syncbn"),
