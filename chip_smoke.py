@@ -77,12 +77,36 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    Then the first local step of round 1's largest client, in float32
    with TF32 off, through its graphed group on the card and alone on the
    CPU, must agree within the family's band (FAMILY_PARITY).
-8. A "kernels" JSON line with one entry per kernel (flash_attention, the
+8. The defended, attacked and compressed round at phase 6's
+   configuration (DEFENDED), 30 of the 100 clients seeded adversaries
+   (about 3 a cohort): (a) krum (f = 3) against sign_flip, (b) median
+   against gauss, (c) multikrum (f = 3) against collude, (d)
+   trimmed_mean with norm clipping and noise against scale_boost, (e)
+   fltrust against constant, (f) topk_int8 compression with error
+   feedback under krum against sign_flip. Each runs 2 rounds, sharing the
+   card's copy of the data and the captured cohort graph, and prints a
+   "defended_round" line: the adversaries in each cohort, the rule's
+   excluded count, the train losses, round 2's wall time (host clock
+   ending in a synchronize; one sample), the test loss after it, and for
+   (f) the error-feedback residual's norm, the analytic wire ratio, a
+   third round run under torch.cuda.set_sync_debug_mode("error") and the
+   cost of top-k's stable sort against torch.topk. Every loss must be
+   finite, and the flash counters, set to 0 before the phase, must read
+   0 after it. On round 1's stacked client results of (a), each rule on
+   the card and on the CPU in float64 (TF32 off): krum and multikrum
+   select the same client and mask, the median agrees within 1e-6
+   relative, the mean, trimmed mean and fltrust within 1e-5 of each
+   leaf's largest value; the deterministic int8 and topk payloads of
+   every client are equal bit for bit ("defended_card_vs_cpu"). Then
+   bench.py's defense_overhead_records on the card: each rule's median
+   CUDA-event time on a ResNet-56-sized stack of 10 and of 50 clients,
+   printed as "defense_agg_overhead_ms_c10" and "_c50" lines.
+9. A "kernels" JSON line with one entry per kernel (flash_attention, the
    float32 body, and flash_attention_mma, the bf16/fp16 body), with each
-   kernel's launches on the transformer path, on the ResNet-56 path and
-   on each family (the batched cohort runs no hand-written kernel), the
-   card's name and power limit, and last the result line {"ok": true,
-   "device": {...}}.
+   kernel's launches on the transformer path, on the ResNet-56 path, on
+   each family and in the defended rounds (none of them but the
+   transformer runs a hand-written kernel), the card's name and power
+   limit, and last the result line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -878,6 +902,254 @@ def family_path(name: str, card: str) -> int:
     return launches
 
 
+# Phase 8: the defended, attacked and compressed round at the headline
+# configuration, 30 of the 100 clients adversaries (about 3 a cohort):
+# name -> (FedConfig settings, adversary mode)
+DEFENDED = {
+    "a_krum_sign_flip": (dict(robust_method="krum",
+                              robust_num_adversaries=3), "sign_flip"),
+    "b_median_gauss": (dict(robust_method="median"), "gauss"),
+    "c_multikrum_collude": (dict(robust_method="multikrum",
+                                 robust_num_adversaries=3), "collude"),
+    "d_trimmed_mean_scale_boost": (dict(
+        robust_method="trimmed_mean", robust_norm_clip=1.0,
+        robust_noise_stddev=1e-4), "scale_boost"),
+    "e_fltrust_constant": (dict(robust_method="fltrust"), "constant"),
+    "f_krum_sign_flip_topk_int8": (dict(
+        robust_method="krum", robust_num_adversaries=3,
+        compress="topk_int8"), "sign_flip"),
+}
+ADVERSARIES = 30
+# card vs CPU (float64, TF32 off) on round 1's stacked client results:
+# the median within 1e-6 relative, the averaging rules within 1e-5 of
+# the largest value of each leaf
+MEDIAN_RTOL = 1e-6
+MEAN_BAND = 1e-5
+# bench.py defense_overhead_records' stack: ResNet-56's 0.86M parameters
+OVERHEAD_SHAPES = {"w": (860, 1000), "b": (1210,)}
+
+
+def defended_config(name: str):
+    import dataclasses
+
+    from fedml_tpu_torch.config import AdversaryPolicy
+
+    fed_kw, mode = DEFENDED[name]
+    cfg = resnet_config()
+    return dataclasses.replace(
+        cfg, fed=dataclasses.replace(cfg.fed, num_rounds=2, **fed_kw),
+        adversary=AdversaryPolicy(mode=mode, num_adversaries=ADVERSARIES,
+                                  seed=0))
+
+
+def card_vs_cpu_aggregation(sim, state, stacked, n_k, cohort) -> dict:
+    """Each rule, and the deterministic int8 and topk payloads, on round
+    1's stacked client results (the adversaries' rows attacked) on the
+    card and on the CPU: the rules in float64 there, the payloads in
+    float32. Raises outside the bands."""
+    from fedml_tpu_torch.algorithms.fedavg import local_reducer
+    from fedml_tpu_torch.core import compress as C
+    from fedml_tpu_torch.core import robust
+
+    attacked = sim._inject_adversaries(state, stacked, cohort)
+    params = [k for k in state.variables if k not in sim.model.stat_names]
+    card = {k: attacked[k] - state.variables[k][None] for k in params}
+    cpu = {k: v.cpu().double() for k, v in card.items()}
+    w_card, w_cpu = n_k, n_k.cpu().double()
+    f = sim.cfg.fed.robust_num_adversaries
+    report = {}
+    best = [int(robust.krum(d, f, w)[2]) for d, w in ((card, w_card),
+                                                     (cpu, w_cpu))]
+    masks = [robust.multi_krum(d, w, f)[2].cpu().tolist()
+             for d, w in ((card, w_card), (cpu, w_cpu))]
+    report["krum"] = {"card": best[0], "cpu_float64": best[1]}
+    report["multikrum"] = {"card": masks[0], "cpu_float64": masks[1]}
+    if best[0] != best[1] or masks[0] != masks[1]:
+        raise RuntimeError(f"selections differ card vs CPU: {report}")
+    for method in ("mean", "median", "trimmed_mean", "fltrust"):
+        pipe = robust.DefensePipeline(method=method)
+        got = pipe.reduce(card, w_card, local_reducer())
+        want = pipe.reduce(cpu, w_cpu, local_reducer())
+        worst = 0.0
+        for k in want:
+            g, x = got[k].cpu().double(), want[k]
+            if method == "median":
+                band = dict(rtol=MEDIAN_RTOL, atol=0.0)
+            else:
+                band = dict(rtol=MEAN_BAND,
+                            atol=MEAN_BAND * float(x.abs().max()))
+            torch.testing.assert_close(g, x, **band)
+            worst = max(worst, float(((g - x).abs() / (
+                band["atol"] + band["rtol"] * x.abs()).clamp(
+                    min=1e-300)).max()))
+        report[method] = {"band_used": worst}
+    for method in ("int8", "topk"):
+        spec = C.CompressionSpec(method=method, stochastic=False)
+        for slot in range(n_k.shape[0]):
+            one = {k: v[slot] for k, v in card.items()}
+            got = C.compress_tree(spec, one)
+            want = C.compress_tree(spec, {k: v.cpu() for k, v in one.items()})
+            for k in want:
+                for part, x in want[k].items():
+                    if not torch.equal(got[k][part].cpu(), x):
+                        raise RuntimeError(f"{method} payload {k}.{part} "
+                                           f"of slot {slot} differs")
+        report[f"{method}_payloads"] = "bitwise equal, every slot and leaf"
+    return report
+
+
+def topk_cost(deltas, spec) -> dict:
+    """The stable descending sort the port selects top-k with (ties to
+    the lower index, as lax.top_k) against torch.topk (no order among
+    ties; a yardstick), over every leaf of a stacked delta, and the whole
+    wire roundtrip: median CUDA-event ms."""
+    from fedml_tpu_torch.core import compress as C
+    from fedml_tpu_torch.core import tree as T
+
+    leaves = [T.rows(v) for v in deltas.values() if v[0].numel()]
+    ks = [spec.leaf_k(x.shape[1]) for x in leaves]
+    return {
+        "stable_sort_ms": median_ms(lambda: [
+            C._top_idx(x, k) for x, k in zip(leaves, ks)], reps=7, inner=3),
+        "torch_topk_ms": median_ms(lambda: [
+            torch.topk(x.abs(), k, dim=1).indices
+            for x, k in zip(leaves, ks)], reps=7, inner=3),
+        "roundtrip_stacked_ms": median_ms(lambda: C.roundtrip_stacked(
+            spec, deltas, None), reps=7, inner=3),
+        "leaves": len(leaves),
+    }
+
+
+def defense_overhead(card: str, device: str = "cuda") -> None:
+    """bench.py defense_overhead_records on the card: each rule's
+    aggregation of a ResNet-56-sized stack of c = 10 and 50 clients
+    (krum's f = c // 5), median CUDA-event ms, and its overhead over the
+    weighted mean."""
+    from fedml_tpu_torch.core import robust
+    from fedml_tpu_torch.core import tree as T
+
+    for c in (10, 50):
+        gen = torch.Generator(device=device).manual_seed(0)
+        stacked = {k: torch.randn((c,) + s, generator=gen, device=device)
+                   for k, s in OVERHEAD_SHAPES.items()}
+        w = torch.ones(c, device=device)
+        f = max(1, c // 5)
+        methods = {
+            "mean": lambda: T.tree_weighted_mean(stacked, w),
+            "median": lambda: robust.coordinate_median(stacked),
+            "trimmed_mean": lambda: robust.trimmed_mean(stacked),
+            "krum": lambda: robust.krum(stacked, f)[0],
+            "multikrum": lambda: robust.multi_krum(stacked, w, f)[0],
+            "fltrust": lambda: robust.fltrust(
+                stacked, robust.coordinate_median(stacked))[0],
+        }
+        ms = {k: median_ms(fn, reps=9, inner=3) for k, fn in methods.items()}
+        overhead = {k: ms[k] - ms["mean"] for k in ms if k != "mean"}
+        print(json.dumps({
+            "metric": f"defense_agg_overhead_ms_c{c}",
+            "value": max(overhead.values()), "unit": "ms/round",
+            "cohort": c, "params": sum(math.prod(s)
+                                       for s in OVERHEAD_SHAPES.values()),
+            "agg_ms": ms, "overhead_vs_mean_ms": overhead, "card": card}),
+            flush=True)
+        del stacked
+        torch.cuda.empty_cache()
+
+
+def defended_rounds(card: str, device: str = "cuda") -> int:
+    """Phase 8: 2 FedAvgSim rounds of each of DEFENDED at the headline
+    configuration, sharing the card's copy of the data and the captured
+    cohort graph; one more round of (f) under sync-debug "error"; the
+    card-vs-CPU check of every rule and codec on round 1's results of
+    (a); the cost of top-k's stable sort; the defense overhead. Returns
+    the flash kernels' launches in the rounds (0)."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.core import adversary as A
+    from fedml_tpu_torch.core import compress as C
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+
+    first = defended_config(next(iter(DEFENDED)))
+    data = load_dataset(first.data)
+    model = create_model(first.model, device)
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    base, start, parity = None, None, None
+    for name in DEFENDED:
+        cfg = defended_config(name)
+        sim = FedAvgSim(model, data, cfg, device)
+        if base is None:
+            base, start = sim, sim.init()
+        else:  # the same model, data and training: one cohort graph
+            sim.arrays, sim.cohort_update = base.arrays, base.cohort_update
+        seen = {}
+        port_locals = sim._locals
+
+        def recording_locals(state, cohort=None, port_locals=port_locals,
+                             seen=seen):
+            seen["cohort"] = cohort
+            seen["out"] = port_locals(state, cohort)
+            return seen["out"]
+
+        sim._locals = recording_locals
+        cohorts = [sim._cohort(start._replace(round=r)) for r in (0, 1)]
+        state1, m1 = sim.run_round(start)
+        if name.startswith("a_"):
+            stacked, n_k, _ = seen["out"]
+            parity = card_vs_cpu_aggregation(sim, start, stacked, n_k,
+                                             seen["cohort"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m2 = sim.run_round(state1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        test = sim.evaluate_global(state)
+        row = {
+            "name": name, "rule": cfg.fed.robust_method,
+            "attack": cfg.adversary.mode, "compress": cfg.fed.compress,
+            "clip": cfg.fed.robust_norm_clip,
+            "noise": cfg.fed.robust_noise_stddev,
+            "adversaries_in_cohort": [int(A.cohort_mask(
+                cfg.adversary, c, 100).sum()) for c in cohorts],
+            "excluded_count": sim.defense.excluded_count(len(cohorts[0])),
+            "train_loss": [float(m1["train_loss"]),
+                           float(m2["train_loss"])],
+            "round2_wall_s": wall, "test_loss": test["loss"],
+            "test_acc": test["acc"], "card": card,
+        }
+        if sim.cspec.enabled():
+            round2 = seen["out"][0]
+            round2 = {k: v - state1.variables[k][None]
+                      for k, v in round2.items()}
+            row["compress_residual_norm"] = float(
+                m2["compress_residual_norm"])
+            row["wire_ratio"] = C.wire_ratio(sim.cspec, state.variables)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, m3 = sim.run_round(state)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            row["round3_under_sync_debug_error"] = {
+                "train_loss": float(m3["train_loss"]),
+                "compress_residual_norm": float(
+                    m3["compress_residual_norm"])}
+            row["topk_int8_cost"] = topk_cost(round2, sim.cspec)
+        print(json.dumps({"defended_round": row}), flush=True)
+        losses = row["train_loss"] + [row["test_loss"]]
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"{name}: non-finite loss {row}")
+    print(json.dumps({"defended_card_vs_cpu": parity}), flush=True)
+    launches = flash_attention.launches
+    if launches != 0:
+        raise RuntimeError(f"the defended rounds launched flash attention "
+                           f"{launches} times")
+    del base, sim
+    torch.cuda.empty_cache()
+    defense_overhead(card, device)
+    return launches
+
+
 def kernel_entry(name, source, launches, path_launches, rows, row,
                  note=None) -> dict:
     """One entry of the "kernels" line: the timed ``row``'s numbers, the
@@ -914,8 +1186,10 @@ def main() -> int:
     # 7. the bench's families (no hand-written kernel on any)
     for name in FAMILY_SPECS:
         paths[name] = family_path(name, card)
+    # 8. the defended, attacked and compressed round (no hand kernel)
+    paths["defended_rounds"] = defended_rounds(card)
 
-    # 8. report: the float32 entry's times are at the transformer path's
+    # 9. report: the float32 entry's times are at the transformer path's
     # shape, the tensor-core entry's at long context in bf16
     source = "fedml_tpu_torch/csrc/flash_attention.cu"
     f32 = [r for r in rows if r["dtype"] == "float32"]
@@ -929,8 +1203,9 @@ def main() -> int:
             next(r for r in half if r["causal"] and r["dtype"] == "bfloat16"
                  and r["shape"] == list(LONG_SHAPE)),
             note="bf16/fp16 only: the transformer path evaluates in "
-                 "float32 and no other path has attention, so none "
-                 "launches this kernel"),
+                 "float32 and no other path (the defended rounds "
+                 "included) has attention, so none launches this "
+                 "kernel"),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Typed, immutable experiment configuration for the PyTorch port.
 
-The fields are those the plain FedAvg path reads, with the names, defaults
+The fields are those the FedAvg family reads, with the names, defaults
 and JSON schema of :mod:`fedml_tpu.config`, so a config written by this
 package is read unchanged by the JAX package. Settings that select a
 feature the port does not have yet are kept as fields so that
@@ -13,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Any, Mapping, Sequence
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,29 +85,91 @@ class FedConfig:
     server_optimizer: str = "sgd"
     server_lr: float = 1.0
     server_momentum: float = 0.0
-    robust_norm_clip: float = 0.0
-    robust_noise_stddev: float = 0.0
+    # the defense pipeline (core/robust.py): clip each client's delta,
+    # reduce with robust_method ("mean" | "median" | "trimmed_mean" |
+    # "krum" | "multikrum" | "fltrust"), then noise the aggregate
+    robust_norm_clip: float = 0.0  # 0 disables norm clipping
+    robust_noise_stddev: float = 0.0  # 0 disables the aggregate's noise
     robust_method: str = "mean"
+    # the adversary count f the Krum family assumes (each score sums the
+    # C - f - 2 nearest distances)
+    robust_num_adversaries: int = 0
+    robust_multikrum_m: int = 0  # multi-Krum's keep count (0: C - f)
+    robust_trim_frac: float = 0.1  # trimmed mean's trim, each side
     gmf: float = 0.0  # global momentum factor
+    # the client->server wire codec (core/compress.py): "none" | "int8" |
+    # "topk" | "topk_int8", with error feedback carried across rounds
+    compress: str = "none"
+    compress_topk_frac: float = 0.01  # share of each leaf topk keeps
     # features of the JAX package not ported yet; any value other than
     # the default makes FedAvgSim raise NotImplementedError
     elastic_buckets: bool = False
-    compress: str = "none"
     client_block_size: int = 0
     fuse_rounds: int = 1
     peft: str = "none"
 
 
+ADVERSARY_MODES = ("sign_flip", "scale_boost", "gauss", "zero", "constant",
+                   "collude")
+
+
 @dataclasses.dataclass(frozen=True)
 class AdversaryPolicy:
-    """Byzantine adversary injection (the JAX package's policy has more
-    fields). The port has none yet: a mode other than "none" makes
-    FedAvgSim raise."""
+    """Which clients are malicious, and how (core/adversary.py applies it).
 
+    - ``mode``: one of :data:`ADVERSARY_MODES`, or ``"none"``.
+    - ``ranks``: explicit adversary identities (client ids in the
+      simulation).
+    - ``num_adversaries``: without ``ranks``, a seeded choice of this
+      many members of the population.
+    - ``scale``: sign_flip's and scale_boost's factor, constant's value,
+      the norm of collude's shared delta.
+    - ``noise_stddev``: gauss's standard deviation.
+    """
+
+    seed: int = 0
     mode: str = "none"
+    ranks: tuple[int, ...] = ()
+    num_adversaries: int = 0
+    scale: float = 10.0
+    noise_stddev: float = 1.0
+
+    def __post_init__(self):
+        if self.mode not in ("none", *ADVERSARY_MODES):
+            raise ValueError(
+                f"adversary mode must be one of "
+                f"{('none', *ADVERSARY_MODES)}, got {self.mode!r}")
+        if self.num_adversaries < 0:
+            raise ValueError(f"num_adversaries must be >= 0, "
+                             f"got {self.num_adversaries}")
 
     def enabled(self) -> bool:
-        return self.mode != "none"
+        return self.mode != "none" and bool(self.ranks
+                                            or self.num_adversaries)
+
+    def member_ids(self, population: int, base: int = 0) -> np.ndarray:
+        """The adversaries among ``[base, base + population)``, sorted:
+        ``ranks`` when given (checked to lie in range), else a seeded
+        choice of ``num_adversaries`` without replacement, the same
+        clients as the JAX package's policy picks
+        (``np.random.default_rng(seed).choice``)."""
+        if not self.enabled():
+            return np.zeros((0,), np.int32)
+        if self.ranks:
+            ids = np.asarray(sorted(set(self.ranks)), np.int32)
+            lo, hi = base, base + population
+            if ids.size and (ids[0] < lo or ids[-1] >= hi):
+                raise ValueError(
+                    f"adversary ranks {sorted(set(self.ranks))} outside "
+                    f"the population [{lo}, {hi})")
+            return ids
+        n = min(self.num_adversaries, population)
+        rng = np.random.default_rng(self.seed)
+        ids = rng.choice(population, size=n, replace=False) + base
+        return np.sort(ids).astype(np.int32)
+
+    def is_member(self, ident: int, population: int, base: int = 0) -> bool:
+        return bool(np.isin(ident, self.member_ids(population, base)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +208,8 @@ class ExperimentConfig:
                     v = tuple((p[0], detuple(p[1])) for p in v)
                 elif k == "input_shape" and isinstance(v, Sequence):
                     v = tuple(v)
+                elif k == "ranks" and isinstance(v, Sequence):
+                    v = tuple(int(r) for r in v)
                 kw[k] = v
             return cls(**kw)
 

@@ -8,6 +8,8 @@ step's carry, a cohort's lane arguments).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 Tree = dict[str, torch.Tensor]
@@ -52,12 +54,47 @@ def tree_dot(a: Tree, b: Tree) -> torch.Tensor:
     return sum(torch.sum(a[k] * b[k]) for k in a)
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in its own type where that is wider (float64:
+    a reference computed in float64 stays float64)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def tree_l2_norm(tree: Tree) -> torch.Tensor:
+    """The L2 norm over every leaf, in float32 (float64 leaves: float64)."""
+    sq = [torch.sum(torch.square(wide(v))) for v in tree.values()]
+    return torch.sqrt(sum(sq)) if sq else torch.zeros(())
+
+
+def tree_vectorize(tree: Tree) -> torch.Tensor:
+    """Every leaf flattened into one vector, in the tree's key order."""
+    if not tree:
+        return torch.zeros((0,))
+    return torch.cat([v.reshape(-1) for v in tree.values()])
+
+
+def tree_unvectorize(vec: torch.Tensor, like: Tree) -> Tree:
+    """The inverse of :func:`tree_vectorize`, shaped and typed by
+    ``like``."""
+    out, off = {}, 0
+    for k, v in like.items():
+        out[k] = vec[off:off + v.numel()].reshape(v.shape).to(v.dtype)
+        off += v.numel()
+    return out
+
+
+def rows(x: torch.Tensor) -> torch.Tensor:
+    """A stacked leaf ``[C, ...]`` as ``[C, n]`` (also for ``n = 0``)."""
+    return x.reshape(x.shape[0], math.prod(x.shape[1:]))
+
+
 def tree_weighted_sum(stacked: Tree, weights: torch.Tensor) -> Tree:
-    """Weighted sum over the leading (client) axis, in float32."""
+    """Weighted sum over the leading (client) axis, in float32 (float64
+    leaves: float64)."""
 
     def leaf_sum(x):
-        wb = weights.reshape((-1,) + (1,) * (x.ndim - 1)).float()
-        return torch.sum(x.float() * wb, dim=0)
+        wb = wide(weights.reshape((-1,) + (1,) * (x.ndim - 1)))
+        return torch.sum(wide(x) * wb, dim=0)
 
     return {k: leaf_sum(v) for k, v in stacked.items()}
 

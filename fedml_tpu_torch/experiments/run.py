@@ -1,7 +1,11 @@
 """CLI entry: ``python -m fedml_tpu_torch.experiments.run ...``.
 
 The FedAvg family of ``fedml_tpu.experiments.run`` (``--algorithm``
-fedavg, fedopt, fedprox, fednova), with its flag names. Config
+fedavg, fedopt, fedprox, fednova), with its flag names: the defenses
+(``--defense`` or ``--robust_method``, ``--defense_*``,
+``--robust_norm_clip``, ``--robust_noise_stddev``), the wire codec
+(``--compress``, ``--compress_topk_frac``) and the seeded adversaries
+(``--adversary_*``). Config
 precedence: ``--config`` JSON (the full :class:`ExperimentConfig` shape,
 the same file the JAX package reads) overridden by explicit flags. Client
 momentum and weight decay come in through ``--config``, and so does
@@ -18,7 +22,12 @@ import dataclasses
 import json
 import sys
 
-from fedml_tpu_torch.config import ExperimentConfig
+from fedml_tpu_torch.config import ADVERSARY_MODES, ExperimentConfig
+from fedml_tpu_torch.core.compress import METHODS, CompressionSpec
+from fedml_tpu_torch.core.robust import (
+    DefensePipeline,
+    check_fednova_compat,
+)
 
 
 def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
@@ -59,6 +68,43 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
     p.add_argument("--partition_method", type=str, default=None)
     p.add_argument("--partition_alpha", type=float, default=None)
     p.add_argument("--frequency_of_the_test", type=int, default=None)
+    defenses = list(DefensePipeline.METHODS)
+    p.add_argument("--robust_method", type=str, default=None,
+                   choices=defenses)
+    p.add_argument("--defense", type=str, default=None, choices=defenses,
+                   help="aggregation defense rule (alias of "
+                        "--robust_method, taking precedence); composes "
+                        "with --robust_norm_clip and --robust_noise_stddev")
+    p.add_argument("--defense_num_adversaries", type=int, default=None,
+                   help="adversary count f the Krum family assumes (each "
+                        "score sums the C-f-2 nearest distances)")
+    p.add_argument("--defense_multikrum_m", type=int, default=None,
+                   help="multi-Krum keep count m (0 = auto: C - f)")
+    p.add_argument("--defense_trim_frac", type=float, default=None,
+                   help="trimmed_mean's trim fraction, each side")
+    p.add_argument("--robust_norm_clip", type=float, default=None)
+    p.add_argument("--robust_noise_stddev", type=float, default=None)
+    p.add_argument("--compress", type=str, default=None, choices=METHODS,
+                   help="wire codec for the client->server delta, with "
+                        "error feedback ('none' keeps it dense)")
+    p.add_argument("--compress_topk_frac", type=float, default=None,
+                   help="share of each leaf's entries the topk family "
+                        "keeps (at least 1)")
+    p.add_argument("--adversary_mode", type=str, default=None,
+                   choices=["none", *ADVERSARY_MODES],
+                   help="make selected clients send malicious deltas, "
+                        "seeded by --adversary_seed")
+    p.add_argument("--adversary_seed", type=int, default=None)
+    p.add_argument("--adversary_ranks", type=int, nargs="+", default=None,
+                   help="the adversaries' client ids; overrides "
+                        "--adversary_num")
+    p.add_argument("--adversary_num", type=int, default=None,
+                   help="a seeded choice of this many adversaries")
+    p.add_argument("--adversary_scale", type=float, default=None,
+                   help="sign_flip/scale_boost factor, constant value, "
+                        "collude norm")
+    p.add_argument("--adversary_noise", type=float, default=None,
+                   help="gauss's standard deviation")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda; 'cpu' only "
@@ -108,9 +154,34 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
             server_lr=a.server_lr,
             server_momentum=a.server_momentum,
             gmf=a.gmf,
+            robust_method=a.defense or a.robust_method,
+            robust_norm_clip=a.robust_norm_clip,
+            robust_noise_stddev=a.robust_noise_stddev,
+            robust_num_adversaries=a.defense_num_adversaries,
+            robust_multikrum_m=a.defense_multikrum_m,
+            robust_trim_frac=a.defense_trim_frac,
+            compress=a.compress,
+            compress_topk_frac=a.compress_topk_frac,
+        ),
+        adversary=rep(
+            cfg.adversary,
+            mode=a.adversary_mode,
+            seed=a.adversary_seed,
+            ranks=tuple(a.adversary_ranks) if a.adversary_ranks else None,
+            num_adversaries=a.adversary_num,
+            scale=a.adversary_scale,
+            noise_stddev=a.adversary_noise,
         ),
         seed=a.seed,
     )
+    # a defense, codec or fednova pairing the JAX package refuses is
+    # refused here, before any data is made, as the JAX CLI does
+    try:
+        DefensePipeline.from_fed(cfg.fed)
+        CompressionSpec.from_fed(cfg.fed)
+        check_fednova_compat(cfg.fed.algorithm, cfg.fed.robust_method)
+    except ValueError as err:
+        raise SystemExit(str(err)) from err
     return cfg, a
 
 

@@ -199,13 +199,22 @@ def test_two_fedavg_rounds_match_jax():
 def test_unported_settings_raise():
     _, tdata = _data()
     model = create_model(tc.ModelConfig(**MODEL), "cpu")
-    for bad in (dict(fed=tc.FedConfig(robust_method="median")),
+    for bad in (dict(fed=tc.FedConfig(elastic_buckets=True)),
                 dict(fed=tc.FedConfig(client_block_size=4)),
                 dict(fed=tc.FedConfig(fuse_rounds=2)),
-                dict(adversary=tc.AdversaryPolicy(mode="sign_flip"))):
+                dict(fed=tc.FedConfig(peft="lora"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfed.FedAvgSim(model, tdata, tc.ExperimentConfig(**bad),
                            device="cpu")
+    # the defenses, the codecs and the adversaries are ported
+    for good in (dict(fed=tc.FedConfig(robust_method="median",
+                                       robust_norm_clip=1.0,
+                                       robust_noise_stddev=0.1)),
+                 dict(fed=tc.FedConfig(compress="topk_int8")),
+                 dict(adversary=tc.AdversaryPolicy(mode="sign_flip",
+                                                   ranks=(1,)))):
+        tfed.FedAvgSim(model, tdata, tc.ExperimentConfig(**good),
+                       device="cpu")
 
 
 def test_nonfinite_screen_matches_jax_and_drops_the_client():

@@ -45,8 +45,14 @@ def test_import_and_forward_load_no_jax():
     script = """
 import importlib, pkgutil, sys, torch
 import fedml_tpu_torch
-for m in pkgutil.walk_packages(fedml_tpu_torch.__path__, "fedml_tpu_torch."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(fedml_tpu_torch.__path__,
+                                               "fedml_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+# the defended round's modules are among them
+assert {"fedml_tpu_torch.core.robust", "fedml_tpu_torch.core.adversary",
+        "fedml_tpu_torch.core.compress",
+        "fedml_tpu_torch.core.random"} <= set(names), names
 from fedml_tpu_torch.config import ModelConfig
 from fedml_tpu_torch.models import create_model
 model = create_model(ModelConfig(name="transformer_lm", num_classes=37,
