@@ -101,12 +101,34 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    bench.py's defense_overhead_records on the card: each rule's median
    CUDA-event time on a ResNet-56-sized stack of 10 and of 50 clients,
    printed as "defense_agg_overhead_ms_c10" and "_c50" lines.
-9. A "kernels" JSON line with one entry per kernel (flash_attention, the
+9. The bulk engine and elastic buckets, at bench.py's bulk records'
+   configurations, each record a JSON line with the card's name and power
+   limit: (a) the headline streamed in blocks of 4 (10 clients, 3 blocks,
+   the last partial), 2 rounds in bf16 with one graph capture for 4
+   lanes, a third round profiled for its host launches a block, and the
+   fold check (round-0 float32 client results folded block by block
+   through fold_block_partials and server_update_from_partials against
+   server_update, FOLD_BAND); (b) a bulk round with int8, the residual
+   bank and the streamed median under set_sync_debug_mode("error"), the
+   bank's gathers and scatters, and the time of a round's projection
+   draw at ResNet-56's size; (c) fedavg_rounds_per_sec_10kc_mnist_lr
+   (10,000 clients all sampled in 313 blocks of 32, the median of 3
+   rounds after a warm-up); (d) peak_round_hbm_mb_c{64,256,1024}_b32_bulk
+   (lr on synthetic_1_1) and ResNet-56's bulk peaks at cohorts 16, 32 and
+   64 beside the stacked round's, each torch.cuda.max_memory_allocated
+   over one round ("analytic": false), the bulk peaks at most
+   BULK_MEM_LAW times apart; (e) peak_round_hbm_mb_c{1k,10k}_defended_
+   compressed at a population of 10,000 under the same law, and
+   defense_stream_overhead_ms; (f) elastic_compile_cache_hit_rate_c16
+   over a seeded 24-round churn schedule: one capture, 23 hits. The flash
+   counters, set to 0 before the phase, must read 0 after it.
+10. A "kernels" JSON line with one entry per kernel (flash_attention, the
    float32 body, and flash_attention_mma, the bf16/fp16 body), with each
    kernel's launches on the transformer path, on the ResNet-56 path, on
-   each family and in the defended rounds (none of them but the
-   transformer runs a hand-written kernel), the card's name and power
-   limit, and last the result line {"ok": true, "device": {...}}.
+   each family, in the defended rounds and in the bulk phase (none of
+   them but the transformer runs a hand-written kernel), the card's name
+   and power limit, and last the result line {"ok": true, "device":
+   {...}}.
 """
 
 from __future__ import annotations
@@ -1150,6 +1172,467 @@ def defended_rounds(card: str, device: str = "cuda") -> int:
     return launches
 
 
+# Phase 9: the bulk engine and elastic buckets, at the configurations of
+# bench.py's bulk records. Memory law: the largest bulk peak of a cohort
+# sweep at most BULK_MEM_LAW times the smallest
+BULK_MEM_LAW = 1.5
+# the fold check: the reference's bulk-vs-stacked band (tests/test_bulk.py)
+FOLD_BAND = dict(rtol=2e-5, atol=1e-7)
+# the sweeps' sizes (bench.py's): (c)'s population, (d)'s lr cohorts of a
+# population of 1024 and ResNet-56 cohorts of the headline's 100 clients,
+# (e)'s population and cohorts
+RATE_CLIENTS = 10_000
+LR_MEM_COHORTS = (64, 256, 1024)
+RESNET_MEM_COHORTS = (16, 32, 64)
+BANK_POPULATION = 10_000
+BANK_COHORTS = (1000, 10_000)
+
+
+def bulk_record(card: str, **rec) -> None:
+    print(json.dumps({**rec, "device": card}), flush=True)
+
+
+def resnet_bulk_config(block: int = 4, rounds: int = 2, **fed):
+    """Phase 6's headline configuration streamed in blocks of ``block``."""
+    import dataclasses
+
+    cfg = resnet_config()
+    return dataclasses.replace(cfg, fed=dataclasses.replace(
+        cfg.fed, num_rounds=rounds, client_block_size=block, **fed))
+
+
+def timed_round(sim, state):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = sim.run_round(state)
+    torch.cuda.synchronize()
+    return state, m, time.perf_counter() - t0
+
+
+def fold_check(sim, state, block: int) -> dict:
+    """Stacked float32 client results of the round's cohort, computed on
+    the card, folded through fold_block_partials in blocks of ``block``
+    and server_update_from_partials, against server_update on the whole
+    stack (the same results, the same draws)."""
+    import numpy as np
+
+    from fedml_tpu_torch.algorithms import fedavg as F
+    from fedml_tpu_torch.core import tree as T
+
+    cohort = sim._cohort(state)
+    stacked, n_k, sums = sim._locals(state, cohort)
+    fed, names = sim.cfg.fed, sim.model.stat_names
+    want = F.server_update(fed, state, stacked, n_k, F.local_reducer(),
+                           names, sim.local_steps)
+    parts = []
+    for i in range(0, len(cohort), block):
+        sl = slice(i, i + block)
+        parts.append(F.fold_block_partials(
+            fed, sim.local_steps, state, {k: v[sl] for k, v in
+                                          stacked.items()},
+            n_k[sl], {k: v[sl] for k, v in sums.items()},
+            torch.zeros((), device=n_k.device), names))
+    total = parts[0]
+    for p in parts[1:]:
+        total = T.tree_map(torch.add, total, p)
+    got = F.server_update_from_partials(fed, state, total, names)
+    worst, ok = 0.0, True
+    for k, w in want.variables.items():
+        g, w = got.variables[k].cpu().numpy(), w.cpu().numpy()
+        err = np.abs(g - w)
+        ok &= bool(np.all(err <= FOLD_BAND["atol"]
+                          + FOLD_BAND["rtol"] * np.abs(w)))
+        worst = max(worst, float(err.max()))
+    out = {"blocks": len(parts), "clients": len(cohort),
+           "max_abs_err": worst, "band": FOLD_BAND, "ok": ok}
+    if not ok:
+        raise RuntimeError(f"fold_block_partials disagrees with "
+                           f"server_update: {out}")
+    return out
+
+
+def bulk_headline(card: str, device: str = "cuda"):
+    """(a) the headline under bulk: 10 clients in blocks of 4, 2 rounds,
+    one graph capture for 4 lanes; a third round profiled for its host
+    launches a block; the fold check. Returns the sim, its state and its
+    dataset."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.models import create_model
+    from scripts.profile_torch_round import traced
+
+    cfg = resnet_bulk_config()
+    data = load_dataset(cfg.data)
+    sim = FedAvgSim(create_model(cfg.model, device), data, cfg, device)
+    state = sim.init()
+    losses, walls = [], []
+    for _ in range(2):
+        state, m, wall = timed_round(sim, state)
+        losses.append(float(m["train_loss"]))
+        walls.append(wall)
+    programs = sim.cohort_update.programs
+    blocks = [{"clients": n, "steps_per_epoch": s} for n, s in
+              sim.last_groups]
+    if programs.stats["misses"] != 1 or len(blocks) != 3 or not all(
+            math.isfinite(x) for x in losses):
+        raise RuntimeError(f"bulk headline: captures {programs.stats}, "
+                           f"blocks {blocks}, losses {losses}")
+    _, prof = traced(lambda: sim.run_round(state), None)
+    launches = sum(prof["host_launches"].values())
+    test = sim.evaluate_global(state)
+    bulk_record(card, metric="bulk_headline_resnet56", cohort=10,
+                block_size=4, blocks=blocks, train_loss=losses,
+                round_wall_s=walls, test_loss=test["loss"],
+                graph_captures=programs.stats["misses"],
+                graph_replays=(sim.cohort_update.graph.replays
+                               if sim.cohort_update.graph else 0),
+                profiled_round={
+                    "wall_s": prof["wall_s"],
+                    "device_busy_s": prof["device_busy_s"],
+                    "device_idle_share": prof["device_idle_share"],
+                    "host_launches": prof["host_launches"],
+                    "host_launches_per_block": launches / len(blocks)},
+                fold_check=fold_check(sim, state, 4))
+    return sim, state, data
+
+
+def bulk_sync_round(card: str, base, state, data,
+                    device: str = "cuda") -> None:
+    """(b) a bulk round of the headline with int8 compression, the
+    client-keyed residual bank and the streamed median, under
+    set_sync_debug_mode("error") after a warm-up round; then the
+    projection's draw for a streamed selection rule, timed."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.core import streamdef as SD
+
+    cfg = resnet_bulk_config(compress="int8", robust_method="median")
+    sim = FedAvgSim(base.model, data, cfg, device)
+    sim.arrays, sim.cohort_update = base.arrays, base.cohort_update
+    state, _, warm = timed_round(sim, state)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = sim.run_round(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if not math.isfinite(float(m["train_loss"])):
+        raise RuntimeError(f"sync-debug bulk round: {m}")
+    params = {k: v for k, v in state.variables.items()
+              if k not in sim.model.stat_names}
+    shapes = SD.proj_shapes(params)
+    proj_ms = median_ms(lambda: sim.draws("proj", 0, [0], shapes), reps=5,
+                        inner=1)
+    bulk_record(card, metric="bulk_sync_debug_round_resnet56",
+                compress="int8", defense="median", block_size=4,
+                train_loss=float(m["train_loss"]), warm_round_wall_s=warm,
+                bank={k: sim.counters[k] for k in (
+                    "bank.rows", "bank.resident_mb", "bank.gathers",
+                    "bank.scatters")},
+                projection={"params": sum(v.numel() for v in params.values()),
+                            "proj_dim": SD.PROJ_DIM,
+                            "bytes": 4 * SD.PROJ_DIM * sum(
+                                v.numel() for v in params.values()),
+                            "draw_ms": proj_ms, "held_for_the_round": True})
+
+
+def bulk_10k_rate(card: str, device: str = "cuda") -> None:
+    """(c) fedavg_rounds_per_sec_10kc_mnist_lr: bench.py
+    bulk_10k_rate_record's configuration, the median of 3 rounds after a
+    warm-up round."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from fedml_tpu_torch.data import make_fake_image_dataset
+    from fedml_tpu_torch.models import create_model
+
+    n = RATE_CLIENTS
+    dcfg = DataConfig(dataset="mnist", num_clients=n, batch_size=10, seed=0)
+    cfg = ExperimentConfig(
+        data=dcfg, model=ModelConfig(name="lr", num_classes=10,
+                                     input_shape=(28, 28, 1)),
+        train=TrainConfig(lr=0.03, epochs=1),
+        fed=FedConfig(num_rounds=4, clients_per_round=n, eval_every=10**9,
+                      client_block_size=32), seed=0)
+    t0 = time.perf_counter()
+    data = make_fake_image_dataset("mnist", dcfg, n_train=60000)
+    sim = FedAvgSim(create_model(cfg.model, device), data, cfg, device)
+    setup = time.perf_counter() - t0
+    state = sim.init()
+    walls, losses = [], []
+    for _ in range(4):
+        state, m, wall = timed_round(sim, state)
+        walls.append(wall)
+        losses.append(float(m["train_loss"]))
+    med = statistics.median(walls[1:])
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"10k-client bulk rounds: {losses}")
+    bulk_record(card, metric="fedavg_rounds_per_sec_10kc_mnist_lr",
+                value=1.0 / med, unit="rounds/s", round_wall_s=walls,
+                clients_trained_per_round=n, block_size=32,
+                blocks_per_round=sim._n_blocks, train_loss=losses,
+                setup_s=setup, graph_captures=sim.cohort_update.programs
+                .stats["misses"], note="median of rounds 2-4; a smoke "
+                "figure (host clock ending in a synchronize)")
+    del sim, data
+
+
+def peak_round_mb(sim, state):
+    """``torch.cuda.max_memory_allocated`` over one round, in MB, after a
+    warm-up round (the capture)."""
+    state, _ = sim.run_round(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, m = sim.run_round(state)
+    torch.cuda.synchronize()
+    if not math.isfinite(float(m["train_loss"])):
+        raise RuntimeError(f"memory round: {m}")
+    return torch.cuda.max_memory_allocated() / 1e6, state
+
+
+def free_card() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def law(name: str, peaks: dict) -> float:
+    ratio = max(peaks.values()) / min(peaks.values())
+    if ratio > BULK_MEM_LAW:
+        raise RuntimeError(f"{name}: bulk peak grows with the cohort: "
+                           f"{peaks} (ratio {ratio} > {BULK_MEM_LAW})")
+    return ratio
+
+
+def bulk_memory(card: str, device: str = "cuda") -> None:
+    """(d) peak_round_hbm_mb_c{64,256,1024}_b32_bulk at bench.py
+    bulk_mem_bench_records' configuration (synthetic_1_1, population
+    1024, lr on 60 inputs, batch 32, block 32), then ResNet-56 (the
+    headline's data, cohorts 16, 32 and 64 of 100, block 8) bulk against
+    stacked, sharing one graph of 8 lanes."""
+    import dataclasses
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.models import create_model
+
+    dcfg = DataConfig(dataset="synthetic_1_1",
+                      num_clients=max(LR_MEM_COHORTS), batch_size=32, seed=0)
+    data = load_dataset(dcfg)
+    peaks = {}
+    for c in LR_MEM_COHORTS:
+        cfg = ExperimentConfig(
+            data=dcfg, model=ModelConfig(name="lr", num_classes=10,
+                                         input_shape=(60,)),
+            train=TrainConfig(lr=0.1, epochs=1),
+            fed=FedConfig(num_rounds=2, clients_per_round=c,
+                          eval_every=10**9, client_block_size=32), seed=0)
+        free_card()
+        sim = FedAvgSim(create_model(cfg.model, device), data, cfg, device)
+        peaks[c], _ = peak_round_mb(sim, sim.init())
+        bulk_record(card, metric=f"peak_round_hbm_mb_c{c}_b32_bulk",
+                    value=peaks[c], unit="MB peak", analytic=False,
+                    source="torch.cuda.max_memory_allocated over one round",
+                    cohort=c, block_size=32, blocks=sim._n_blocks)
+        del sim
+    ratio = law("lr bulk", peaks)
+    cfg0 = resnet_config()
+    rdata = load_dataset(cfg0.data)
+    model = create_model(cfg0.model, device)
+    base, rows = None, {}
+    for mode in ("bulk", "stacked"):
+        for c in RESNET_MEM_COHORTS:
+            # the stacked round in groups of 8 lanes, the bulk round's
+            # block: the same graph, and only the stacking differs
+            cfg = dataclasses.replace(
+                cfg0, train=dataclasses.replace(cfg0.train,
+                                                cohort_groups=c // 8),
+                fed=dataclasses.replace(
+                    cfg0.fed, clients_per_round=c, num_rounds=2,
+                    client_block_size=8 if mode == "bulk" else 0))
+            free_card()
+            sim = FedAvgSim(model, rdata, cfg, device)
+            if base is None:
+                base = sim
+            else:  # one dataset copy and one graph of 8 lanes
+                sim.arrays, sim.cohort_update = base.arrays, \
+                    base.cohort_update
+                free_card()
+            rows.setdefault(mode, {})[c], _ = peak_round_mb(sim, sim.init())
+            if mode == "stacked" and sim.last_groups[0][0] != 8:
+                raise RuntimeError(f"stacked groups {sim.last_groups}")
+            if sim is not base:
+                del sim
+    r_ratio = law("ResNet-56 bulk", rows["bulk"])
+    bulk_record(card, metric="peak_round_hbm_mb_resnet56_bulk_vs_stacked",
+                unit="MB peak", analytic=False, block_size=8,
+                bulk=rows["bulk"], stacked=rows["stacked"],
+                bulk_max_over_min=r_ratio,
+                stacked_max_over_min=max(rows["stacked"].values())
+                / min(rows["stacked"].values()),
+                lr_bulk_max_over_min=ratio,
+                graph_captures=base.cohort_update.programs.stats["misses"])
+    del base, model, rdata, data
+    free_card()
+
+
+def bank_memory(card: str, device: str = "cuda") -> None:
+    """(e) peak_round_hbm_mb_c{1k,10k}_defended_compressed and
+    defense_stream_overhead_ms: bench.py bank_bench_records' round (int8
+    with the residual bank and the streamed median, make_synthetic with
+    16-32 samples a client, batch 8, block 32) at a population of
+    10,000."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from fedml_tpu_torch.data import make_synthetic
+    from fedml_tpu_torch.models import create_model
+
+    population = BANK_POPULATION
+    t0 = time.perf_counter()
+    data = make_synthetic(population, 1.0, 1.0, seed=0, samples_low=16,
+                          samples_high=32)
+    gen_s = time.perf_counter() - t0
+
+    def build(cohort, defended):
+        fed = dict(compress="int8", robust_method="median") if defended \
+            else {}
+        cfg = ExperimentConfig(
+            data=DataConfig(dataset="synthetic_1_1", num_clients=population,
+                            batch_size=8, seed=0),
+            model=ModelConfig(name="lr", num_classes=10, input_shape=(60,)),
+            train=TrainConfig(lr=0.1, epochs=1),
+            fed=FedConfig(num_rounds=1000, clients_per_round=cohort,
+                          eval_every=10**9, client_block_size=32, **fed),
+            seed=0)
+        free_card()
+        return FedAvgSim(create_model(cfg.model, device), data, cfg, device)
+
+    peaks = {}
+    for c in BANK_COHORTS:
+        label = f"{c // 1000}k" if c % 1000 == 0 else str(c)
+        sim = build(c, True)
+        peaks[c], _ = peak_round_mb(sim, sim.init())
+        bulk_record(card, metric=f"peak_round_hbm_mb_c{label}"
+                    "_defended_compressed", value=peaks[c], unit="MB peak",
+                    analytic=False, cohort=c, population=population,
+                    block_size=32, blocks=sim._n_blocks, defense="median",
+                    compress="int8", bank_resident_mb=sim.ef_bank
+                    .resident_bytes() / 1e6, data_gen_s=gen_s)
+        del sim
+    ratio = law("defended-compressed bulk", peaks)
+    means = {}
+    c0 = min(BANK_COHORTS)
+    for defended in (True, False):
+        sim = build(c0, defended)
+        state, _ = sim.run_round(sim.init())
+        walls = []
+        for _ in range(3):
+            state, _, wall = timed_round(sim, state)
+            walls.append(wall)
+        means[defended] = statistics.mean(walls) * 1e3
+        del sim
+    bulk_record(card, metric="defense_stream_overhead_ms",
+                value=means[True] - means[False], unit="ms/round",
+                cohort=c0, defended_round_ms=means[True],
+                plain_round_ms=means[False], peak_max_over_min=ratio)
+    del data
+    free_card()
+
+
+def elastic_churn(card: str, device: str = "cuda") -> None:
+    """(f) elastic_compile_cache_hit_rate_c16: bench.py
+    elastic_churn_record's schedule (fake_mnist, 32 clients, cohort 16,
+    lr, 24 rounds, live sizes seeded in [4, 16])."""
+    import random
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.models import create_model
+
+    cfg = ExperimentConfig(
+        data=DataConfig(dataset="fake_mnist", num_clients=32, batch_size=32,
+                        seed=0),
+        model=ModelConfig(name="lr", num_classes=10,
+                          input_shape=(28, 28, 1)),
+        train=TrainConfig(lr=0.1, epochs=1),
+        fed=FedConfig(num_rounds=24, clients_per_round=16,
+                      eval_every=10**9, elastic_buckets=True), seed=0)
+    sim = FedAvgSim(create_model(cfg.model, device), load_dataset(cfg.data),
+                    cfg, device)
+    rng = random.Random(0)
+    schedule = [rng.randint(4, 16) for _ in range(24)]
+    state = sim.init()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n in schedule:
+        sim.set_cohort_size(n)
+        state, m = sim.run_round(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hits = sim.counters.get("elastic.compile_cache_hits", 0)
+    misses = sim.counters.get("elastic.compile_cache_misses", 0)
+    if misses != 1 or hits != 23 or not math.isfinite(
+            float(m["train_loss"])):
+        raise RuntimeError(f"elastic churn: {misses} captures, {hits} "
+                           f"hits, loss {float(m['train_loss'])}")
+    bulk_record(card, metric="elastic_compile_cache_hit_rate_c16",
+                value=hits / (hits + misses), unit="hit_rate", rounds=24,
+                cohort_schedule=schedule, compiles=misses,
+                compile_means="CUDA graph captures",
+                static_runtime_compiles=len(set(schedule)), wall_s=wall)
+
+
+def bulk_phase(card: str, device: str = "cuda") -> int:
+    """Phase 9: (a)-(f). Returns the flash kernels' launches in it (0)."""
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    t0 = time.perf_counter()
+    sim, state, data = bulk_headline(card, device)
+    bulk_sync_round(card, sim, state, data, device)
+    del sim, state, data
+    free_card()
+    bulk_10k_rate(card, device)
+    free_card()
+    bulk_memory(card, device)
+    bank_memory(card, device)
+    elastic_churn(card, device)
+    launches = flash_attention.launches + flash_attention.mma_launches
+    if launches != 0:
+        raise RuntimeError(f"the bulk phase launched flash attention "
+                           f"{launches} times")
+    print(json.dumps({"bulk_phase_s": time.perf_counter() - t0,
+                      "device": card}), flush=True)
+    return launches
+
+
 def kernel_entry(name, source, launches, path_launches, rows, row,
                  note=None) -> dict:
     """One entry of the "kernels" line: the timed ``row``'s numbers, the
@@ -1188,8 +1671,10 @@ def main() -> int:
         paths[name] = family_path(name, card)
     # 8. the defended, attacked and compressed round (no hand kernel)
     paths["defended_rounds"] = defended_rounds(card)
+    # 9. the bulk engine and elastic buckets (no hand kernel)
+    paths["bulk"] = bulk_phase(card)
 
-    # 9. report: the float32 entry's times are at the transformer path's
+    # 10. report: the float32 entry's times are at the transformer path's
     # shape, the tensor-core entry's at long context in bf16
     source = "fedml_tpu_torch/csrc/flash_attention.cu"
     f32 = [r for r in rows if r["dtype"] == "float32"]
@@ -1203,9 +1688,9 @@ def main() -> int:
             next(r for r in half if r["causal"] and r["dtype"] == "bfloat16"
                  and r["shape"] == list(LONG_SHAPE)),
             note="bf16/fp16 only: the transformer path evaluates in "
-                 "float32 and no other path (the defended rounds "
-                 "included) has attention, so none launches this "
-                 "kernel"),
+                 "float32 and no other path (the defended rounds and the "
+                 "bulk phase included) has attention, so none launches "
+                 "this kernel"),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

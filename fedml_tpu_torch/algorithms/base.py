@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from fedml_tpu_torch.algorithms.graphs import GraphedStep
 from fedml_tpu_torch.config import TrainConfig
 from fedml_tpu_torch.core import tree as T
+from fedml_tpu_torch.core.elastic import CompiledRoundCache
 from fedml_tpu_torch.models.base import FedModel, Params
 
 
@@ -357,19 +358,36 @@ class CohortUpdate:
 
     With ``graphed`` (the card) each step is one replay of a CUDA graph
     (:class:`~fedml_tpu_torch.algorithms.graphs.GraphedStep`), captured
-    at the first call for its group size; that is the only path on the
-    card. Without it (the CPU) the same vmapped step runs eagerly."""
+    at the first call for its lane count; that is the only path on the
+    card. Without it (the CPU) the same vmapped step runs eagerly. The
+    programs, one per lane count, live in :attr:`programs` (a
+    :class:`~fedml_tpu_torch.core.elastic.CompiledRoundCache`), whose
+    misses count the captures."""
 
     def __init__(self, model: FedModel, task: Task, cfg: TrainConfig,
                  batch_size: int, graphed: bool):
         self.batch_size = batch_size
         self.epochs = cfg.epochs
         self.stat_names = model.stat_names
+        self.graphed = graphed
         self.init_carry, step = build_local_step(model, task, cfg)
         self.vstep = torch.func.vmap(step, in_dims=(0, 0, 0, 0, None))
-        self.graph = GraphedStep(
-            lambda carry, gp, xy, batch: self.step(carry, *xy, *batch, gp)
-        ) if graphed else None
+        self.programs = CompiledRoundCache(self._program)
+
+    def _program(self, lanes: int) -> GraphedStep | None:
+        """The program for ``lanes`` lanes: a CUDA graph of the step on
+        the card, None on the CPU (the step runs eagerly)."""
+        del lanes  # a graph takes its shapes from its first run
+        if not self.graphed:
+            return None
+        return GraphedStep(lambda carry, gp, xy, batch: self.step(
+            carry, *xy, *batch, gp))
+
+    @property
+    def graph(self) -> GraphedStep | None:
+        """The CUDA graph of the lane count last run (None on the CPU
+        and before the first step)."""
+        return self.programs.last
 
     def step(self, carry, x, y, b_idx, w_b, global_params):
         """One vmapped step of every lane: lane ``g`` takes rows
@@ -389,11 +407,13 @@ class CohortUpdate:
         global_params = {k: v for k, v in global_vars.items()
                          if k not in self.stat_names}
         carry = self.init_carry(global_vars, lanes)
-        if self.graph is not None:
-            carry = self.graph.run(carry, global_params, (x, y), batches)
-        else:
-            for batch in batches:
-                carry = self.step(carry, x, y, *batch, global_params)
+        if batches:
+            graph = self.programs(lanes)
+            if graph is not None:
+                carry = graph.run(carry, global_params, (x, y), batches)
+            else:
+                for batch in batches:
+                    carry = self.step(carry, x, y, *batch, global_params)
         return _finish(carry, global_vars), mask_rows.sum(1), carry["sums"]
 
 

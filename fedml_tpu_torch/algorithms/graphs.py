@@ -18,6 +18,19 @@ from fedml_tpu_torch.core import tree as T
 # their algorithms and workspaces, and the allocator settles, outside it
 WARMUP_STEPS = 3
 
+# the side streams of the captures, one per device for the process: cuBLAS
+# keeps a workspace for every stream it has run on until the process ends,
+# so a new stream per capture would hold one more workspace per graph
+# (64 MiB on an H100)
+_CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+def _capture_stream() -> torch.cuda.Stream:
+    device = torch.cuda.current_device()
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream()
+    return _CAPTURE_STREAMS[device]
+
 
 def _shapes(tree) -> list:
     return [(tuple(x.shape), x.dtype, x.device)
@@ -80,7 +93,7 @@ class GraphedStep:
         self.carry, self.consts, self.inputs = (
             T.tree_map(torch.clone, t) for t in (carry, consts, inputs))
         self.fixed = tuple(fixed)
-        side = torch.cuda.Stream()
+        side = _capture_stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):

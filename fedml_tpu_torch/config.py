@@ -101,10 +101,14 @@ class FedConfig:
     # "topk" | "topk_int8", with error feedback carried across rounds
     compress: str = "none"
     compress_topk_frac: float = 0.01  # share of each leaf topk keeps
+    # elastic buckets (core/elastic.py): the round runs the power-of-two
+    # bucket above the cohort, so the live cohort may change size
+    elastic_buckets: bool = False
+    # the bulk engine (core/bulk.py): stream the cohort in blocks of this
+    # many clients (0: the stacked round)
+    client_block_size: int = 0
     # features of the JAX package not ported yet; any value other than
     # the default makes FedAvgSim raise NotImplementedError
-    elastic_buckets: bool = False
-    client_block_size: int = 0
     fuse_rounds: int = 1
     peft: str = "none"
 

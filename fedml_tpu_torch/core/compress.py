@@ -257,6 +257,37 @@ def roundtrip_stacked(spec: CompressionSpec, stacked_delta: Tree,
     return deq, _carry(spec, delta, deq, stacked=True)
 
 
+def roundtrip_rows(spec: CompressionSpec, stacked_delta: Tree,
+                   residual_rows: Tree, draws: Tree | None = None):
+    """:func:`roundtrip_stacked` for the bulk engine's rows: the
+    residual rows come from a client-keyed bank
+    (:class:`~fedml_tpu_torch.core.statebank.ClientStateBank`) and the
+    caller draws the quantizer's uniforms by CLIENT ID, not by cohort
+    slot (``draws("quant", round, ids, shapes)``), so a client's rounding
+    noise follows the client across rounds. Returns ``(decompressed
+    delta, new residual rows)``."""
+    return roundtrip_stacked(spec, stacked_delta, residual_rows, draws)
+
+
+def pad_stacked_payload(stacked_payload: Mapping[str, Tree],
+                        bucket: int) -> dict[str, Tree]:
+    """Pad every payload part to ``bucket`` rows of zeros. A zero row
+    (indices 0, values 0, scale 0) decompresses to a delta of exactly 0,
+    the padded row of :func:`fedml_tpu_torch.core.elastic.pad_stacked`,
+    so bucket padding and compression compose."""
+
+    def part(x):
+        c = x.shape[0]
+        if c > bucket:
+            raise ValueError(f"cohort {c} does not fit bucket {bucket}")
+        if c == bucket:
+            return x
+        return torch.cat([x, x.new_zeros((bucket - c,) + tuple(x.shape[1:]))])
+
+    return {k: {n: part(x) for n, x in p.items()}
+            for k, p in stacked_payload.items()}
+
+
 def decompress_stacked(spec: CompressionSpec,
                        stacked_payload: Mapping[str, Tree],
                        template: Tree) -> Tree:

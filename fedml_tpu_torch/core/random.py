@@ -1,6 +1,7 @@
 """Seeded draws: client sampling, per-epoch batch orders, and the draws of
 the defended round (the aggregate's noise, the quantizer's stochastic
-rounding, the adversaries' gaussians).
+rounding, the adversaries' gaussians, the streamed defenses' random
+projection).
 
 Every draw comes from a ``torch.Generator`` seeded by a seed and the
 draw's coordinates (round, client, slot, ...), so each is a function of
@@ -29,6 +30,7 @@ STREAMS = {
     "quant": (0x43505253, "uniform"),  # stochastic rounding, per slot
     "gauss": (0x41D5, "normal"),  # gauss adversaries, per client id
     "collude": (0x41D6, "normal"),  # collude's shared delta, slot 0
+    "proj": (0x534B5348, "normal"),  # streamed defenses' projection, slot 0
 }
 
 # (stream, round, slots, {name: shape}) -> {name: [len(slots), *shape]}

@@ -33,11 +33,6 @@ from fedml_tpu_torch.core.device import to_device
 Tree = dict[str, torch.Tensor]
 
 
-def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``[C]`` ``v`` shaped to broadcast over the stacked leaf ``x``."""
-    return v.reshape((-1,) + (1,) * (x.ndim - 1))
-
-
 @contextlib.contextmanager
 def _full_float32():
     """float32 matrix products without TF32: the Krum distance ``|x|^2 +
@@ -66,7 +61,7 @@ def clip_deltas_by_norm(stacked: Tree, clip: float) -> Tree:
     def leaf(x):
         if x.numel() == 0:
             return x
-        return (T.wide(x) * _bcast(scale, x)).to(x.dtype)
+        return (T.wide(x) * T.bcast_rows(scale, x)).to(x.dtype)
 
     return {k: leaf(v) for k, v in stacked.items()}
 
@@ -102,7 +97,7 @@ def coordinate_median(stacked: Tree,
     hi_i = torch.div(n, 2, rounding_mode="floor")
 
     def masked(x):
-        s = torch.sort(torch.where(_bcast(valid, x), x, torch.inf), dim=0)
+        s = torch.sort(torch.where(T.bcast_rows(valid, x), x, torch.inf), dim=0)
         s = s.values
         return ((_take_row(s, lo_i) + _take_row(s, hi_i)) / 2).to(x.dtype)
 
@@ -142,8 +137,8 @@ def trimmed_mean(stacked: Tree, trim_frac: float = 0.1,
     band = (idx >= k) & (idx < n - k)
 
     def masked(x):
-        s = torch.sort(torch.where(_bcast(valid, x), x, torch.inf), dim=0)
-        kept = torch.where(_bcast(band, x), s.values, 0.0)
+        s = torch.sort(torch.where(T.bcast_rows(valid, x), x, torch.inf), dim=0)
+        kept = torch.where(T.bcast_rows(band, x), s.values, 0.0)
         return torch.sum(kept, dim=0) / (n - 2 * k).to(x.dtype)
 
     return {k_: masked(v) for k_, v in stacked.items()}

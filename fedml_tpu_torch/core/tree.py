@@ -17,13 +17,16 @@ Tree = dict[str, torch.Tensor]
 
 def tree_map(fn, tree, *rest):
     """``fn`` applied leaf by leaf over ``tree`` and the trees ``rest`` of
-    the same structure (nested dicts, tuples and lists of tensors)."""
+    the same structure (nested dicts, tuples, NamedTuples and lists of
+    tensors)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, *leaves)
-                          for leaves in zip(tree, *rest))
+        mapped = [tree_map(fn, *leaves) for leaves in zip(tree, *rest)]
+        # a NamedTuple takes its fields as arguments
+        return (type(tree)(*mapped) if hasattr(tree, "_fields")
+                else type(tree)(mapped))
     return fn(tree, *rest)
 
 
@@ -81,6 +84,12 @@ def tree_unvectorize(vec: torch.Tensor, like: Tree) -> Tree:
         out[k] = vec[off:off + v.numel()].reshape(v.shape).to(v.dtype)
         off += v.numel()
     return out
+
+
+def bcast_rows(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-client ``[C]`` ``v`` shaped to broadcast over the stacked
+    leaf ``x`` (``[C, ...]``)."""
+    return v.reshape((-1,) + (1,) * (x.ndim - 1))
 
 
 def rows(x: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,7 @@ from fedml_tpu_torch.data.loaders import (
     load_dataset,
     make_fake_image_dataset,
     make_fake_text_dataset,
+    make_synthetic,
 )
 
 __all__ = [
@@ -20,4 +21,5 @@ __all__ = [
     "load_dataset",
     "make_fake_image_dataset",
     "make_fake_text_dataset",
+    "make_synthetic",
 ]

@@ -4,8 +4,9 @@ The FedAvg family of ``fedml_tpu.experiments.run`` (``--algorithm``
 fedavg, fedopt, fedprox, fednova), with its flag names: the defenses
 (``--defense`` or ``--robust_method``, ``--defense_*``,
 ``--robust_norm_clip``, ``--robust_noise_stddev``), the wire codec
-(``--compress``, ``--compress_topk_frac``) and the seeded adversaries
-(``--adversary_*``). Config
+(``--compress``, ``--compress_topk_frac``), the seeded adversaries
+(``--adversary_*``), the bulk engine (``--client_block_size``) and
+elastic buckets (``--elastic``). Config
 precedence: ``--config`` JSON (the full :class:`ExperimentConfig` shape,
 the same file the JAX package reads) overridden by explicit flags. Client
 momentum and weight decay come in through ``--config``, and so does
@@ -23,6 +24,7 @@ import json
 import sys
 
 from fedml_tpu_torch.config import ADVERSARY_MODES, ExperimentConfig
+from fedml_tpu_torch.core.bulk import BulkSpec, check_bulk_compat
 from fedml_tpu_torch.core.compress import METHODS, CompressionSpec
 from fedml_tpu_torch.core.robust import (
     DefensePipeline,
@@ -105,6 +107,21 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
                         "collude norm")
     p.add_argument("--adversary_noise", type=float, default=None,
                    help="gauss's standard deviation")
+    p.add_argument("--client_block_size", type=int, default=None,
+                   help="stream the sampled cohort through the device in "
+                        "blocks of B clients (the bulk engine): each "
+                        "block runs the batched local update and is "
+                        "folded into O(model) partial sums, so round "
+                        "memory is O(B + model), not O(cohort). Composes "
+                        "with --elastic (bucketed block count), "
+                        "--compress (a client-keyed error-feedback bank), "
+                        "every --defense (two streamed passes) and every "
+                        "adversary mode. 0/unset = the stacked round")
+    p.add_argument("--elastic", action="store_true",
+                   help="pad the cohort to a power-of-two bucket so that "
+                        "a live cohort that changes size reuses the one "
+                        "program (a captured CUDA graph on the card); "
+                        "rides config.json as fed.elastic_buckets")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda; 'cpu' only "
@@ -162,6 +179,8 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
             robust_trim_frac=a.defense_trim_frac,
             compress=a.compress,
             compress_topk_frac=a.compress_topk_frac,
+            elastic_buckets=True if a.elastic else None,
+            client_block_size=a.client_block_size,
         ),
         adversary=rep(
             cfg.adversary,
@@ -180,8 +199,17 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
         DefensePipeline.from_fed(cfg.fed)
         CompressionSpec.from_fed(cfg.fed)
         check_fednova_compat(cfg.fed.algorithm, cfg.fed.robust_method)
+        bulk = BulkSpec.from_fed(cfg.fed)
     except ValueError as err:
         raise SystemExit(str(err)) from err
+    if bulk.enabled():
+        check_bulk_compat(cfg.fed, cfg.adversary)
+        if bulk.block_size >= cfg.fed.clients_per_round:
+            print(f"warning: --client_block_size {bulk.block_size} >= "
+                  f"clients_per_round {cfg.fed.clients_per_round}: the "
+                  "whole cohort fits one block — the stacked round "
+                  "(client_block_size=0) runs the same work without the "
+                  "streaming wrapper and wins", file=sys.stderr)
     return cfg, a
 
 

@@ -41,11 +41,42 @@ def test_fake_text_arrays_bitwise_equal(dataset):
     _assert_arrays_equal(got, ref)
 
 
+@pytest.mark.parametrize("dataset", ["synthetic", "synthetic_1_1",
+                                     "synthetic_0.5_0.5"])
+def test_synthetic_arrays_bitwise_equal(dataset):
+    """LEAF's synthetic(alpha, beta) by name, the bulk bench's data."""
+    kw = dict(dataset=dataset, num_clients=12, batch_size=8, seed=4)
+    ref = jax_load_dataset(JaxDataConfig(**kw))
+    got = load_dataset(DataConfig(**kw))
+    for k, v in ref.train_idx_map.items():
+        np.testing.assert_array_equal(got.train_idx_map[k], v)
+        np.testing.assert_array_equal(got.test_idx_map[k],
+                                      ref.test_idx_map[k])
+        assert got.test_idx_map[k].dtype == ref.test_idx_map[k].dtype
+    _assert_arrays_equal(got.to_arrays(pad_multiple=8, device="cpu"),
+                         ref.to_arrays(pad_multiple=8))
+
+
+def test_make_synthetic_bitwise_equal():
+    """The bank bench's shards (16-32 samples a client)."""
+    from fedml_tpu.data.loaders import make_synthetic as jax_make_synthetic
+    from fedml_tpu_torch.data import make_synthetic
+
+    kw = dict(alpha=0.5, beta=1.0, samples_low=16, samples_high=32, seed=2)
+    ref = jax_make_synthetic(30, **kw).to_arrays(pad_multiple=8)
+    got = make_synthetic(30, **kw).to_arrays(pad_multiple=8, device="cpu")
+    assert got.max_client_samples == 32
+    _assert_arrays_equal(got, ref)
+
+
 def test_unported_dataset_raises():
     # real-file readers (here CIFAR-10's) are not ported; the fake_<name>
     # stand-ins are
     with pytest.raises(ValueError, match="not ported"):
         load_dataset(DataConfig(dataset="cifar10"))
+    # the StackOverflow stand-in comes with PEFT (ROADMAP item 12)
+    with pytest.raises(ValueError, match="not ported"):
+        load_dataset(DataConfig(dataset="synthetic_stackoverflow_nwp"))
 
 
 def _assert_arrays_equal(got, ref):

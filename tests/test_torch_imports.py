@@ -49,10 +49,12 @@ names = [m.name for m in pkgutil.walk_packages(fedml_tpu_torch.__path__,
                                                "fedml_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-# the defended round's modules are among them
+# the defended round's and the bulk engine's modules are among them
 assert {"fedml_tpu_torch.core.robust", "fedml_tpu_torch.core.adversary",
-        "fedml_tpu_torch.core.compress",
-        "fedml_tpu_torch.core.random"} <= set(names), names
+        "fedml_tpu_torch.core.compress", "fedml_tpu_torch.core.random",
+        "fedml_tpu_torch.core.bulk", "fedml_tpu_torch.core.elastic",
+        "fedml_tpu_torch.core.statebank",
+        "fedml_tpu_torch.core.streamdef"} <= set(names), names
 from fedml_tpu_torch.config import ModelConfig
 from fedml_tpu_torch.models import create_model
 model = create_model(ModelConfig(name="transformer_lm", num_classes=37,
