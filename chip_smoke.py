@@ -122,13 +122,43 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    defense_stream_overhead_ms; (f) elastic_compile_cache_hit_rate_c16
    over a seeded 24-round churn schedule: one capture, 23 hits. The flash
    counters, set to 0 before the phase, must read 0 after it.
-10. A "kernels" JSON line with one entry per kernel (flash_attention, the
+10. The space-to-depth ResNets, fused blocks and the experiment
+   harness, each record a JSON line with the card's name and power limit:
+   (a) resnet56_s2d at phase 6's configuration, bf16, 3 rounds (finite
+   losses, the test loss below the initial model's, the cohort as graph
+   replays, one more round under set_sync_debug_mode("error")); (b)
+   resnet56_s2d_exact in float32 (TF32 off), its weights converted from a
+   resnet56 initialisation: eval logits within atol = rtol = 1e-4 of the
+   standard model's, train-mode logits within 2e-4 and batch statistics
+   within 1e-5, one local step within RESNET_PARITY on every variable the
+   converter carries and every statistic; (c) the headline resnet56, 16
+   rounds in blocks of 8 (fuse_rounds, evaluation every 8) against the
+   per-round loop from the same initialisation: equal bit for bit, or
+   within SPREAD_FACTOR times the spread of two per-round runs, in which
+   case the pair runs again with cuDNN's deterministic algorithms and must
+   be bit for bit equal, and the convolution kernels only the default
+   algorithms run are printed; a whole block and its push under
+   set_sync_debug_mode("error"), the flush its one sync; rounds/s of the
+   per-round loop and of fused blocks in turns for resnet56, resnet56_s2d
+   and mnist_lr (fedavg_rounds_per_sec_100c_cifar10_{resnet56,
+   resnet56_s2d}[_fused], smoke figures) and the traced idle share of a
+   mnist_lr block each way; (d) python -m fedml_tpu_torch.experiments.run
+   on the card in child processes (lr, 400 clients, all sampled, 6
+   rounds, a checkpoint every 2; and the same in blocks of 100 with int8
+   and its residual bank), started with the phase and SIGKILLed once the
+   checkpoint of round 3 exists (while (a) and (b) run, before (c)'s
+   timed work), then run again: rounds 0-5 logged, the resumed rows
+   stamped, the
+   final checkpoint equal to an uninterrupted run's, bit for bit or within
+   (c)'s spread. The flash counters, set to 0 before the phase, must read
+   0 after it.
+11. A "kernels" JSON line with one entry per kernel (flash_attention, the
    float32 body, and flash_attention_mma, the bf16/fp16 body), with each
    kernel's launches on the transformer path, on the ResNet-56 path, on
-   each family, in the defended rounds and in the bulk phase (none of
-   them but the transformer runs a hand-written kernel), the card's name
-   and power limit, and last the result line {"ok": true, "device":
-   {...}}.
+   each family, in the defended rounds, in the bulk phase and in phase 10
+   (none of them but the transformer runs a hand-written kernel), the
+   card's name and power limit, and last the result line {"ok": true,
+   "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1188,7 +1218,7 @@ BANK_POPULATION = 10_000
 BANK_COHORTS = (1000, 10_000)
 
 
-def bulk_record(card: str, **rec) -> None:
+def record_line(card: str, **rec) -> None:
     print(json.dumps({**rec, "device": card}), flush=True)
 
 
@@ -1280,7 +1310,7 @@ def bulk_headline(card: str, device: str = "cuda"):
     _, prof = traced(lambda: sim.run_round(state), None)
     launches = sum(prof["host_launches"].values())
     test = sim.evaluate_global(state)
-    bulk_record(card, metric="bulk_headline_resnet56", cohort=10,
+    record_line(card, metric="bulk_headline_resnet56", cohort=10,
                 block_size=4, blocks=blocks, train_loss=losses,
                 round_wall_s=walls, test_loss=test["loss"],
                 graph_captures=programs.stats["misses"],
@@ -1322,7 +1352,7 @@ def bulk_sync_round(card: str, base, state, data,
     shapes = SD.proj_shapes(params)
     proj_ms = median_ms(lambda: sim.draws("proj", 0, [0], shapes), reps=5,
                         inner=1)
-    bulk_record(card, metric="bulk_sync_debug_round_resnet56",
+    record_line(card, metric="bulk_sync_debug_round_resnet56",
                 compress="int8", defense="median", block_size=4,
                 train_loss=float(m["train_loss"]), warm_round_wall_s=warm,
                 bank={k: sim.counters[k] for k in (
@@ -1371,7 +1401,7 @@ def bulk_10k_rate(card: str, device: str = "cuda") -> None:
     med = statistics.median(walls[1:])
     if not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"10k-client bulk rounds: {losses}")
-    bulk_record(card, metric="fedavg_rounds_per_sec_10kc_mnist_lr",
+    record_line(card, metric="fedavg_rounds_per_sec_10kc_mnist_lr",
                 value=1.0 / med, unit="rounds/s", round_wall_s=walls,
                 clients_trained_per_round=n, block_size=32,
                 blocks_per_round=sim._n_blocks, train_loss=losses,
@@ -1443,7 +1473,7 @@ def bulk_memory(card: str, device: str = "cuda") -> None:
         free_card()
         sim = FedAvgSim(create_model(cfg.model, device), data, cfg, device)
         peaks[c], _ = peak_round_mb(sim, sim.init())
-        bulk_record(card, metric=f"peak_round_hbm_mb_c{c}_b32_bulk",
+        record_line(card, metric=f"peak_round_hbm_mb_c{c}_b32_bulk",
                     value=peaks[c], unit="MB peak", analytic=False,
                     source="torch.cuda.max_memory_allocated over one round",
                     cohort=c, block_size=32, blocks=sim._n_blocks)
@@ -1477,7 +1507,7 @@ def bulk_memory(card: str, device: str = "cuda") -> None:
             if sim is not base:
                 del sim
     r_ratio = law("ResNet-56 bulk", rows["bulk"])
-    bulk_record(card, metric="peak_round_hbm_mb_resnet56_bulk_vs_stacked",
+    record_line(card, metric="peak_round_hbm_mb_resnet56_bulk_vs_stacked",
                 unit="MB peak", analytic=False, block_size=8,
                 bulk=rows["bulk"], stacked=rows["stacked"],
                 bulk_max_over_min=r_ratio,
@@ -1531,7 +1561,7 @@ def bank_memory(card: str, device: str = "cuda") -> None:
         label = f"{c // 1000}k" if c % 1000 == 0 else str(c)
         sim = build(c, True)
         peaks[c], _ = peak_round_mb(sim, sim.init())
-        bulk_record(card, metric=f"peak_round_hbm_mb_c{label}"
+        record_line(card, metric=f"peak_round_hbm_mb_c{label}"
                     "_defended_compressed", value=peaks[c], unit="MB peak",
                     analytic=False, cohort=c, population=population,
                     block_size=32, blocks=sim._n_blocks, defense="median",
@@ -1550,7 +1580,7 @@ def bank_memory(card: str, device: str = "cuda") -> None:
             walls.append(wall)
         means[defended] = statistics.mean(walls) * 1e3
         del sim
-    bulk_record(card, metric="defense_stream_overhead_ms",
+    record_line(card, metric="defense_stream_overhead_ms",
                 value=means[True] - means[False], unit="ms/round",
                 cohort=c0, defended_round_ms=means[True],
                 plain_round_ms=means[False], peak_max_over_min=ratio)
@@ -1601,7 +1631,7 @@ def elastic_churn(card: str, device: str = "cuda") -> None:
             float(m["train_loss"])):
         raise RuntimeError(f"elastic churn: {misses} captures, {hits} "
                            f"hits, loss {float(m['train_loss'])}")
-    bulk_record(card, metric="elastic_compile_cache_hit_rate_c16",
+    record_line(card, metric="elastic_compile_cache_hit_rate_c16",
                 value=hits / (hits + misses), unit="hit_rate", rounds=24,
                 cohort_schedule=schedule, compiles=misses,
                 compile_means="CUDA graph captures",
@@ -1630,6 +1660,591 @@ def bulk_phase(card: str, device: str = "cuda") -> int:
                            f"{launches} times")
     print(json.dumps({"bulk_phase_s": time.perf_counter() - t0,
                       "device": card}), flush=True)
+    return launches
+
+
+# Phase 10: the space-to-depth ResNets, fused blocks and the experiment
+# harness's checkpoints and resume
+FUSE = 8  # bench.py's --fuse-rounds default
+FUSED_ROUNDS = 16
+# the exact s2d layout against the standard ResNet-56 on the card, float32
+# with TF32 off: eval logits in the JAX package's own band
+# (tests/test_models.py), train-mode logits and batch statistics in its
+# train-mode bands
+EXACT_EVAL = dict(atol=1e-4, rtol=1e-4)
+EXACT_TRAIN = dict(atol=2e-4, rtol=2e-4)
+EXACT_STATS = dict(atol=1e-5, rtol=1e-4)
+# rounds per timed window (one window: FUSE rounds a block): the ResNets
+# one block, mnist_lr (about 4 ms a round) five
+RATE_BLOCKS = {"resnet56": 1, "resnet56_s2d": 1, "mnist_lr": 5}
+# (d): the CLI on lr at a population of 400, every client a round (80
+# groups of 5: the per-client host work makes a round last long enough
+# that the kill after the checkpoint of round 3 lands inside the run),
+# and the same streamed in blocks of 100 with int8 and its client-keyed
+# residual bank
+RESUME_ARGS = ["--algorithm", "fedavg", "--dataset", "fake_mnist",
+               "--model", "lr", "--num_classes", "10", "--input_shape", "28",
+               "28", "1", "--client_num_in_total", "400",
+               "--client_num_per_round", "400", "--comm_round", "6",
+               "--batch_size", "32", "--checkpoint_every", "2"]
+RESUME_PAIRS = {"stacked": [],
+                "bulk_int8": ["--client_block_size", "100", "--compress",
+                              "int8"]}
+KILL_AFTER = "round_00000003.pt"  # the checkpoint of round 3
+RESUME_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "phase10")
+
+
+def model_config(suffix: str = "", **fed):
+    """Phase 6's headline configuration, its model's name (resnet56)
+    with ``suffix`` ("_s2d", "_s2d_exact")."""
+    import dataclasses
+
+    cfg = resnet_config()
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model,
+                                       name=cfg.model.name + suffix),
+        fed=dataclasses.replace(cfg.fed, **fed))
+
+
+def host_vars(state) -> dict:
+    return {k: v.detach().cpu() for k, v in state.variables.items()}
+
+
+def max_abs_err(x: dict, y: dict) -> float:
+    """The largest elementwise difference of two trees of tensors (nested
+    dicts), which must hold the same keys."""
+    if set(x) != set(y):
+        raise RuntimeError(f"different keys: {sorted(set(x) ^ set(y))}")
+    err = 0.0
+    for k in x:
+        if isinstance(x[k], dict):
+            err = max(err, max_abs_err(x[k], y[k]))
+        elif isinstance(x[k], torch.Tensor):
+            d = (x[k].double() - y[k].double()).abs()
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+        elif x[k] != y[k]:
+            raise RuntimeError(f"{k}: {x[k]} != {y[k]}")
+    return err
+
+
+def s2d_headline(card: str, data):
+    """(a) resnet56_s2d at the headline configuration, bf16, 3 rounds with
+    an evaluation after each; one more round under
+    set_sync_debug_mode("error"). Returns the sim (its data and graph)."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.metrics import MetricsSink
+    from fedml_tpu_torch.models import create_model
+
+    cfg = model_config("_s2d")
+    sim = FedAvgSim(create_model(cfg.model), data, cfg)
+    init_eval = sim.evaluate_global(sim.init())
+    sink = MetricsSink()
+    t0 = time.perf_counter()
+    state = sim.run(metrics_sink=sink)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cohort = cohort_report(sim)
+    before = sim.cohort_update.graph.replays
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, synced = sim.run_round(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    synced = {"train_loss": float(synced["train_loss"]),
+              "cohort": cohort_report(sim, before)}
+    rounds = [{k: v for k, v in r.items() if not k.startswith("_")}
+              for r in sink.history]
+    losses = [r[k] for r in rounds for k in ("train_loss", "test_loss")]
+    not_f32 = sorted(k for k, v in state.variables.items()
+                     if v.dtype != torch.float32)
+    record_line(card, metric="resnet56_s2d_main_path",
+                note="seconds beside phase 10 (d)'s starting children",
+                parameters=sum(v.numel() for k, v in state.variables.items()
+                               if k not in sim.model.stat_names),
+                init_test_loss=init_eval["loss"], per_round=rounds,
+                seconds_rounds_with_eval=wall, cohort=cohort,
+                round_under_sync_debug_error=synced)
+    if not all(math.isfinite(x) for x in losses + [synced["train_loss"]]):
+        raise RuntimeError(f"resnet56_s2d: non-finite loss {rounds}")
+    if not rounds[-1]["test_loss"] < init_eval["loss"]:
+        raise RuntimeError(f"resnet56_s2d: test loss did not fall: "
+                           f"{init_eval['loss']} -> {rounds[-1]}")
+    if not_f32 or synced["cohort"]["graph_replays"] != synced["cohort"][
+            "group_steps_last_round"]:
+        raise RuntimeError(f"resnet56_s2d: {not_f32} not float32, or "
+                           f"replays not one per group-step: {synced}")
+    return sim
+
+
+def s2d_exact_parity(card: str, data) -> None:
+    """(b) resnet56_s2d_exact in float32 (TF32 off), its weights converted
+    from a resnet56 initialisation: eval logits, train-mode logits and
+    batch statistics against the standard model's on the card; then one
+    local step of each from the same weights (the largest client of round
+    0's cohort, its first batch): the metric sums, every variable the
+    converter carries unchanged (stages 2 and 3 past the transition's
+    converted kernels, the head) and every running statistic (stage 1's
+    tiled) within RESNET_PARITY. The converted parameters (stage 1's
+    kernels and norm scales, the transition's 2x2 and 1x1 kernels) are
+    another parameterization: a tap of the standard kernel is one or
+    more entries of the converted one, which also has gradients where
+    the standard has no tap, so their steps are not elementwise the
+    same."""
+    import dataclasses
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.models.s2d_exact import (
+        convert_resnet_checkpoint_to_s2d,
+    )
+
+    cfg = resnet_config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, compute_dtype="float32"))
+    depth = int(cfg.model.name[len("resnet"):])
+    std = FedAvgSim(create_model(cfg.model), data, cfg)
+    exact = FedAvgSim(create_model(dataclasses.replace(
+        cfg.model, name=cfg.model.name + "_s2d_exact")), data, cfg)
+    v_std = std.init().variables
+    v_exact = {k: v.cuda() for k, v in
+               convert_resnet_checkpoint_to_s2d(v_std, depth).items()}
+    x = torch.randn((64, 32, 32, 3),
+                    generator=torch.Generator().manual_seed(1)).cuda()
+    out = {}
+    got = exact.model.apply_eval(v_exact, x)
+    want = std.model.apply_eval(v_std, x)
+    torch.testing.assert_close(got, want, **EXACT_EVAL)
+    out["eval_logits_err"] = float((got - want).abs().max())
+    got, g_vars = exact.model.apply_train(v_exact, x)
+    want, w_vars = std.model.apply_train(v_std, x)
+    torch.testing.assert_close(got, want, **EXACT_TRAIN)
+    out["train_logits_err"] = float((got - want).abs().max())
+    w_conv = convert_resnet_checkpoint_to_s2d(w_vars, depth)
+    names = exact.model.stat_names
+    for k in names:
+        torch.testing.assert_close(g_vars[k].cpu(), w_conv[k],
+                                   **EXACT_STATS)
+    out["train_stats_err"] = max_abs_err(
+        {k: g_vars[k].cpu() for k in names}, {k: w_conv[k] for k in names})
+
+    cohort = std.sampler(0, std.arrays.num_clients,
+                         cfg.fed.clients_per_round).tolist()
+    c = max(cohort, key=lambda i: int(std._host_counts[i]))
+    orders = [o.cuda() for o in list(std.batch_orders(0, c))[
+        :cfg.train.epochs]]
+    steps = {}
+    for name, sim, start in (("standard", std, v_std),
+                             ("exact", exact, v_exact)):
+        a = sim.arrays
+        steps[name] = sim.local_update(start, a.idx[c], a.mask[c], a.x, a.y,
+                                       orders, steps=1)
+    s_vars, s_n, s_sums = steps["standard"]
+    e_vars, e_n, e_sums = steps["exact"]
+    s_conv = convert_resnet_checkpoint_to_s2d(s_vars, depth)
+    n = (depth - 2) // 6
+    converted = ("conv.", "bn.", *(f"blocks.{i}." for i in range(n)),
+                 f"blocks.{n}.conv1.", f"blocks.{n}.proj.")
+    compared = [k for k in e_vars
+                if k in names or not k.startswith(converted)]
+    for k in compared:
+        torch.testing.assert_close(e_vars[k].cpu(), s_conv[k],
+                                   **RESNET_PARITY)
+    for k in s_sums:
+        torch.testing.assert_close(e_sums[k], s_sums[k], **RESNET_PARITY)
+    out["one_step"] = {
+        "client": c, "samples": int(std._host_counts[c]),
+        "compared_variables": len(compared),
+        "skipped_converted_params": len(e_vars) - len(compared),
+        "max_abs_err": max_abs_err({k: e_vars[k].cpu() for k in compared},
+                                   {k: s_conv[k] for k in compared}),
+        "loss_sum": [float(s_sums["loss_sum"]), float(e_sums["loss_sum"])],
+        **RESNET_PARITY}
+    record_line(card, metric="resnet56_s2d_exact_vs_resnet56",
+                dtype="float32", tf32=False, batch=64, bands={
+                    "eval": EXACT_EVAL, "train": EXACT_TRAIN,
+                    "stats": EXACT_STATS}, **out)
+    del std, exact
+    free_card()
+
+
+def run_fused(data, fuse: int):
+    """FedAvgSim.run of FUSED_ROUNDS rounds of the headline, evaluating
+    every FUSE rounds, in blocks of ``fuse``: (sim, final state, records,
+    wall seconds)."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.metrics import MetricsSink
+    from fedml_tpu_torch.models import create_model
+
+    cfg = model_config(num_rounds=FUSED_ROUNDS, eval_every=FUSE,
+                       fuse_rounds=fuse)
+    sim = FedAvgSim(create_model(cfg.model), data, cfg)
+    sink = MetricsSink()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = sim.run(metrics_sink=sink)
+    torch.cuda.synchronize()
+    records = [{k: v for k, v in r.items() if k != "_ts"}
+               for r in sink.history]
+    return sim, state, records, time.perf_counter() - t0
+
+
+def conv_kernels(sim, state) -> set:
+    """The names of the convolution kernels of one traced round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sim.run_round(state)
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and re.search(r"conv|wgrad|dgrad|implicit|xmma|cudnn", e.name,
+                          re.I)}
+
+
+def fused_equals_unfused(card: str, data):
+    """(c), first half: the headline ResNet-56, FUSED_ROUNDS rounds in
+    blocks of FUSE against the per-round loop, from the same
+    initialisation. Equal variables bit for bit, or, where a second
+    per-round run already differs from the first (a nondeterministic
+    kernel), the fused run within SPREAD_FACTOR times that spread; then
+    the pair again with cuDNN's deterministic algorithms, which must be
+    equal bit for bit, and the convolution kernels that only the default
+    algorithms run. Returns (the fused sim, its state, the spread)."""
+    _, a_state, a_rec, a_wall = run_fused(data, 1)
+    sim, f_state, f_rec, f_wall = run_fused(data, FUSE)
+    a_vars = host_vars(a_state)
+    err = max_abs_err(a_vars, host_vars(f_state))
+    report = {"rounds": FUSED_ROUNDS, "fuse_rounds": FUSE,
+              "unfused_run_wall_s": a_wall, "fused_run_wall_s": f_wall,
+              "blocks": [[b.start, b.length, b.compiled]
+                         for b in sim.last_blocks],
+              "records_equal": a_rec == f_rec,
+              "fused_vs_unfused_max_abs_err": err}
+    spread = 0.0
+    if err == 0.0 and a_rec == f_rec:
+        report["bitwise"] = True
+    else:
+        _, b_state, b_rec, _ = run_fused(data, 1)
+        spread = max_abs_err(a_vars, host_vars(b_state))
+        report.update(bitwise=False, unfused_vs_unfused_max_abs_err=spread,
+                      spread_factor=SPREAD_FACTOR)
+        torch.backends.cudnn.deterministic = True
+        try:
+            _, d_state, d_rec, _ = run_fused(data, 1)
+            d_sim, df_state, df_rec, _ = run_fused(data, FUSE)
+            report["deterministic_cudnn_bitwise"] = (
+                max_abs_err(host_vars(d_state), host_vars(df_state)) == 0.0
+                and d_rec == df_rec)
+            det = conv_kernels(d_sim, df_state)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        report["conv_kernels_only_nondeterministic"] = sorted(
+            k[:120] for k in conv_kernels(sim, f_state) - det)
+        if (spread == 0.0 or err > SPREAD_FACTOR * spread
+                or not report["deterministic_cudnn_bitwise"]):
+            record_line(card, metric="fused_vs_unfused_resnet56", **report)
+            raise RuntimeError(f"fused run outside the unfused spread: "
+                               f"{report}")
+    record_line(card, metric="fused_vs_unfused_resnet56", **report)
+    if [b[2] for b in report["blocks"]] != [True, False]:
+        raise RuntimeError(f"compiled flags: {report['blocks']}")
+    return sim, f_state, spread
+
+
+def sync_free_block(card: str, sim, state):
+    """(c): one whole block (FUSE rounds) and its push under
+    set_sync_debug_mode("error"); the flush is the block's one sync."""
+    from fedml_tpu_torch.core import fuse as FU
+
+    pipeline = FU.BlockPipeline()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        state, metrics = sim.run_block(state, FUSE)
+        if pipeline.push(state.round - FUSE, FUSE, metrics, t0) is not None:
+            raise RuntimeError("an empty pipeline flushed a block")
+        pushed = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    flushed = pipeline.flush()
+    losses = [r["train_loss"] for r in flushed.rows]
+    record_line(card, metric="fused_block_under_sync_debug_error",
+                rounds=FUSE, enqueue_s=pushed, block_wall_s=flushed.wall_s,
+                flush_wait_s=flushed.get_wait_s, train_loss=losses)
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"sync-free block: {losses}")
+    return state
+
+
+def rate_windows(sim, state, blocks: int):
+    """Rounds per second of the per-round loop (each round's metrics
+    converted to floats, as FedAvgSim.run does) and of fused blocks
+    (blocks of FUSE enqueued, each flushed once, one deep), in turns:
+    unfused, fused, fused, unfused; each window ``blocks`` x FUSE rounds,
+    a host clock ending in a synchronize."""
+    from fedml_tpu_torch.algorithms.fedavg import consume_round_counters
+    from fedml_tpu_torch.core import fuse as FU
+
+    rates = {"unfused": [], "fused": []}
+    n = blocks * FUSE
+    for kind in ("unfused", "fused", "fused", "unfused"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "unfused":
+            for _ in range(n):
+                state, m = sim.run_round(state)
+                consume_round_counters(m, sim.counters)
+        else:
+            pipeline = FU.BlockPipeline()
+            for _ in range(blocks):
+                state, m = sim.run_block(state, FUSE)
+                pipeline.push(state.round - FUSE, FUSE, m, t0)
+            pipeline.flush()
+        torch.cuda.synchronize()
+        rates[kind].append(n / (time.perf_counter() - t0))
+    return rates, state
+
+
+def fused_rates(card: str, r56, r56_state, s2d_base, data) -> None:
+    """(c): fedavg_rounds_per_sec_100c_cifar10_{resnet56,resnet56_s2d}
+    and mnist_lr, per-round loop against fused blocks in turns; the
+    unfused resnet56_s2d rate is (a)'s beside resnet56's. Then one fused
+    mnist_lr block and its 8 rounds unfused, traced: their device idle
+    shares."""
+    import dataclasses
+
+    from fedml_tpu_torch.algorithms.fedavg import (
+        FedAvgSim,
+        consume_round_counters,
+    )
+    from fedml_tpu_torch.models import create_model
+    from scripts.profile_torch_round import traced
+
+    cfg = model_config("_s2d", fuse_rounds=FUSE)
+    s2d = FedAvgSim(s2d_base.model, data, cfg)
+    s2d.arrays, s2d.cohort_update = s2d_base.arrays, s2d_base.cohort_update
+    lr_cfg, lr_data = family_setup("mnist_lr")
+    lr_cfg = dataclasses.replace(lr_cfg, fed=dataclasses.replace(
+        lr_cfg.fed, fuse_rounds=FUSE))
+    lr = FedAvgSim(create_model(lr_cfg.model), lr_data, lr_cfg)
+    lr_state, _ = lr.run_round(lr.init())  # the capture
+    s2d_state, _ = s2d.run_round(s2d.init())
+    runs = {"resnet56": (r56, r56_state), "resnet56_s2d": (s2d, s2d_state),
+            "mnist_lr": (lr, lr_state)}
+    rates = {}
+    for name, (sim, state) in runs.items():
+        rates[name], state = rate_windows(sim, state, RATE_BLOCKS[name])
+        runs[name] = (sim, state)
+    for name, r in rates.items():
+        prefix = ("fedavg_rounds_per_sec_100c_cifar10_" if name != "mnist_lr"
+                  else "fedavg_rounds_per_sec_")
+        for kind, suffix in (("unfused", ""), ("fused", "_fused")):
+            record_line(card, metric=prefix + name + suffix,
+                        value=statistics.mean(r[kind]), unit="rounds/s",
+                        windows=r[kind], rounds_per_window=RATE_BLOCKS[
+                            name] * FUSE, fuse_rounds=FUSE if suffix else 1,
+                        note="a smoke figure: windows in turns unfused, "
+                             "fused, fused, unfused; host clock ending in a "
+                             "synchronize")
+
+    sim, state = runs["mnist_lr"]
+
+    def unfused():
+        nonlocal state
+        for _ in range(FUSE):
+            state, m = sim.run_round(state)
+            consume_round_counters(m, sim.counters)
+
+    def fused():
+        nonlocal state
+        from fedml_tpu_torch.core import fuse as FU
+
+        pipeline = FU.BlockPipeline()
+        state, m = sim.run_block(state, FUSE)
+        pipeline.push(0, FUSE, m, time.perf_counter())
+        pipeline.flush()
+
+    shares = {}
+    for kind, fn in (("unfused", unfused), ("fused", fused)):
+        _, prof = traced(fn, None)
+        shares[kind] = {k: prof[k] for k in (
+            "wall_s", "device_busy_s", "device_idle_share", "kernels",
+            "host_launches")}
+    record_line(card, metric="mnist_lr_traced_block", rounds=FUSE, **shares)
+    del s2d, lr, runs
+    free_card()
+
+
+def child(args: list[str], out_dir: str) -> subprocess.Popen:
+    """The CLI on the card as a child process, writing under ``out_dir``
+    (its standard error appended to ``<out_dir>.stderr``)."""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(out_dir + ".stderr", "a") as err:
+        return subprocess.Popen(
+            [sys.executable, "-m", "fedml_tpu_torch.experiments.run", *args,
+             "--out_dir", out_dir],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.DEVNULL, stderr=err)
+
+
+def child_error(out_dir: str) -> str:
+    with open(out_dir + ".stderr") as f:
+        return f.read()[-2000:]
+
+
+def read_rows(run_dir: str) -> list[dict]:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+class KilledRuns:
+    """(d), first half: each RESUME_PAIRS run through the CLI on the card
+    in a child process, both at once, SIGKILLed by a watcher thread once
+    its checkpoint of round 3 exists. The children start up while this
+    process runs (a) and (b), which time nothing; :meth:`finish` waits
+    for both kills before (c)'s timed work."""
+
+    def __init__(self):
+        import threading
+
+        shutil.rmtree(RESUME_DIR, ignore_errors=True)
+        self.dirs = {p: os.path.join(RESUME_DIR, p) for p in RESUME_PAIRS}
+        self.kills: dict[str, float] = {}
+        self.error: BaseException | None = None
+        self.t0 = time.perf_counter()
+        self.procs = {p: child(RESUME_ARGS + extra, self.dirs[p])
+                      for p, extra in RESUME_PAIRS.items()}
+        self.watcher = threading.Thread(target=self._watch, daemon=True)
+        self.watcher.start()
+
+    def _watch(self) -> None:
+        import signal
+
+        marks = {p: os.path.join(d, "run_rep0", "ckpt", KILL_AFTER)
+                 for p, d in self.dirs.items()}
+        try:
+            while len(self.kills) < len(self.procs):
+                for p, proc in self.procs.items():
+                    if p in self.kills:
+                        continue
+                    if os.path.exists(marks[p]):
+                        proc.send_signal(signal.SIGKILL)
+                        self.kills[p] = time.perf_counter() - self.t0
+                    elif proc.poll() is not None:
+                        raise RuntimeError(
+                            f"{p}: the child ended (rc {proc.returncode}) "
+                            "before the checkpoint of round 3: "
+                            f"{child_error(self.dirs[p])}")
+                time.sleep(0.0005)
+        except RuntimeError as err:  # raised again by finish()
+            self.error = err
+
+    def finish(self) -> dict:
+        """Both children killed and reaped: the rows each had logged."""
+        import signal
+
+        self.watcher.join(timeout=300)
+        if self.watcher.is_alive():
+            raise RuntimeError("no checkpoint of round 3 in 300 s")
+        if self.error is not None:
+            raise self.error
+        report = {}
+        for p, proc in self.procs.items():
+            if proc.wait(timeout=60) != -signal.SIGKILL:
+                raise RuntimeError(f"{p}: rc {proc.returncode}, not killed")
+            report[p] = {"killed_at_s": self.kills[p], "rows_before_resume": [
+                r["round"] for r in read_rows(
+                    os.path.join(self.dirs[p], "run_rep0")) if "round" in r]}
+        return report
+
+    def stop(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+
+
+def crash_and_resume(card: str, spread: float, killed: KilledRuns,
+                     report: dict) -> None:
+    """(d), second half: the killed runs started again with the same
+    flags, and meanwhile each run uninterrupted (the harness in this
+    process, the same config); metrics.jsonl must hold rounds 0-5, every
+    round from the resume on in a row stamped "resumed", and the final
+    checkpoint must equal the uninterrupted run's, bit for bit or within
+    (c)'s spread."""
+    from fedml_tpu_torch.experiments import run as cli
+    from fedml_tpu_torch.experiments.harness import Experiment
+    from fedml_tpu_torch.utils.checkpoint import RoundCheckpointer
+
+    dirs = killed.dirs
+    t0 = time.perf_counter()
+    killed.procs = {p: child(RESUME_ARGS + extra, dirs[p])
+                    for p, extra in RESUME_PAIRS.items()}
+    for p, extra in RESUME_PAIRS.items():
+        cfg, _ = cli.parse_args(RESUME_ARGS + extra + [
+            "--out_dir", dirs[p] + "_uninterrupted"])
+        Experiment(cfg, device="cuda").run()
+    for p, proc in killed.procs.items():
+        if proc.wait(timeout=300) != 0:
+            raise RuntimeError(f"{p}: resumed run rc {proc.returncode}: "
+                               f"{child_error(dirs[p])}")
+    report["resume_wall_s"] = time.perf_counter() - t0
+    for p in RESUME_PAIRS:
+        rows = read_rows(os.path.join(dirs[p], "run_rep0"))
+        resumed_from = [r["resumed_from"] for r in rows
+                        if "resumed_from" in r]
+        stamped = sorted({r["round"] for r in rows if r.get("resumed")})
+        got, nxt = RoundCheckpointer(os.path.join(
+            dirs[p], "run_rep0", "ckpt")).restore_raw()
+        want, _ = RoundCheckpointer(os.path.join(
+            dirs[p] + "_uninterrupted", "run_rep0", "ckpt")).restore_raw()
+        err = max_abs_err(got, want)
+        report[p].update(resumed_from=resumed_from, stamped_rounds=stamped,
+                         final_checkpoint_round=nxt - 1,
+                         composite=sorted(got), banks=sorted(got.get(
+                             "bank", {})), max_abs_err_vs_uninterrupted=err,
+                         allowed=spread)
+        ok = (len(resumed_from) == 1 and 4 <= resumed_from[0] < 6
+              and {r["round"] for r in rows if "round" in r} == set(range(6))
+              and stamped == list(range(resumed_from[0], 6)) and nxt == 6
+              and err <= spread
+              and (p != "bulk_int8" or "ef_residual" in got.get("bank", {})))
+        if not ok:
+            record_line(card, metric="crash_and_resume", **report)
+            raise RuntimeError(f"crash and resume, {p}: {report[p]}")
+    record_line(card, metric="crash_and_resume", **report)
+
+
+def harness_phase(card: str) -> int:
+    """Phase 10: (a)-(d), (d)'s first half beside (a) and (b). Returns
+    the flash kernels' launches in it (0)."""
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    t0 = time.perf_counter()
+    killed = KilledRuns()
+    try:
+        data = load_dataset(resnet_config().data)
+        s2d = s2d_headline(card, data)
+        s2d_exact_parity(card, data)
+        report = killed.finish()
+        r56, state, spread = fused_equals_unfused(card, data)
+        state = sync_free_block(card, r56, state)
+        fused_rates(card, r56, state, s2d, data)
+        del r56, s2d, state, data
+        free_card()
+        crash_and_resume(card, spread, killed, report)
+    finally:
+        killed.stop()
+    launches = flash_attention.launches + flash_attention.mma_launches
+    if launches != 0:
+        raise RuntimeError(f"phase 10 launched flash attention {launches} "
+                           "times")
+    record_line(card, metric="phase10_s", value=time.perf_counter() - t0)
     return launches
 
 
@@ -1673,8 +2288,12 @@ def main() -> int:
     paths["defended_rounds"] = defended_rounds(card)
     # 9. the bulk engine and elastic buckets (no hand kernel)
     paths["bulk"] = bulk_phase(card)
+    free_card()
+    # 10. the s2d ResNets, fused blocks, checkpoints and resume (no hand
+    # kernel)
+    paths["harness"] = harness_phase(card)
 
-    # 10. report: the float32 entry's times are at the transformer path's
+    # 11. report: the float32 entry's times are at the transformer path's
     # shape, the tensor-core entry's at long context in bf16
     source = "fedml_tpu_torch/csrc/flash_attention.cu"
     f32 = [r for r in rows if r["dtype"] == "float32"]
@@ -1688,9 +2307,9 @@ def main() -> int:
             next(r for r in half if r["causal"] and r["dtype"] == "bfloat16"
                  and r["shape"] == list(LONG_SHAPE)),
             note="bf16/fp16 only: the transformer path evaluates in "
-                 "float32 and no other path (the defended rounds and the "
-                 "bulk phase included) has attention, so none launches "
-                 "this kernel"),
+                 "float32 and no other path (the defended rounds, the "
+                 "bulk phase and phase 10 included) has attention, so none "
+                 "launches this kernel"),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,7 @@ runs batched, as in the JAX package: the local step vmapped over
 stacked clients, in size-sorted groups of ``TrainConfig.cohort_groups``;
 eagerly on the CPU, one CUDA graph replay per step on a card.
 
-Two round machineries of the JAX package come with it:
+Three round machineries of the JAX package come with it:
 
 - **elastic buckets** (``FedConfig.elastic_buckets``, ``core/elastic.py``):
   the round runs the power-of-two bucket above the cohort, the live
@@ -27,7 +27,10 @@ Two round machineries of the JAX package come with it:
   :func:`server_update_from_partials`); the selection and quantile
   defenses run as two streamed passes (``core/streamdef.py``) and the
   error-feedback residual lives in a client-keyed bank
-  (``core/statebank.py``).
+  (``core/statebank.py``);
+- **fused blocks** (``FedConfig.fuse_rounds``, ``core/fuse.py``):
+  :meth:`FedAvgSim.run` enqueues blocks of K rounds back to back and
+  reads each block's metrics back once (:meth:`FedAvgSim.run_block`).
 
 Settings of the JAX package that this package has not ported make
 :class:`FedAvgSim` raise ``NotImplementedError``.
@@ -58,6 +61,7 @@ from fedml_tpu_torch.core import adversary as A
 from fedml_tpu_torch.core import bulk as BK
 from fedml_tpu_torch.core import compress as C
 from fedml_tpu_torch.core import elastic as E
+from fedml_tpu_torch.core import fuse as FU
 from fedml_tpu_torch.core import random as R
 from fedml_tpu_torch.core import robust
 from fedml_tpu_torch.core import statebank as SB
@@ -69,7 +73,6 @@ from fedml_tpu_torch.models.base import FedModel, Params
 
 # (setting, its default, the ROADMAP item that ports it)
 _NOT_PORTED = (
-    ("fed.fuse_rounds", 1, "Queue A item 7 (core/fuse.py)"),
     ("fed.peft", "none", "Queue A item 12 (PEFT)"),
 )
 
@@ -412,6 +415,13 @@ class FedAvgSim:
                 "sampler: the bucketed round draws its own full-bucket "
                 "permutation (core/elastic.py). Disable elastic buckets or "
                 "drop the sampler.")
+        # fused blocks (core/fuse.py): run() goes through run_block
+        self._fuse = int(cfg.fed.fuse_rounds)
+        if self._fuse < 1:
+            raise ValueError(
+                f"fuse_rounds must be >= 1, got {cfg.fed.fuse_rounds}")
+        # the blocks of the last fused run(), flushed (core/fuse.Flushed)
+        self.last_blocks: list[FU.Flushed] = []
         self._bucket = (min(E.bucket_for(cohort), num_clients)
                         if self._elastic else cohort)
         self._n_active = cohort
@@ -647,6 +657,13 @@ class FedAvgSim:
         server step; streamed in blocks by the bulk engine. The metrics
         stay on the device. Under elastic buckets the round counts in
         ``counters`` as a hit or a miss of the program cache."""
+        if self._elastic:
+            return E.mirror_jit_cache(self.cohort_update.programs,
+                                      lambda: self._round(state),
+                                      self.counters)
+        return self._round(state)
+
+    def _round(self, state: ServerState):
         if self._bulk.enabled():
             BK.note_round(self.counters, self._block_size, self._n_blocks,
                           self._slots - self._n_active)
@@ -655,13 +672,40 @@ class FedAvgSim:
                                if k not in self.model.stat_names)
                 SD.note_defense(self.counters, self._stream_defense,
                                 n_params, self._slots)
-            call = lambda: self._bulk_round(state)  # noqa: E731
-        else:
-            call = lambda: self._stacked_round(state)  # noqa: E731
+            return self._bulk_round(state)
+        return self._stacked_round(state)
+
+    def run_block(self, state: ServerState, length: int):
+        """``length`` rounds enqueued back to back; returns ``(state,
+        metrics)`` with every metric stacked ``[length]`` on the device.
+        Nothing is read back inside the block, on any round path: the
+        error-feedback residual (or the bulk engine's bank) is carried
+        from round to round as in :meth:`run_round`, and each round is
+        the same computation on the same state, so a block equals
+        ``length`` calls of :meth:`run_round` bit for bit. Under elastic
+        buckets the block counts once in ``counters``, a hit or a miss of
+        the program cache, as the JAX package's block program does; a
+        :meth:`set_cohort_size` between blocks takes effect at the next
+        block. Needs ``fuse_rounds > 1``, as in the JAX package."""
+        if self._fuse < 2:
+            raise ValueError(
+                "run_block requires FedConfig(fuse_rounds > 1) (the JAX "
+                "package builds the block program at construction)")
+
+        def block():
+            nonlocal state
+            rows = []
+            for _ in range(length):
+                state, m = self._round(state)
+                rows.append(m)
+            return {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+
         if self._elastic:
-            return E.mirror_jit_cache(self.cohort_update.programs, call,
-                                      self.counters)
-        return call()
+            metrics = E.mirror_jit_cache(self.cohort_update.programs, block,
+                                         self.counters)
+        else:
+            metrics = block()
+        return state, metrics
 
     def _stacked_round(self, state: ServerState):
         live = None
@@ -922,9 +966,12 @@ class FedAvgSim:
 
     def run(self, metrics_sink=None) -> ServerState:
         """The round loop: train, log the round's metrics, evaluate every
-        ``eval_every`` rounds and after the last."""
+        ``eval_every`` rounds and after the last. With ``fuse_rounds >
+        1`` the loop runs in fused blocks (:meth:`_run_fused`)."""
         state = self.init()
         fed = self.cfg.fed
+        if self._fuse > 1:
+            return self._run_fused(state, metrics_sink)
         for r in range(fed.num_rounds):
             state, train_m = self.run_round(state)
             record = {"round": r,
@@ -936,6 +983,44 @@ class FedAvgSim:
             if metrics_sink is not None:
                 metrics_sink.log(record)
         return state
+
+    def _run_fused(self, state: ServerState, metrics_sink) -> ServerState:
+        """The round loop in blocks of up to ``fuse_rounds`` rounds
+        (``core/fuse.py`` ``drive``, shared with the harness): block k + 1
+        is enqueued before block k's metrics come back, and the blocks
+        end on every evaluation round, so the evaluation sees the state
+        the per-round loop would. The records equal the per-round
+        loop's."""
+        fed = self.cfg.fed
+        box = [state]
+
+        def run_block(length):
+            box[0], metrics = self.run_block(box[0], length)
+            return metrics
+
+        def make_records(start, rows):
+            return [{"round": start + i,
+                     **consume_round_counters(row, self.counters)}
+                    for i, row in enumerate(rows)]
+
+        def log(record):
+            if metrics_sink is not None:
+                metrics_sink.log(record)
+
+        def boundary_hook(r_last, last):
+            if (r_last + 1) % fed.eval_every == 0 or (
+                    r_last == fed.num_rounds - 1):
+                test_m = self.evaluate_global(box[0])
+                last.update({"test_acc": test_m["acc"],
+                             "test_loss": test_m["loss"]})
+            log(last)
+
+        self.last_blocks = FU.drive(
+            run_block, FU.plan_blocks(0, fed.num_rounds, self._fuse,
+                                      fed.eval_every),
+            make_records=make_records, log=log, boundary_hook=boundary_hook,
+            programs=self.cohort_update.programs)
+        return box[0]
 
 
 def _split(flat: torch.Tensor, like: Params) -> Params:

@@ -107,9 +107,11 @@ class FedConfig:
     # the bulk engine (core/bulk.py): stream the cohort in blocks of this
     # many clients (0: the stacked round)
     client_block_size: int = 0
-    # features of the JAX package not ported yet; any value other than
-    # the default makes FedAvgSim raise NotImplementedError
+    # run the round loop in blocks of this many rounds (core/fuse.py): the
+    # host reads a block's metrics back once, at its end (1: per round)
     fuse_rounds: int = 1
+    # a feature of the JAX package not ported yet; any value other than
+    # the default makes FedAvgSim raise NotImplementedError
     peft: str = "none"
 
 
@@ -188,6 +190,10 @@ class ExperimentConfig:
     seed: int = 0
     run_name: str = "run"
     out_dir: str = "./runs"
+    # checkpoint the round state every N rounds into <out_dir>/<run>/ckpt
+    # and resume from the latest checkpoint on a restart
+    # (utils/checkpoint.py, experiments/harness.py); 0 = off
+    checkpoint_every: int = 0
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), default=str, indent=2)
@@ -226,4 +232,5 @@ class ExperimentConfig:
             seed=d.get("seed", 0),
             run_name=d.get("run_name", "run"),
             out_dir=d.get("out_dir", "./runs"),
+            checkpoint_every=d.get("checkpoint_every", 0),
         )

@@ -63,24 +63,31 @@ def transformer_state_dict(
 # flax automatic names -> port module names, by architecture (the port's
 # class name); "fc1" and "head" are named alike on both sides. A norm is
 # BatchNorm_k or GroupNorm_k, whichever the model has.
-_RESNET_TOP = {"Conv2D_0": "conv", "BatchNorm_0": "bn", "GroupNorm_0": "bn"}
+_RESNET_TOP = {"Conv2D_0": "conv", "BatchNorm_0": "bn", "GroupNorm_0": "bn",
+               "PhasePooledBatchNorm_0": "bn"}
 _VISION_TOP = {
     "LogisticRegression": {"Dense_0": "linear"},
     "CNNOriginalFedAvg": {"Conv2D_0": "conv1", "Conv2D_1": "conv2"},
     "ResNetCIFAR": _RESNET_TOP,
+    "ResNetCIFARS2DExact": _RESNET_TOP,
     "ResNet18GN": _RESNET_TOP,
     "MobileNet": {"Conv2D_0": "conv", "BatchNorm_0": "bn",
                   "Dense_0": "head"},
 }
 # inside a block (BasicBlock_k or DepthwiseSeparable_k, numbered across
-# the whole model as blocks.k): in a projecting BasicBlock the third conv
-# and norm are the shortcut's
+# the whole model as blocks.k; in the exact s2d ResNet _S2DBasicBlock_k,
+# _TransitionBlock_0 and _BasicBlock_k, numbered in that order): in a
+# projecting block the third conv and norm are the shortcut's
+_RESNET_BLOCK = {"Conv2D_0": "conv1", "Conv2D_1": "conv2", "Conv2D_2": "proj",
+                 **{f"{kind}_{i}": name
+                    for kind in ("BatchNorm", "GroupNorm",
+                                 "PhasePooledBatchNorm")
+                    for i, name in enumerate(("bn1", "bn2", "proj_bn"))}}
 _BLOCKS = {
-    "BasicBlock": {"Conv2D_0": "conv1", "Conv2D_1": "conv2",
-                   "Conv2D_2": "proj",
-                   **{f"{kind}_{i}": name for kind in ("BatchNorm",
-                                                       "GroupNorm")
-                      for i, name in enumerate(("bn1", "bn2", "proj_bn"))}},
+    "BasicBlock": _RESNET_BLOCK,
+    "_S2DBasicBlock": _RESNET_BLOCK,
+    "_TransitionBlock": _RESNET_BLOCK,
+    "_BasicBlock": _RESNET_BLOCK,
     "DepthwiseSeparable": {"Conv2D_0": "dw", "BatchNorm_0": "dw_bn",
                            "Conv2D_1": "pw", "BatchNorm_1": "pw_bn"},
 }
@@ -92,10 +99,18 @@ def vision_state_dict(variables: Mapping[str, Any], arch: str
                       ) -> dict[str, torch.Tensor]:
     """Flax variables (``{"params": ..., "batch_stats": ...}``) of a vision
     model to the port's variables; ``arch`` is the port's class name
-    (``LogisticRegression``, ``CNNOriginalFedAvg``, ``ResNetCIFAR``,
+    (``LogisticRegression``, ``CNNOriginalFedAvg``, ``ResNetCIFAR`` with
+    or without ``space_to_depth``, ``ResNetCIFARS2DExact``,
     ``ResNet18GN`` or ``MobileNet``). ``BasicBlock_k`` (numbered across
-    all stages) and ``DepthwiseSeparable_k`` become ``blocks.k``."""
+    all stages) and ``DepthwiseSeparable_k`` become ``blocks.k``; in the
+    exact s2d ResNet, with ``n`` blocks a stage, ``_S2DBasicBlock_k``
+    becomes ``blocks.k``, ``_TransitionBlock_0`` ``blocks.n`` and
+    ``_BasicBlock_k`` ``blocks.(n + 1 + k)``."""
     top = _VISION_TOP[arch]
+    n = len({k for collection in ("params", "batch_stats")
+             for k in variables.get(collection, {})
+             if k.startswith("_S2DBasicBlock_")})
+    offset = {"_TransitionBlock": n, "_BasicBlock": n + 1}
     out = {}
 
     def module_name(path):
@@ -103,7 +118,7 @@ def vision_state_dict(variables: Mapping[str, Any], arch: str
         for i, name in enumerate(path):
             kind, _, k = name.rpartition("_")
             if kind in _BLOCKS:
-                parts.append(f"blocks.{int(k)}")
+                parts.append(f"blocks.{offset.get(kind, 0) + int(k)}")
                 block = _BLOCKS[kind]
             elif i == 0:
                 parts.append(top.get(name, name))

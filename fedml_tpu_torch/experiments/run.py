@@ -6,14 +6,18 @@ fedavg, fedopt, fedprox, fednova), with its flag names: the defenses
 ``--robust_norm_clip``, ``--robust_noise_stddev``), the wire codec
 (``--compress``, ``--compress_topk_frac``), the seeded adversaries
 (``--adversary_*``), the bulk engine (``--client_block_size``) and
-elastic buckets (``--elastic``). Config
-precedence: ``--config`` JSON (the full :class:`ExperimentConfig` shape,
-the same file the JAX package reads) overridden by explicit flags. Client
-momentum and weight decay come in through ``--config``, and so does
-FedProx's ``prox_mu``. The run goes on ``--device`` (default ``cuda``,
-which raises without a card); it prints the run's summary as one JSON
-line. A setting the port does not have yet raises ``NotImplementedError``
-naming its ROADMAP item.
+elastic buckets (``--elastic``), fused blocks (``--fuse_rounds``) and
+the harness's flags (``--repetitions``, ``--run_name``, ``--out_dir``,
+``--checkpoint_every``). Config precedence: ``--config`` JSON (the full
+:class:`ExperimentConfig` shape, the same file the JAX package reads)
+overridden by explicit flags. Client momentum and weight decay come in
+through ``--config``, and so does FedProx's ``prox_mu``. The run goes
+through :class:`~fedml_tpu_torch.experiments.harness.Experiment` on
+``--device`` (default ``cuda``, which raises without a card), writes
+``<out_dir>/<run_name>_rep<k>/`` and prints each repetition's summary as
+one JSON line. With ``--checkpoint_every N`` a run started again with the
+same flags resumes after its last checkpoint. A setting the port does
+not have yet raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import sys
 from fedml_tpu_torch.config import ADVERSARY_MODES, ExperimentConfig
 from fedml_tpu_torch.core.bulk import BulkSpec, check_bulk_compat
 from fedml_tpu_torch.core.compress import METHODS, CompressionSpec
+from fedml_tpu_torch.core.device import resolve_device
 from fedml_tpu_torch.core.robust import (
     DefensePipeline,
     check_fednova_compat,
@@ -122,7 +127,20 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
                         "a live cohort that changes size reuses the one "
                         "program (a captured CUDA graph on the card); "
                         "rides config.json as fed.elastic_buckets")
+    p.add_argument("--fuse_rounds", type=int, default=None,
+                   help="run the round loop in blocks of K rounds enqueued "
+                        "back to back, each block's metrics read back "
+                        "once, at its end; evaluation and checkpoint "
+                        "rounds end a block. 1 (default) keeps the "
+                        "per-round loop")
     p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--repetitions", type=int, default=1)
+    p.add_argument("--run_name", type=str, default=None)
+    p.add_argument("--out_dir", type=str, default=None)
+    p.add_argument("--checkpoint_every", type=int, default=None,
+                   help="checkpoint the round state every N rounds into "
+                        "<out_dir>/<run>/ckpt and resume from the latest "
+                        "checkpoint on restart (0 = off)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda; 'cpu' only "
                         "when asked)")
@@ -181,6 +199,7 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
             compress_topk_frac=a.compress_topk_frac,
             elastic_buckets=True if a.elastic else None,
             client_block_size=a.client_block_size,
+            fuse_rounds=a.fuse_rounds,
         ),
         adversary=rep(
             cfg.adversary,
@@ -192,7 +211,13 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
             noise_stddev=a.adversary_noise,
         ),
         seed=a.seed,
+        run_name=a.run_name,
+        out_dir=a.out_dir,
+        checkpoint_every=a.checkpoint_every,
     )
+    if cfg.fed.fuse_rounds < 1:
+        raise SystemExit(
+            f"--fuse_rounds must be >= 1, got {cfg.fed.fuse_rounds}")
     # a defense, codec or fednova pairing the JAX package refuses is
     # refused here, before any data is made, as the JAX CLI does
     try:
@@ -213,37 +238,13 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
     return cfg, a
 
 
-# --algorithm -> the FedConfig.algorithm FedAvgSim runs, as the JAX
-# package's harness maps them (fedprox is fedavg with TrainConfig.prox_mu)
-FEDAVG_FAMILY = {"fedavg": "fedavg", "fedopt": "fedopt",
-                 "fedprox": "fedavg", "fednova": "fednova"}
-
-
-def run(cfg: ExperimentConfig, device: str = "cuda") -> dict:
-    """One FedAvg-family simulation of ``cfg`` on ``device``; returns its
-    summary (the last value of every logged metric, and the run name)."""
-    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
-    from fedml_tpu_torch.data import load_dataset
-    from fedml_tpu_torch.metrics import MetricsSink
-    from fedml_tpu_torch.models import create_model
-
-    if cfg.fed.algorithm not in FEDAVG_FAMILY:
-        raise NotImplementedError(
-            f"algorithm={cfg.fed.algorithm!r} is not ported to "
-            "fedml_tpu_torch yet (ROADMAP: Queue A item 13, the other "
-            "algorithm families)")
-    cfg = dataclasses.replace(cfg, fed=dataclasses.replace(
-        cfg.fed, algorithm=FEDAVG_FAMILY[cfg.fed.algorithm]))
-    model = create_model(cfg.model, device)
-    sim = FedAvgSim(model, load_dataset(cfg.data), cfg, device)
-    sink = MetricsSink()
-    sim.run(metrics_sink=sink)
-    return dict(sink.summary, run_name=cfg.run_name)
-
-
 def main(argv=None) -> int:
+    from fedml_tpu_torch.experiments.harness import Experiment
+
     cfg, a = parse_args(argv)
-    print(json.dumps(run(cfg, a.device), default=float))
+    device = resolve_device(a.device)  # no card: raise before any file
+    for summary in Experiment(cfg, a.repetitions, device).run():
+        print(json.dumps(summary, default=float))
     return 0
 
 

@@ -2,13 +2,14 @@
 :class:`~fedml_tpu_torch.models.base.FedModel`.
 
 Ported names, with the JAX package's grammar: ``lr``, ``cnn_fedavg``,
-``resnet<depth>`` and ``resnet<depth>_gn`` (BatchNorm and GroupNorm; the
-extra ``norm`` "bn" or "gn" overrides the suffix), ``resnet18_gn``,
+``resnet<depth>[_gn][_s2d]`` (BatchNorm or GroupNorm, the "_s2d"
+parameterization; the extra ``norm`` "bn" or "gn" overrides the suffix),
+``resnet<depth>_s2d_exact`` (the standard BatchNorm ResNet with stage 1
+in space-to-depth layout, ``models/s2d_exact.py``), ``resnet18_gn``,
 ``mobilenet`` (extra ``width_mult``), ``rnn``/``char_lstm`` and
 ``rnn_stackoverflow``/``nwp_lstm`` (extra ``vocab_size``) and
-``transformer_lm``. The ResNet variants the port does not have yet
-(``_s2d``, ``_s2d_exact``, the norm ``syncbn:<axis>``) raise
-``NotImplementedError`` naming their ROADMAP item; other names raise
+``transformer_lm``. The norm ``syncbn:<axis>`` raises
+``NotImplementedError`` naming its ROADMAP item; other names raise
 ``ValueError``.
 """
 
@@ -20,6 +21,7 @@ from fedml_tpu_torch.config import ModelConfig
 from fedml_tpu_torch.core.device import resolve_device
 from fedml_tpu_torch.models.base import FedModel, weightless
 from fedml_tpu_torch.models.nlp import NWPLSTM, CharLSTM
+from fedml_tpu_torch.models.s2d_exact import ResNetCIFARS2DExact
 from fedml_tpu_torch.models.transformer import TransformerLM
 from fedml_tpu_torch.models.vision import (
     CNNOriginalFedAvg,
@@ -29,13 +31,8 @@ from fedml_tpu_torch.models.vision import (
     ResNetCIFAR,
 )
 
-# resnet name suffixes not ported yet -> their ROADMAP item
-_RESNET_NOT_PORTED = (
-    ("_s2d_exact", "Queue A item 4, resnet56_s2d"),
-    ("_s2d", "Queue A item 4, resnet56_s2d"),
-)
-
-PORTED = ("lr", "cnn_fedavg", "resnet<depth>", "resnet<depth>_gn",
+PORTED = ("lr", "cnn_fedavg", "resnet<depth>[_gn][_s2d]",
+          "resnet<depth>_s2d_exact",
           "resnet18_gn", "mobilenet", "rnn", "char_lstm",
           "rnn_stackoverflow", "nwp_lstm", "transformer_lm")
 
@@ -49,12 +46,15 @@ def _resnet(name: str, cfg: ModelConfig):
                 "a norm override does not apply (use resnet<depth> with "
                 "extra norm instead)")
         return ResNet18GN(cfg.num_classes, in_channels=cfg.input_shape[-1])
-    for suffix, item in _RESNET_NOT_PORTED:
-        if name.endswith(suffix):
-            raise NotImplementedError(
-                f"model {cfg.name!r} is not ported to fedml_tpu_torch yet "
-                f"(ROADMAP: {item})")
+    # name grammar: resnet<depth>[_gn][_s2d] or resnet<depth>_s2d_exact
     base = name[len("resnet"):]
+    if base.endswith("_s2d_exact"):
+        return ResNetCIFARS2DExact(int(base[:-len("_s2d_exact")]),
+                                   cfg.num_classes,
+                                   in_channels=cfg.input_shape[-1])
+    s2d = base.endswith("_s2d")
+    if s2d:
+        base = base[:-len("_s2d")]
     gn = base.endswith("_gn")
     norm = extra.get("norm", "gn" if gn else "bn")
     if norm.startswith("syncbn"):
@@ -63,7 +63,8 @@ def _resnet(name: str, cfg: ModelConfig):
             "(ROADMAP: Queue A item 15, syncbn)")
     depth = int(base[:-len("_gn")] if gn else base)
     return ResNetCIFAR(depth, cfg.num_classes,
-                       in_channels=cfg.input_shape[-1], norm=norm)
+                       in_channels=cfg.input_shape[-1], norm=norm,
+                       space_to_depth=s2d)
 
 
 _TOKEN_MODELS = ("transformer", "transformer_lm", "rnn", "char_lstm",
@@ -115,4 +116,4 @@ def create_model(cfg: ModelConfig, device: str | torch.device = "cuda"
 
 __all__ = ["CNNOriginalFedAvg", "CharLSTM", "FedModel", "LogisticRegression",
            "MobileNet", "NWPLSTM", "ResNet18GN", "ResNetCIFAR",
-           "TransformerLM", "create_model"]
+           "ResNetCIFARS2DExact", "TransformerLM", "create_model"]

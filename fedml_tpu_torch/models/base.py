@@ -39,6 +39,14 @@ BN_MOMENTUM = 0.9  # flax's convention: the weight of the old running value
 BN_EPS = 1e-5
 
 
+def batch_norm_update(mean: torch.Tensor, var: torch.Tensor,
+                      batch_mean: torch.Tensor, batch_var: torch.Tensor):
+    """The running statistics after a batch, flax's way:
+    ``BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch``."""
+    return (BN_MOMENTUM * mean + (1 - BN_MOMENTUM) * batch_mean.detach(),
+            BN_MOMENTUM * var + (1 - BN_MOMENTUM) * batch_var.detach())
+
+
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                mean: torch.Tensor, var: torch.Tensor, train: bool):
     """Flax ``nn.BatchNorm`` over the channel dim 1 of ``x``; returns
@@ -59,8 +67,7 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         use_mean = xf.mean(dims)
         use_var = torch.clamp(torch.mean(xf * xf, dims) - use_mean * use_mean,
                               min=0.0)
-        new_mean = BN_MOMENTUM * mean + (1 - BN_MOMENTUM) * use_mean.detach()
-        new_var = BN_MOMENTUM * var + (1 - BN_MOMENTUM) * use_var.detach()
+        new_mean, new_var = batch_norm_update(mean, var, use_mean, use_var)
     else:
         use_mean, use_var, new_mean, new_var = mean, var, mean, var
     mul = torch.rsqrt(use_var + BN_EPS) * scale.float()

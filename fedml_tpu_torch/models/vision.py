@@ -2,12 +2,12 @@
 ResNets with BatchNorm or GroupNorm, ResNet-18 with GroupNorm and
 MobileNet (V1).
 
-Same architectures as ``fedml_tpu.models.vision`` at ``cohort=1`` and
-``space_to_depth=False``. Inputs are NHWC, as the data
-layer stores them; the conv models view them as NCHW at their input
-(:func:`nchw`), and conv weights are OIHW. Flax's "SAME" padding is
-reproduced exactly: at stride 2 on an even input it pads (0, 1), which no
-``nn.Conv2d(padding=...)`` can express.
+Same architectures as ``fedml_tpu.models.vision`` at ``cohort=1``, the
+CIFAR ResNets with and without ``space_to_depth``. Inputs are NHWC, as
+the data layer stores them; the conv models view them as NCHW at their
+input (:func:`nchw`), and conv weights are OIHW. Flax's "SAME" padding
+is reproduced exactly: at stride 2 on an even input it pads (0, 1),
+which no ``nn.Conv2d(padding=...)`` can express.
 """
 
 from __future__ import annotations
@@ -45,6 +45,19 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
     (torch 2.13, CPU build)."""
     x = x.permute(0, 3, 1, 2)
     return x if x.is_cuda else x.contiguous()
+
+
+def s2d_rearrange(x: torch.Tensor) -> torch.Tensor:
+    """Space to depth: NHWC ``[B, H, W, c]`` to ``[B, H/2, W/2, 4c]``,
+    the channels phase-major, ``(2u + v) c + ci`` for the pixel at
+    offset ``(u, v)`` of its 2x2 patch (the JAX package's
+    ``s2d_rearrange`` at ``cohort=1``). ``pixel_unshuffle`` orders them
+    channel-major, ``4 ci + 2u + v``, which is another layout. The result
+    is a contiguous NHWC tensor, so :func:`nchw` views it channels_last
+    on the card."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // 2, w // 2, 4 * c)
 
 
 class Conv2d(nn.Conv2d):
@@ -140,17 +153,29 @@ class BasicBlock(nn.Module):
 class ResNetCIFAR(nn.Module):
     """3-stage CIFAR ResNet: depth = 6n + 2 (resnet56: n = 9), stage widths
     (width, 2 width, 4 width), strides (1, 2, 2), a global mean pool and a
-    dense head; ``norm`` "bn" (BatchNorm) or "gn" (GroupNorm, 2 groups)."""
+    dense head; ``norm`` "bn" (BatchNorm) or "gn" (GroupNorm, 2 groups).
+
+    ``space_to_depth`` is the JAX package's "_s2d" parameterization, a
+    different network: the input goes through :func:`s2d_rearrange`
+    (``[H, W, c]`` to ``[H/2, W/2, 4c]``), the stage widths are (4 width,
+    2 width, 4 width) and the strides (1, 1, 2), so stages 2 and 3 keep
+    their resolutions."""
 
     def __init__(self, depth: int = 56, num_classes: int = 10,
-                 width: int = 16, in_channels: int = 3, norm: str = "bn"):
+                 width: int = 16, in_channels: int = 3, norm: str = "bn",
+                 space_to_depth: bool = False):
         super().__init__()
         n = (depth - 2) // 6
-        self.conv = Conv2d(in_channels, width, 3, bias=False)
-        self.bn = norm_layer(norm, width)
-        blocks, cin = [], width
-        for stage, (ch, st) in enumerate(zip((width, 2 * width, 4 * width),
-                                             (1, 2, 2))):
+        self.space_to_depth = space_to_depth
+        if space_to_depth:
+            widths, strides = (4 * width, 2 * width, 4 * width), (1, 1, 2)
+            in_channels *= 4
+        else:
+            widths, strides = (width, 2 * width, 4 * width), (1, 2, 2)
+        self.conv = Conv2d(in_channels, widths[0], 3, bias=False)
+        self.bn = norm_layer(norm, widths[0])
+        blocks, cin = [], widths[0]
+        for stage, (ch, st) in enumerate(zip(widths, strides)):
             for blk in range(n):
                 stride = st if (stage > 0 and blk == 0) else 1
                 blocks.append(BasicBlock(cin, ch, stride, norm))
@@ -160,6 +185,8 @@ class ResNetCIFAR(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 stats_out: dict | None = None) -> torch.Tensor:
+        if self.space_to_depth:
+            x = s2d_rearrange(x)
         x = F.relu(self.bn(self.conv(nchw(x)), train, stats_out))
         for block in self.blocks:
             x = block(x, train, stats_out)

@@ -48,6 +48,7 @@ from tests.test_torch_byzantine import (
     _to_port_stacked,
     _unoptimized,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # the reference's bulk-vs-stacked band (tests/test_bulk.py RTOL, ATOL)
 STACKED_TOL = dict(rtol=2e-5, atol=1e-7)

@@ -38,6 +38,7 @@ from fedml_tpu_torch.core import adversary as A
 from fedml_tpu_torch.core import random as R
 from fedml_tpu_torch.data import load_dataset
 from fedml_tpu_torch.models import create_model
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIM_TOL = dict(rtol=2e-5, atol=2e-6)
 SHAPES = {"a": (3, 4), "b": (5,)}  # sorted: both packages' leaf order

@@ -22,6 +22,18 @@ from fedml_tpu_torch.algorithms.stack_utils import (
 from fedml_tpu_torch.data.federated import FederatedData
 from fedml_tpu_torch.models import create_model
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """``tests/torch_threads.py``'s fixture, written out because this file
+    also runs on the card's machine (``--noconftest``), where another
+    installed package named ``tests`` hides this repo's."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 RES_SHAPE = (16, 16, 3)
 B = 4
 COUNTS = (10, 3, 7, 5)  # 3, 1, 2 and 2 real batches of 4

@@ -34,6 +34,7 @@ from tests.test_torch_byzantine import (
     _to_port,
     _unoptimized,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_bucket_for_and_masks_match_jax():

@@ -469,7 +469,7 @@ def test_cli_runs_the_families(argv, capsys, tmp_path):
     common = ["--config", str(path), "--client_num_in_total", "100",
               "--client_num_per_round", "2", "--comm_round", "1",
               "--batch_size", "16", "--frequency_of_the_test", "1",
-              "--device", "cpu"]
+              "--device", "cpu", "--out_dir", str(tmp_path)]
     cfg, _ = cli.parse_args(argv + common)
     assert cfg.fed.algorithm == argv[1]
     assert cli.main(argv + common) == 0

@@ -199,20 +199,18 @@ def test_two_fedavg_rounds_match_jax():
 def test_unported_settings_raise():
     _, tdata = _data()
     model = create_model(tc.ModelConfig(**MODEL), "cpu")
-    for bad in (dict(fed=tc.FedConfig(fuse_rounds=2)),
-                dict(fed=tc.FedConfig(peft="lora"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfed.FedAvgSim(model, tdata, tc.ExperimentConfig(**bad),
-                           device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfed.FedAvgSim(model, tdata, tc.ExperimentConfig(
+            fed=tc.FedConfig(peft="lora")), device="cpu")
     # the bulk engine's personalized round waits for PEFT
     with pytest.raises(NotImplementedError, match="item 12"):
         tfed.FedAvgSim(model, tdata, tc.ExperimentConfig(fed=tc.FedConfig(
             client_block_size=4, peft="lora")), device="cpu")
-    assert [p for p, _, _ in tfed._NOT_PORTED] == ["fed.fuse_rounds",
-                                                   "fed.peft"]
-    # the defenses, the codecs, the adversaries, elastic buckets and the
-    # bulk engine are ported
-    for good in (dict(fed=tc.FedConfig(elastic_buckets=True)),
+    assert [p for p, _, _ in tfed._NOT_PORTED] == ["fed.peft"]
+    # the defenses, the codecs, the adversaries, elastic buckets, the
+    # bulk engine and fused blocks are ported
+    for good in (dict(fed=tc.FedConfig(fuse_rounds=2)),
+                 dict(fed=tc.FedConfig(elastic_buckets=True)),
                  dict(fed=tc.FedConfig(client_block_size=4)),
                  dict(fed=tc.FedConfig(robust_method="median",
                                        robust_norm_clip=1.0,

@@ -49,12 +49,16 @@ names = [m.name for m in pkgutil.walk_packages(fedml_tpu_torch.__path__,
                                                "fedml_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-# the defended round's and the bulk engine's modules are among them
+# the defended round's, the bulk engine's, the harness's and the s2d
+# models' modules are among them
 assert {"fedml_tpu_torch.core.robust", "fedml_tpu_torch.core.adversary",
         "fedml_tpu_torch.core.compress", "fedml_tpu_torch.core.random",
         "fedml_tpu_torch.core.bulk", "fedml_tpu_torch.core.elastic",
         "fedml_tpu_torch.core.statebank",
-        "fedml_tpu_torch.core.streamdef"} <= set(names), names
+        "fedml_tpu_torch.core.streamdef", "fedml_tpu_torch.core.fuse",
+        "fedml_tpu_torch.utils.checkpoint",
+        "fedml_tpu_torch.experiments.harness",
+        "fedml_tpu_torch.models.s2d_exact"} <= set(names), names
 from fedml_tpu_torch.config import ModelConfig
 from fedml_tpu_torch.models import create_model
 model = create_model(ModelConfig(name="transformer_lm", num_classes=37,
@@ -67,7 +71,9 @@ model = create_model(ModelConfig(name="resnet8", num_classes=10,
 variables = model.init(torch.Generator().manual_seed(0))
 logits, new_vars = model.apply_train(variables, torch.zeros(2, 16, 16, 3))
 assert logits.shape == (2, 10) and set(new_vars) == set(variables)
-for name, shape in (("resnet8_gn", (16, 16, 3)), ("char_lstm", (12,))):
+for name, shape in (("resnet8_gn", (16, 16, 3)), ("char_lstm", (12,)),
+                    ("resnet8_s2d", (16, 16, 3)),
+                    ("resnet8_s2d_exact", (16, 16, 3))):
     model = create_model(ModelConfig(name=name, num_classes=90,
                                      input_shape=shape), device="cpu")
     variables = model.init(torch.Generator().manual_seed(0))
@@ -110,3 +116,20 @@ def test_cli_needs_cuda_unless_asked_for_cpu(monkeypatch):
     assert args.device == "cuda" and cfg.model.name == "resnet8"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(argv)
+
+
+def test_harness_needs_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
+    from fedml_tpu_torch.experiments.harness import Experiment, build_sim
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ExperimentConfig(
+        data=DataConfig(dataset="fake_mnist", num_clients=4),
+        model=ModelConfig(name="lr", num_classes=10,
+                          input_shape=(28, 28, 1)),
+        out_dir=str(tmp_path), checkpoint_every=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_sim(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Experiment(cfg).run()
+    assert list(tmp_path.iterdir()) == []  # nothing written
+    assert build_sim(cfg, "cpu").device.type == "cpu"

@@ -30,6 +30,7 @@ from fedml_tpu_torch.data.federated import FederatedData
 from fedml_tpu_torch.experiments import run as cli
 from fedml_tpu_torch.models import create_model
 from tests.test_torch_vision import RES_SHAPE, flax_resnet8
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B = 4
 COUNTS = (10, 3, 7, 5)  # samples per client: full, partial, padded batches
@@ -333,8 +334,9 @@ def test_small_client_matches_serial_sgd():
 
 def test_cli_prints_its_summary(capsys, tmp_path):
     """``main`` on a tiny config, with momentum from --config, prints one
-    JSON summary line; an algorithm outside the FedAvg family raises by
-    ROADMAP item."""
+    JSON summary line (the harness's repetition 0, written under
+    --out_dir); an algorithm outside the FedAvg family raises by ROADMAP
+    item."""
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps({"train": {"momentum": 0.9}}))
     argv = ["--config", str(path), "--algorithm", "fedavg",
@@ -344,14 +346,15 @@ def test_cli_prints_its_summary(capsys, tmp_path):
             "--comm_round", "2", "--batch_size", "32", "--lr", "0.05",
             "--partition_method", "hetero", "--partition_alpha", "0.5",
             "--compute_dtype", "bfloat16", "--frequency_of_the_test", "1",
-            "--device", "cpu"]
+            "--device", "cpu", "--out_dir", str(tmp_path)]
     cfg, _ = cli.parse_args(argv)
     assert cfg.train.momentum == 0.9 and cfg.data.num_clients == 4
     assert cfg.train.compute_dtype == "bfloat16" and cfg.fed.num_rounds == 2
     assert cli.main(argv) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     summary = json.loads(lines[-1])
-    assert summary["round"] == 1 and summary["run_name"] == "run"
+    assert summary["round"] == 1 and summary["run_name"] == "run_rep0"
+    assert (tmp_path / "run_rep0" / "metrics.jsonl").exists()
     assert all(np.isfinite(summary[k]) for k in
                ("train_loss", "test_loss", "test_acc"))
     for algorithm in ("hierarchical", "decentralized_dsgd"):

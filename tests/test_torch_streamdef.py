@@ -24,6 +24,7 @@ from fedml_tpu_torch.algorithms import fedavg as tfed
 from fedml_tpu_torch.core import streamdef as SD
 from fedml_tpu_torch.data import load_dataset
 from fedml_tpu_torch.models import create_model
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CLOSE = dict(rtol=1e-6, atol=1e-6)
 
