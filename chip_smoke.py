@@ -15,12 +15,13 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    exist for float32 only.
 3. Kernel vs plain: the flash-attention kernels against their plain
    PyTorch version, causal and not. First, for correctness only, at their
-   edges (EDGE_CASES): T of 1, 17, 77 and 80, T past one block (130, 200,
-   300), D of 32 (float32), 32, 64 and 128 (bfloat16) and 64 and 128
-   (float16), a strided k, a k whose head dim is not contiguous, and q,
-   k, v sliced from one packed QKV tensor, aligned and not. Then, timed,
-   at the transformer FedAvg path's shape ([256, 80, 4, 32] float32,
-   atol = rtol = 2e-5, and bfloat16) and at long context ([4, 2048, 8,
+   edges (EDGE_CASES): T of 1, 17, 20, 77 and 80, T past one block (130,
+   200, 300), D of 16 and 32 (float32), 16, 32, 64 and 128 (bfloat16) and
+   16, 64 and 128 (float16), a strided k, a k whose head dim is not
+   contiguous, and q, k, v sliced from one packed QKV tensor, aligned and
+   not. Then, timed, at the transformer FedAvg path's shape ([256, 80, 4,
+   32] float32, atol = rtol = 2e-5, and bfloat16), at the LoRA path's
+   ([256, 20, 4, 16] float32, causal) and at long context ([4, 2048, 8,
    64] bfloat16 and float16, [4, 2048, 8, 128] bfloat16), each 16-bit row
    against the plain version in float32 from the same inputs (bfloat16
    atol 2e-2, rtol 0; float16 atol = rtol = 2e-3), with median CUDA-event
@@ -152,13 +153,39 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    final checkpoint equal to an uninterrupted run's, bit for bit or within
    (c)'s spread. The flash counters, set to 0 before the phase, must read
    0 after it.
-11. A "kernels" JSON line with one entry per kernel (flash_attention, the
-   float32 body, and flash_attention_mma, the bf16/fp16 body), with each
-   kernel's launches on the transformer path, on the ResNet-56 path, on
-   each family, in the defended rounds, in the bulk phase and in phase 10
-   (none of them but the transformer runs a hand-written kernel), the
-   card's name and power limit, and last the result line {"ok": true,
-   "device": {...}}.
+11. A "kernels" JSON line, printed after phase 12, with one entry per
+   kernel instance the paths run (flash_attention, the float32 body at
+   head dim 32; flash_attention_d16, its head-dim-16 instance; and
+   flash_attention_mma, the bf16/fp16 body), each with its launches on
+   the transformer path, on the LoRA path, on the ResNet-56 path, on each
+   family, in the defended rounds, in the bulk phase and in phase 10
+   (none of them but the transformer and LoRA paths runs a hand-written
+   kernel), the card's name and power limit, and last the result line
+   {"ok": true, "device": {...}}.
+12. Federated LoRA fine-tuning at the shape of bench.py's --lora-bench
+   stage (synthetic_stackoverflow_nwp, 64 clients, vocab 2000 + 4;
+   transformer_lm embed 64, 4 heads of 16, 2 layers; 16 clients a round,
+   batch 16, SGD lr 0.3; rank 8, alpha 16 on q_proj and v_proj; float32),
+   each record a JSON line with the card's name and power limit: (a) 3
+   rounds: finite losses, the test loss below the initial model's, the
+   cohort as graph replays, every frozen leaf of the server state equal
+   to its init bit for bit, the graph's carry and the server's momentum
+   over the trainable names only; the global model evaluated with full
+   and with flash attention (loss within 1e-4 relative, accuracy within
+   1e-4; float32 launches above 0, 16-bit 0); one more round under
+   set_sync_debug_mode("error"); (b) 3 personalized rounds: the server's
+   adapters and the bank rows of clients never sampled bit for bit as
+   they were, and one client's own model (personal_variables) evaluated
+   through the flash kernel against full attention in the same bands;
+   (c) torch.cuda.max_memory_allocated over a LoRA round and over a full
+   fine-tuning round at the same shape: the LoRA peak must be the lower;
+   (d) bench.py's records under its names: wire_mb_per_round_16c_
+   transformer_{full,lora} and lora_wire_reduction_x (analytic),
+   fedavg_rounds_per_sec_64c_stackoverflow_transformer_lora (the median
+   of 6 rounds after a warm-up; a smoke figure) and
+   rounds_to_match_full_transformer_lora (16 full rounds, then at most
+   48 LoRA rounds). The flash counters, set to 0 before (c) and (d), must
+   read 0 after them.
 """
 
 from __future__ import annotations
@@ -182,6 +209,7 @@ PEAK_FLOPS = {  # H100 SXM dense peaks
     torch.float16: 989e12,
 }
 MAIN_SHAPE = (256, 80, 4, 32)  # eval batch 256, T 80, 4 heads of 32
+PEFT_SHAPE = (256, 20, 4, 16)  # the LoRA path: T 20, 4 heads of 16
 LONG_SHAPE = (4, 2048, 8, 64)
 WIDE_SHAPE = (4, 2048, 8, 128)  # the register-hungry 16-bit instance
 # card vs CPU, float32 local updates of ResNet-56 (TF32 off). One step
@@ -261,6 +289,16 @@ EDGE_CASES = (
     ((1, 300, 2, 128), torch.bfloat16, 2e-2, "contiguous"),
     ((2, 77, 3, 64), torch.bfloat16, 2e-2, "k_dim_strided"),
     ((2, 77, 3, 64), torch.bfloat16, 2e-2, "packed_qkv_misaligned"),
+    # head dim 16 (the LoRA transformer's): both bodies, one row group, a
+    # ragged T, T past a tile, and the scalar load paths
+    ((2, 20, 4, 16), torch.float32, 2e-5, "contiguous"),
+    ((2, 1, 3, 16), torch.float32, 2e-5, "contiguous"),
+    ((2, 77, 3, 16), torch.float32, 2e-5, "k_dim_strided"),
+    ((1, 200, 2, 16), torch.float32, 2e-5, "packed_qkv_misaligned"),
+    ((2, 20, 4, 16), torch.bfloat16, 2e-2, "contiguous"),
+    ((1, 200, 2, 16), torch.bfloat16, 2e-2, "k_strided"),
+    ((2, 77, 3, 16), torch.float16, 2e-3, "contiguous"),
+    ((2, 77, 3, 16), torch.float16, 2e-3, "packed_qkv_misaligned"),
 )
 
 
@@ -386,6 +424,7 @@ def build_kernels():
     check_sass(build)
 
 
+HEAD_DIMS = (16, 32, 64, 128)  # the flash kernels' instances
 # a flash kernel's mangled name: body, element type, head dim
 _KERNEL_NAME = re.compile(
     r"(flash_fwd_(?:mma_)?kernel)I(f|13__nv_bfloat16|6__half)Li(\d+)E")
@@ -413,9 +452,9 @@ def check_sass(build):
         elif current and "HMMA" in line:
             hmma[current] += 1
     print(json.dumps({"flash_attention_sass_hmma": hmma}), flush=True)
-    want = {f"flash_fwd_kernel<float, {d}>" for d in (32, 64, 128)} | {
+    want = {f"flash_fwd_kernel<float, {d}>" for d in HEAD_DIMS} | {
         f"flash_fwd_mma_kernel<{t}, {d}>" for t in ("bf16", "fp16")
-        for d in (32, 64, 128)}
+        for d in HEAD_DIMS}
     if set(hmma) != want:
         raise RuntimeError(f"flash kernel instances {sorted(hmma)}, "
                            f"expected {sorted(want)}")
@@ -437,6 +476,8 @@ def kernel_checks(time_plain: bool = True) -> list[dict]:
         rows.append(kernel_vs_plain(LONG_SHAPE, torch.bfloat16, causal,
                                     2e-2, 0.0, seed=1,
                                     time_plain=time_plain))
+    rows.append(kernel_vs_plain(PEFT_SHAPE, torch.float32, True, 2e-5, 2e-5,
+                                seed=3, time_plain=time_plain))
     for shape, dtype, atol, rtol in (
             (LONG_SHAPE, torch.float16, 2e-3, 2e-3),
             (WIDE_SHAPE, torch.bfloat16, 2e-2, 0.0),
@@ -471,8 +512,9 @@ def smoke_config():
 
 
 def flash_twin(model):
-    """The same architecture as ``model`` with flash attention, for
-    evaluating ``model``'s weights through the kernel."""
+    """The same architecture as ``model`` (its LoRA projections included)
+    with flash attention, for evaluating ``model``'s weights through the
+    kernel."""
     from fedml_tpu_torch.models.base import FedModel, weightless
     from fedml_tpu_torch.models.transformer import TransformerLM
     from fedml_tpu_torch.ops.flash_attention import flash_attention
@@ -480,8 +522,7 @@ def flash_twin(model):
     lm = model.module
     return FedModel(
         weightless(lambda: TransformerLM(
-            lm.vocab_size, lm.num_layers, lm.num_heads, lm.embed_dim,
-            lm.max_len, attn_fn=flash_attention)),
+            **{**lm.config(), "attn_fn": flash_attention})),
         model.input_shape, model.device, model.input_dtype)
 
 
@@ -2248,16 +2289,302 @@ def harness_phase(card: str) -> int:
     return launches
 
 
-def kernel_entry(name, source, launches, path_launches, rows, row,
+# Phase 12: federated LoRA fine-tuning at the shape of bench.py's
+# --lora-bench stage (_lora_sims): synthetic_stackoverflow_nwp, 64
+# clients, vocab 2000 + 4, T 20; transformer_lm embed 64, 4 heads (D =
+# 16), 2 layers, max_len 32; 16 clients a round, batch 16, SGD lr 0.3, 1
+# epoch; LoRA rank 8, alpha 16 on q_proj and v_proj, float32.
+LORA_VOCAB = 2000
+LORA_RANK = 8
+LORA_ROUNDS = 3
+LORA_RATE_ROUNDS = 6  # the rate's samples, after a warm-up round
+LORA_FULL_ROUNDS = 16  # bench.py lora_convergence_record's defaults
+LORA_MAX_ROUNDS = 48
+LORA_EVAL = 1e-4  # flash against full attention: loss rel., acc abs.
+
+
+def lora_config(peft: str = "lora", personalize: bool = False):
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+
+    vocab = LORA_VOCAB + 4
+    return ExperimentConfig(
+        data=DataConfig(dataset="synthetic_stackoverflow_nwp",
+                        num_clients=64, batch_size=16, seed=0),
+        model=ModelConfig(
+            name="transformer_lm", num_classes=vocab, input_shape=(20,),
+            extra=(("embed_dim", 64), ("max_len", 32), ("num_heads", 4),
+                   ("num_layers", 2), ("vocab_size", vocab))),
+        train=TrainConfig(lr=0.3, epochs=1),
+        fed=FedConfig(num_rounds=LORA_ROUNDS, clients_per_round=16,
+                      eval_every=1, peft=peft, lora_rank=LORA_RANK,
+                      lora_alpha=float(2 * LORA_RANK),
+                      lora_targets=("q_proj", "v_proj"),
+                      peft_personalize=personalize),
+        seed=0)
+
+
+def lora_sim(data, device: str = "cuda", **kw):
+    """A FedAvgSim of lora_config(**kw) on ``data`` (bench.py builds the
+    data once, with the 2000-word vocabulary, and hands it to each sim)."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.models import create_model
+
+    cfg = lora_config(**kw)
+    return FedAvgSim(create_model(cfg.model, device), data, cfg, device)
+
+
+def lora_wire_records(plan, variables, cohort: int = 16,
+                      topk_frac: float = 0.01) -> list[dict]:
+    """bench.py's lora_wire_records, analytic: the dense full-model delta
+    of ``cohort`` clients a round against the adapters and head under
+    topk_int8, and the compound reduction (partition times codec)."""
+    from fedml_tpu_torch import peft as PF
+    from fedml_tpu_torch.core.compress import CompressionSpec, wire_ratio
+
+    cspec = CompressionSpec(method="topk_int8", topk_frac=topk_frac)
+    full_mb = plan.full_wire_bytes(variables) / 1e6
+    agg = plan.agg_part.trainable(variables)
+    lora_mb = plan.adapter_wire_bytes(variables) / wire_ratio(cspec, agg) / 1e6
+    base = {"unit": "MB/round", "analytic": True, "cohort": cohort}
+    return [
+        {"metric": f"wire_mb_per_round_{cohort}c_transformer_full",
+         "value": round(cohort * full_mb, 4), **base, "codec": "none"},
+        {"metric": f"wire_mb_per_round_{cohort}c_transformer_lora",
+         "value": round(cohort * lora_mb, 4), **base,
+         "codec": "topk_int8", "topk_frac": topk_frac},
+        {"metric": "lora_wire_reduction_x",
+         "value": round(PF.compound_wire_ratio(plan, cspec, variables), 1),
+         "unit": "ratio", "analytic": True, "codec": "topk_int8",
+         "topk_frac": topk_frac},
+    ]
+
+
+def flash_eval(model, task, variables, x, y) -> dict:
+    """``variables`` evaluated through ``model``'s flash twin."""
+    from fedml_tpu_torch.algorithms.base import build_evaluator
+
+    out = build_evaluator(flash_twin(model), task)(variables, x, y)
+    return {k: float(v) for k, v in out.items()}
+
+
+def check_eval_agrees(name: str, flash: dict, full: dict) -> None:
+    if (abs(flash["loss"] - full["loss"]) > LORA_EVAL * abs(full["loss"])
+            or abs(flash["acc"] - full["acc"]) > LORA_EVAL):
+        raise RuntimeError(f"{name}: flash eval {flash} != full {full}")
+
+
+def lora_aggregated(card: str, data) -> tuple[int, object]:
+    """(a): 3 LoRA rounds, the checks, the flash evaluation and a
+    sync-debug round. Returns the float32 flash launches and the sim."""
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+
+    sim = lora_sim(data)
+    state0 = sim.init()
+    init_eval = sim.evaluate_global(state0)
+    state, losses = state0, []
+    for _ in range(LORA_ROUNDS):
+        state, m = sim.run_round(state)
+        losses.append(float(m["train_loss"]))
+    cohort = cohort_report(sim)
+    full = sim.evaluate_global(state)
+    plan = sim.peft
+    trainable = list(plan.part.trainable(state.variables))
+    frozen0 = plan.part.frozen(state0.variables)
+    frozen_same = all(torch.equal(state.variables[k], v)
+                      for k, v in frozen0.items())
+    carry = sorted(sim.cohort_update.graph.carry["params"])
+    server_names = sorted(state.momentum)
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    flash = flash_eval(sim.model, sim.task, state.variables,
+                       sim.arrays.test_x, sim.arrays.test_y)
+    launches = flash_attention.launches - flash_attention.mma_launches
+    mma = flash_attention.mma_launches
+    before = sim.cohort_update.graph.replays
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, synced = sim.run_round(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    synced = {"train_loss": float(synced["train_loss"]),
+              "cohort": cohort_report(sim, before)}
+    record_line(card, metric="lora_aggregated", train_losses=losses,
+                init_test_loss=init_eval["loss"], full_eval=full,
+                flash_eval=flash, flash_launches=launches,
+                flash_mma_launches=mma, cohort=cohort,
+                frozen_leaves_at_init=frozen_same, carry_params=carry,
+                server_state_params=server_names,
+                round_under_sync_debug_error=synced,
+                counters={k: v for k, v in sim.counters.items()
+                          if k.startswith("peft.")})
+    if not all(math.isfinite(x) for x in losses + [synced["train_loss"]]):
+        raise RuntimeError(f"non-finite LoRA train loss: {losses}")
+    if not full["loss"] < init_eval["loss"]:
+        raise RuntimeError(f"LoRA test loss did not fall: "
+                           f"{init_eval['loss']} -> {full['loss']}")
+    if not frozen_same:
+        raise RuntimeError("a frozen leaf of the server state moved")
+    if carry != sorted(trainable) or server_names != sorted(trainable):
+        raise RuntimeError(f"the carry {carry} or the server state "
+                           f"{server_names} holds more than {trainable}")
+    if launches <= 0 or mma != 0:
+        raise RuntimeError(f"flash launches on the LoRA path: {launches} "
+                           f"float32, {mma} 16-bit")
+    check_eval_agrees("LoRA global model", flash, full)
+    return launches, sim
+
+
+def lora_personalized(card: str, data) -> int:
+    """(b): 3 personalized rounds; the server's adapters and the rows of
+    unsampled clients bit for bit as they were, one client's own model
+    through the flash kernel. Returns the float32 flash launches."""
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+    from fedml_tpu_torch.peft import personal as PP
+
+    sim = lora_sim(data, personalize=True)
+    state = sim.init()
+    plan = sim.peft
+    adapters0 = plan.private.trainable(state.variables)
+    rows0 = PP.init_bank(plan, state.variables, sim.arrays.num_clients)
+    sampled, losses = set(), []
+    for _ in range(LORA_ROUNDS):
+        sampled |= set(sim._cohort(state))
+        state, m = sim.run_round(state)
+        losses.append(float(m["train_loss"]))
+    cohort = cohort_report(sim)
+    rows = sim.adapter_bank.rows
+    unsampled = sorted(set(range(sim.arrays.num_clients)) - sampled)
+    idle = torch.tensor(unsampled, device=sim.device)
+    rows_kept = all(torch.equal(rows[k][idle], rows0[k][idle]) for k in rows)
+    adapters_kept = all(torch.equal(state.variables[k], v)
+                        for k, v in adapters0.items())
+    client = min(sampled)
+    mine = PP.personal_variables(plan, state.variables, rows, client)
+    full = {k: float(v) for k, v in sim.evaluator(
+        mine, sim.arrays.test_x, sim.arrays.test_y).items()}
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    flash = flash_eval(sim.model, sim.task, mine, sim.arrays.test_x,
+                       sim.arrays.test_y)
+    launches = flash_attention.launches - flash_attention.mma_launches
+    record_line(card, metric="lora_personalized", train_losses=losses,
+                cohort=cohort, sampled_clients=len(sampled),
+                unsampled_rows_kept=rows_kept,
+                server_adapters_at_init=adapters_kept, client=client,
+                client_full_eval=full, client_flash_eval=flash,
+                flash_launches=launches,
+                global_eval=sim.evaluate_global(state))
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"non-finite personalized loss: {losses}")
+    if not rows_kept or not unsampled:
+        raise RuntimeError(f"an unsampled client's row moved "
+                           f"({len(unsampled)} unsampled)")
+    if not adapters_kept:
+        raise RuntimeError("a private adapter reached the server state")
+    if launches <= 0:
+        raise RuntimeError("the personal model's evaluation launched no "
+                           "flash kernel")
+    check_eval_agrees(f"client {client}'s model", flash, full)
+    return launches
+
+
+def lora_memory(card: str, data) -> None:
+    """(c): torch.cuda.max_memory_allocated over one LoRA round and one
+    full fine-tuning round at the same shape (each after its capture)."""
+    peaks = {}
+    for peft in ("lora", "none"):
+        free_card()
+        sim = lora_sim(data, peft=peft)
+        peaks[peft], _ = peak_round_mb(sim, sim.init())
+        del sim
+    record_line(card, metric="peak_round_hbm_mb_64c_stackoverflow_"
+                "transformer", lora=peaks["lora"], full=peaks["none"],
+                analytic=False)
+    if not peaks["lora"] < peaks["none"]:
+        raise RuntimeError(f"the LoRA round's peak is not below the full "
+                           f"round's: {peaks}")
+
+
+def lora_bench_records(card: str, data, sim) -> None:
+    """(d): bench.py's --lora-bench records under its names: the wire
+    records, the round rate (``sim``, already captured: the median of
+    LORA_RATE_ROUNDS rounds after a warm-up) and the rounds LoRA needs to
+    reach 95% of the test accuracy 16 full rounds reach."""
+    state = sim.init()
+    for rec in lora_wire_records(sim.peft, state.variables):
+        record_line(card, **rec)
+    state, _, _ = timed_round(sim, state)
+    times = []
+    for _ in range(LORA_RATE_ROUNDS):
+        state, m, dt = timed_round(sim, state)
+        times.append(dt)
+    record_line(card,
+                metric="fedavg_rounds_per_sec_64c_stackoverflow_"
+                       "transformer_lora",
+                value=1.0 / statistics.median(times), unit="rounds/s",
+                round_seconds=times, peft="lora", lora_rank=LORA_RANK,
+                lora_targets=["q_proj", "v_proj"],
+                note="smoke figure: host clock around each round, ending "
+                     "in a synchronize")
+    full = lora_sim(data, peft="none")
+    fstate = full.init()
+    for _ in range(LORA_FULL_ROUNDS):
+        fstate, _ = full.run_round(fstate)
+    full_acc = full.evaluate_global(fstate)["acc"]
+    target = 0.95 * full_acc
+    lora = lora_sim(data)
+    state, used, acc = lora.init(), LORA_MAX_ROUNDS, 0.0
+    for r in range(LORA_MAX_ROUNDS):
+        state, _ = lora.run_round(state)
+        acc = lora.evaluate_global(state)["acc"]
+        if acc >= target:
+            used = r + 1
+            break
+    record_line(card, metric="rounds_to_match_full_transformer_lora",
+                value=used, unit="rounds", reached=acc >= target,
+                target_acc=target, full_acc=full_acc,
+                full_rounds=LORA_FULL_ROUNDS, lora_acc=acc)
+
+
+def peft_phase(card: str) -> int:
+    """Phase 12: (a)-(d). Returns the float32 flash launches of the
+    evaluations of (a) and (b), the PEFT path's."""
+    from fedml_tpu_torch.data.natural import synthetic_stackoverflow_nwp
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+
+    t0 = time.perf_counter()
+    data = synthetic_stackoverflow_nwp(num_clients=64, vocab_size=LORA_VOCAB,
+                                       seed=0)
+    launches, sim = lora_aggregated(card, data)
+    launches += lora_personalized(card, data)
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    lora_bench_records(card, data, sim)
+    del sim
+    lora_memory(card, data)
+    if flash_attention.launches != 0:
+        raise RuntimeError("phase 12's rounds and records launched flash "
+                           "attention")
+    record_line(card, metric="phase12_s", value=time.perf_counter() - t0)
+    return launches
+
+
+def kernel_entry(name, source, launches, by_path, rows, row,
                  note=None) -> dict:
     """One entry of the "kernels" line: the timed ``row``'s numbers, the
-    largest error over ``rows``, and the launches on each main path
-    (``launches``: the transformer's; ``path_launches``: the others')."""
+    largest error over ``rows``, the launches on the entry's main path
+    (``launches``) and on each path (``by_path``)."""
     entry = {
         "name": name, "route": "cuda", "source": source,
         "replaces": "fedml_tpu/ops/flash_attention.py:119",
         "launches": launches,
-        "launches_by_path": {"transformer_lm": launches, **path_launches},
+        "launches_by_path": by_path,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "library_ratio", "shape",
@@ -2292,22 +2619,39 @@ def main() -> int:
     # 10. the s2d ResNets, fused blocks, checkpoints and resume (no hand
     # kernel)
     paths["harness"] = harness_phase(card)
+    free_card()
+    # 12. federated LoRA fine-tuning: its evaluations run the float32
+    # kernel at head dim 16
+    peft_launches = peft_phase(card)
 
-    # 11. report: the float32 entry's times are at the transformer path's
-    # shape, the tensor-core entry's at long context in bf16
+    # report: the float32 entry's times are at the transformer path's
+    # shape, the D = 16 entry's at the LoRA path's, the tensor-core entry's
+    # at long context in bf16
     source = "fedml_tpu_torch/csrc/flash_attention.cu"
     f32 = [r for r in rows if r["dtype"] == "float32"]
     half = [r for r in rows if r["dtype"] != "float32"]
+    # by instance: the transformer path runs head dim 32, the LoRA path 16
+    none = {"transformer_lm": 0, **paths, "peft_lora": 0}
     print(json.dumps({"kernels": [
-        kernel_entry("flash_attention", source, launches, paths, f32,
+        kernel_entry("flash_attention", source, launches,
+                     {**none, "transformer_lm": launches}, f32,
                      next(r for r in f32 if r["causal"]
-                          and r["shape"] == list(MAIN_SHAPE))),
+                          and r["shape"] == list(MAIN_SHAPE)),
+                     note="the float32 body at head dim 32; its head-dim-16 "
+                          "instance is the flash_attention_d16 entry"),
         kernel_entry(
-            "flash_attention_mma", source, mma_launches, paths, half,
+            "flash_attention_d16", source, peft_launches,
+            {**none, "peft_lora": peft_launches}, f32,
+            next(r for r in f32 if r["shape"] == list(PEFT_SHAPE)),
+            note="the float32 body's head-dim-16 instance, on the LoRA "
+                 "path's global and personal evaluations (phase 12)"),
+        kernel_entry(
+            "flash_attention_mma", source, mma_launches,
+            {**none, "transformer_lm": mma_launches}, half,
             next(r for r in half if r["causal"] and r["dtype"] == "bfloat16"
                  and r["shape"] == list(LONG_SHAPE)),
-            note="bf16/fp16 only: the transformer path evaluates in "
-                 "float32 and no other path (the defended rounds, the "
+            note="bf16/fp16 only: the transformer and LoRA paths evaluate "
+                 "in float32 and no other path (the defended rounds, the "
                  "bulk phase and phase 10 included) has attention, so none "
                  "launches this kernel"),
     ]}), flush=True)

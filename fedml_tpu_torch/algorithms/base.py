@@ -59,7 +59,7 @@ def finalize_sums(sums: dict) -> dict:
 
 
 def _classification_sums(logits, y, w):
-    ce = F.cross_entropy(logits.float(), y.long(), reduction="none")
+    ce = F.cross_entropy(T.wide(logits), y.long(), reduction="none")
     correct = (logits.argmax(-1) == y).float()
     return {
         "loss_sum": torch.sum(ce * w),
@@ -74,7 +74,7 @@ def _nwp_sums(logits, y, w):
     accuracy."""
     b, t, v = logits.shape
     ce = F.cross_entropy(
-        logits.float().reshape(b * t, v), y.reshape(-1).long(),
+        T.wide(logits).reshape(b * t, v), y.reshape(-1).long(),
         reduction="none",
     ).reshape(b, t)
     correct = (logits.argmax(-1) == y).float()
@@ -226,14 +226,18 @@ def compute_dtype(cfg: TrainConfig) -> torch.dtype:
     return dtype
 
 
-def build_local_step(model: FedModel, task: Task, cfg: TrainConfig):
+def build_local_step(model: FedModel, task: Task, cfg: TrainConfig,
+                     partition=None):
     """One client's local step as a function of tensors alone (the JAX
     package's ``step_body``). Returns ``(init_carry, step)``:
 
-    - ``init_carry(global_vars, lanes=None)``: the carry a client starts
-      a round from: ``params`` and ``stats`` (the global model's), the
-      optimizer's fresh state ``opt`` and zero metric ``sums``; with
-      ``lanes``, stacked for that many clients on a leading axis.
+    - ``init_carry(global_vars, lanes=None, starts=None)``: the carry a
+      client starts a round from: ``params`` and ``stats`` (the global
+      model's), the optimizer's fresh state ``opt`` and zero metric
+      ``sums``; with ``lanes``, stacked for that many clients on a leading
+      axis. ``starts`` (``{name: [lanes, ...]}``) gives some parameters a
+      start of each lane's own in place of the global one (a personalized
+      client's private adapters).
     - ``step(carry, x_b, y_b, w_b, global_params) -> carry``: one
       minibatch ``x_b``/``y_b`` with loss weights ``w_b``.
       The gradient comes from ``torch.func.grad_and_value``, so the step
@@ -249,49 +253,72 @@ def build_local_step(model: FedModel, task: Task, cfg: TrainConfig):
     cast to it at the loss boundary, the batch statistics stay float32,
     the logits and new statistics come back as float32, and the master
     parameters and the optimizer state stay float32 (the JAX package's
-    policy)."""
+    policy); float64 stays float64 throughout (``compute_dtype="float64"``
+    with float64 variables: a reference round).
+
+    With ``partition`` (a :class:`~fedml_tpu_torch.peft.partition.
+    ParamPartition`) only its trainable parameters are in the carry,
+    differentiated and stepped; the frozen ones enter the forward from
+    ``global_params``, one unbatched copy shared by every lane (the JAX
+    package closes over the frozen base as a per-round constant). The
+    FedProx term is the merged tree's: its frozen leaves add exact zeros,
+    so it is summed over the trainable ones, against each lane's own
+    start where ``starts`` gave one (the carry's ``anchor``)."""
     opt = make_client_optimizer(cfg)
     dtype = compute_dtype(cfg)
     stat_names = model.stat_names
 
-    def loss_fn(params, stats, x_b, y_b, w_b, global_params):
+    def loss_fn(params, stats, x_b, y_b, w_b, global_params, anchor):
         """Weighted-sum loss over the batch's weight total, so masked
         samples add nothing; plus the FedProx term. Returns the loss and,
         as aux, the metric sums and the new batch statistics."""
-        compute_params, x_c = params, x_b
+        full = params
+        if partition is not None:
+            full = partition.merge(params, partition.frozen(global_params))
+        compute_params, x_c = full, x_b
         if dtype != torch.float32:
-            compute_params = {k: v.to(dtype) for k, v in params.items()}
+            compute_params = {k: v.to(dtype) for k, v in full.items()}
             # token inputs stay integer
             x_c = x_b.to(dtype) if torch.is_floating_point(x_b) else x_b
         logits, new_vars = model.apply_train({**compute_params, **stats},
                                              x_c)
-        sums = task.metric_sums(logits.float(), y_b, w_b)
+        sums = task.metric_sums(T.wide(logits), y_b, w_b)
         loss = sums["loss_sum"] / torch.clamp(sums["w_sum"], min=1.0)
         if cfg.prox_mu > 0:
-            diff = T.tree_sub(params, global_params)
+            ref = {k: anchor.get(k, global_params[k]) for k in params}
+            diff = T.tree_sub(params, ref)
             loss = loss + 0.5 * cfg.prox_mu * T.tree_dot(diff, diff)
-        return loss, (sums, {k: new_vars[k].float() for k in stat_names})
+        return loss, (sums, {k: T.wide(new_vars[k]) for k in stat_names})
 
     grad_fn = torch.func.grad_and_value(loss_fn, has_aux=True)
 
-    def init_carry(global_vars: Params, lanes: int | None = None) -> dict:
+    def init_carry(global_vars: Params, lanes: int | None = None,
+                   starts: Params | None = None) -> dict:
         def start(v):
             v = v.detach()
             return v if lanes is None else v.expand(lanes, *v.shape).clone()
 
-        params = {k: start(v) for k, v in global_vars.items()
-                  if k not in stat_names}
+        starts = starts or {}
+        params = {k: starts[k].detach().clone() if k in starts else start(v)
+                  for k, v in global_vars.items()
+                  if k not in stat_names
+                  and (partition is None or partition.select(k))}
         shape = () if lanes is None else (lanes,)
         device = next(iter(params.values())).device
-        return {"params": params,
-                "stats": {k: start(global_vars[k]) for k in stat_names},
-                "opt": opt.init(params, shape),
-                "sums": zero_sums(device, shape)}
+        carry = {"params": params,
+                 "stats": {k: start(global_vars[k]) for k in stat_names},
+                 "opt": opt.init(params, shape),
+                 "sums": zero_sums(device, shape)}
+        if cfg.prox_mu > 0 and starts:
+            carry["anchor"] = {k: v.detach().clone()
+                               for k, v in starts.items()}
+        return carry
 
     def step(carry, x_b, y_b, w_b, global_params):
         params = carry["params"]
         grads, (_, (sums, stats)) = grad_fn(
-            params, carry["stats"], x_b, y_b, w_b, global_params)
+            params, carry["stats"], x_b, y_b, w_b, global_params,
+            carry.get("anchor", {}))
         updates, opt_state = opt.update(grads, carry["opt"], params)
         new = {"params": apply_updates(params, updates), "stats": stats,
                "opt": opt_state}
@@ -299,18 +326,22 @@ def build_local_step(model: FedModel, task: Task, cfg: TrainConfig):
         out = T.tree_map(lambda n, o: torch.where(valid, n, o), new,
                          {k: carry[k] for k in new})
         out["sums"] = {k: carry["sums"][k] + sums[k] for k in sums}
+        if "anchor" in carry:
+            out["anchor"] = carry["anchor"]
         return out
 
     return init_carry, step
 
 
 def _finish(carry: dict, global_vars: Params) -> Params:
+    """The trained variables in ``global_vars``' order: every variable,
+    or under a partition the trainable parameters and the statistics."""
     new_vars = {**carry["params"], **carry["stats"]}
-    return {k: new_vars[k] for k in global_vars}
+    return {k: new_vars[k] for k in global_vars if k in new_vars}
 
 
 def build_local_update(model: FedModel, task: Task, cfg: TrainConfig,
-                       batch_size: int, max_n: int):
+                       batch_size: int, max_n: int, partition=None):
     """Build ``local_update(global_vars, idx_row, mask_row, x, y, orders,
     steps=None) -> (variables, n_k, metric sums)`` for one client:
     ``cfg.epochs`` passes of :func:`build_local_step`'s gated step over
@@ -319,12 +350,14 @@ def build_local_update(model: FedModel, task: Task, cfg: TrainConfig,
     :func:`fedml_tpu_torch.core.random.padded_perm` or replayed from the
     JAX package). ``steps`` is the host's count of steps per epoch; by
     default every batch of ``max_n`` is stepped, the trailing all-padding
-    ones as gated no-ops, as the JAX package's scan does."""
+    ones as gated no-ops, as the JAX package's scan does. With
+    ``partition`` the client trains, and returns, only the trainable
+    parameters (and the statistics); see :func:`build_local_step`."""
     if max_n % batch_size:
         raise ValueError(f"max_n {max_n} is not a multiple of the batch "
                          f"size {batch_size}")
     steps_per_epoch = max_n // batch_size
-    init_carry, step = build_local_step(model, task, cfg)
+    init_carry, step = build_local_step(model, task, cfg, partition)
     stat_names = model.stat_names
 
     def local_update(global_vars, idx_row, mask_row, x, y, orders,
@@ -346,7 +379,8 @@ def build_local_update(model: FedModel, task: Task, cfg: TrainConfig,
 
 class CohortUpdate:
     """``cohort_update(global_vars, idx_rows, mask_rows, x, y, orders,
-    steps) -> (stacked variables, n_k, metric sums)``: the local update of
+    steps, starts=None) -> (stacked variables, n_k, metric sums)``: the
+    local update of
     :func:`build_local_update` for G clients at once, its step
     ``torch.func.vmap``-ped over lanes stacked on a leading axis, with the
     global variables and ``x``/``y`` shared by every lane (the JAX
@@ -354,7 +388,11 @@ class CohortUpdate:
     ``mask_rows`` are ``[G, max_n]``, ``orders`` ``[G, epochs, max_n]``
     int64; ``steps`` is the host's count of steps per epoch (the group's
     largest client's real batches); a lane with fewer real batches steps
-    on padding, a gated no-op.
+    on padding, a gated no-op. Under a ``partition`` only the trainable
+    parameters are stacked per lane (the carry, the optimizer state and
+    the result); the frozen ones are read from the one global copy, and
+    ``starts`` (``{name: [G, ...]}``) gives lanes their own start for some
+    trainable parameters (a personalized cohort's private adapters).
 
     With ``graphed`` (the card) each step is one replay of a CUDA graph
     (:class:`~fedml_tpu_torch.algorithms.graphs.GraphedStep`), captured
@@ -365,12 +403,13 @@ class CohortUpdate:
     misses count the captures."""
 
     def __init__(self, model: FedModel, task: Task, cfg: TrainConfig,
-                 batch_size: int, graphed: bool):
+                 batch_size: int, graphed: bool, partition=None):
         self.batch_size = batch_size
         self.epochs = cfg.epochs
         self.stat_names = model.stat_names
         self.graphed = graphed
-        self.init_carry, step = build_local_step(model, task, cfg)
+        self.init_carry, step = build_local_step(model, task, cfg,
+                                                 partition)
         self.vstep = torch.func.vmap(step, in_dims=(0, 0, 0, 0, None))
         self.programs = CompiledRoundCache(self._program)
 
@@ -395,7 +434,7 @@ class CohortUpdate:
         return self.vstep(carry, x[b_idx], y[b_idx], w_b, global_params)
 
     def __call__(self, global_vars, idx_rows, mask_rows, x, y, orders,
-                 steps: int):
+                 steps: int, starts: Params | None = None):
         lanes, b = idx_rows.shape[0], self.batch_size
         flat = orders[:, :self.epochs].reshape(lanes, -1)
         b_all = torch.gather(idx_rows, 1, flat).long().view(
@@ -406,7 +445,7 @@ class CohortUpdate:
                    for e in range(self.epochs) for s in range(steps)]
         global_params = {k: v for k, v in global_vars.items()
                          if k not in self.stat_names}
-        carry = self.init_carry(global_vars, lanes)
+        carry = self.init_carry(global_vars, lanes, starts)
         if batches:
             graph = self.programs(lanes)
             if graph is not None:

@@ -32,6 +32,14 @@ Three round machineries of the JAX package come with it:
   :meth:`FedAvgSim.run` enqueues blocks of K rounds back to back and
   reads each block's metrics back once (:meth:`FedAvgSim.run_block`).
 
+PEFT (``FedConfig.peft="lora"``, ``fedml_tpu_torch/peft``): the model's
+targeted projections get LoRA adapters, the clients train only the
+adapters and the LM head, and every aggregation step (adversaries, the
+wire, the screen, the server step) runs on the view of the aggregated
+variables, the frozen base merged back unchanged after it. Under
+``peft_personalize`` the adapters stay in a private bank of a row per
+client (:attr:`FedAvgSim.adapter_bank`) and only the head aggregates.
+
 Settings of the JAX package that this package has not ported make
 :class:`FedAvgSim` raise ``NotImplementedError``.
 """
@@ -70,11 +78,12 @@ from fedml_tpu_torch.core import tree as T
 from fedml_tpu_torch.core.device import resolve_device, to_device
 from fedml_tpu_torch.data.federated import FederatedData, arrays_and_batch
 from fedml_tpu_torch.models.base import FedModel, Params
+from fedml_tpu_torch import peft as PF
+from fedml_tpu_torch.peft import personal as PP
 
-# (setting, its default, the ROADMAP item that ports it)
-_NOT_PORTED = (
-    ("fed.peft", "none", "Queue A item 12 (PEFT)"),
-)
+# (setting, its default, the ROADMAP item that ports it): every FedConfig
+# setting of the FedAvg family is ported
+_NOT_PORTED: tuple[tuple[str, object, str], ...] = ()
 
 
 def check_ported(cfg: ExperimentConfig) -> None:
@@ -356,7 +365,9 @@ class FedAvgSim:
     the adversaries' slots and a bulk round's blocks. The error-feedback
     residual of a compressed run is carried from round to round on the
     device: ``[C, ...]`` by cohort slot (``ef_residual``), or in the bulk
-    engine a bank with a row per client (``ef_bank``)."""
+    engine a bank with a row per client (``ef_bank``). Under PEFT the
+    model is the LoRA-injected one (``model`` is the base) and a
+    personalized run keeps its private adapters in ``adapter_bank``."""
 
     def __init__(self, model: FedModel, data: FederatedData,
                  cfg: ExperimentConfig, device: str | torch.device = "cuda",
@@ -370,7 +381,15 @@ class FedAvgSim:
             raise ValueError(f"model is on {model.device}, the simulation "
                              f"on {self.device}")
         self.cfg = cfg
+        # PEFT (fedml_tpu_torch/peft): the adapters are injected and the
+        # rounds train and aggregate only the adapters and the head; off,
+        # the model and every path are unchanged
+        model, self.peft = PF.build_peft(model, cfg)
         self.model = model
+        # the private adapters of a personalized run, a row per client,
+        # made at the first round
+        self.adapter_bank: SB.ClientStateBank | None = None
+        partition = self.peft.part if self.peft is not None else None
         self.task = make_task(data.task)
         self.arrays, self.batch_size = arrays_and_batch(data, cfg.data,
                                                         self.device)
@@ -398,11 +417,12 @@ class FedAvgSim:
         # the per-client update (the tests' reference, one client at a
         # time) and the batched one the round runs
         self.local_update = build_local_update(
-            model, self.task, cfg.train, self.batch_size, self.max_n
+            model, self.task, cfg.train, self.batch_size, self.max_n,
+            partition=partition,
         )
         self.cohort_update = CohortUpdate(
             model, self.task, cfg.train, self.batch_size,
-            graphed=self.device.type == "cuda",
+            graphed=self.device.type == "cuda", partition=partition,
         )
         num_clients = self.arrays.num_clients
         cohort = min(cfg.fed.clients_per_round, num_clients)
@@ -482,14 +502,50 @@ class FedAvgSim:
                 for _ in range(self.cfg.train.epochs)]
 
     def init(self) -> ServerState:
+        """The round-0 state. Under PEFT the server optimizer's state and
+        the momentum cover the aggregated parameters only."""
         variables = self.model.init(R.generator(self.cfg.seed, 0x7FFFFFFF))
-        params = {k: v for k, v in variables.items()
+        params = {k: v for k, v in self._view_vars(variables).items()
                   if k not in self.model.stat_names}
         fed = self.cfg.fed
         opt = make_server_optimizer(fed.server_optimizer, fed.server_lr,
                                     fed.server_momentum)
+        if self.peft is not None:
+            self._note_peft(variables)
         return ServerState(variables, opt.init(params),
                            T.tree_zeros_like(params), 0)
+
+    # -- PEFT (fedml_tpu_torch/peft) ----------------------------------------
+
+    def _view_vars(self, variables: Params) -> Params:
+        """The variables the aggregation sees: all of them, or under PEFT
+        the aggregated ones."""
+        return (variables if self.peft is None
+                else self.peft.agg_variables(variables))
+
+    def _view(self, state: ServerState) -> ServerState:
+        return state if self.peft is None else self.peft.view_state(state)
+
+    def _merge(self, new_view: ServerState, state: ServerState
+               ) -> ServerState:
+        return (new_view if self.peft is None
+                else self.peft.merge_state(new_view, state))
+
+    def _note_peft(self, variables: Params) -> None:
+        """The ``peft.*`` counters (the JAX package's gauges): trainable
+        and frozen parameter counts, one client's update in MB, and the
+        full-model-equivalent wire reduction."""
+        plan = self.peft
+        trainable, frozen = plan.counts(variables)
+        self.counters["peft.trainable_params"] = float(trainable)
+        self.counters["peft.frozen_params"] = float(frozen)
+        self.counters["peft.adapter_wire_mb"] = (
+            plan.adapter_wire_bytes(variables) / 1e6)
+        self.counters["peft.wire_ratio"] = PF.compound_wire_ratio(
+            plan, self.cspec, variables)
+
+    def _personalized(self) -> bool:
+        return self.peft is not None and self.peft.personalized
 
     # -- elastic cohort control (core/elastic.py) ------------------------------
 
@@ -546,10 +602,12 @@ class FedAvgSim:
             self.cfg.fed.clients_per_round)).tolist()
 
     def _locals(self, state: ServerState, cohort=None, on=None,
-                groups: int | None = None):
+                groups: int | None = None, starts: Params | None = None):
         """The local updates of ``cohort`` (by default the round's):
         returns the cohort's stacked variables, n_k and metric sums, in
-        cohort order.
+        cohort order. ``starts`` (``{name: [C, ...]}``, in cohort order)
+        are the lanes' own starts of some parameters (a personalized
+        cohort's private adapters).
 
         The cohort's batch orders go to the device as one ``[C, epochs,
         max_n]`` tensor; the lanes are sorted by their host sample counts
@@ -575,19 +633,23 @@ class FedAvgSim:
             for c, live in zip(ids.tolist(), on)]).long()
         self.last_groups = []
 
-        def group(ids, orders, lane_on, counts):
+        def group(ids, orders, lane_on, *rest):
+            *lane_starts, counts = rest
             steps = min(-(-int(counts.max()) // self.batch_size),
                         self.max_n // self.batch_size)
             self.last_groups.append((len(counts), steps))
             mask = a.mask.index_select(0, ids) * lane_on[:, None]
+            extra = {"starts": lane_starts[0]} if lane_starts else {}
             return self.cohort_update(
                 state.variables, a.idx.index_select(0, ids), mask, a.x,
-                a.y, orders, steps)
+                a.y, orders, steps, **extra)
 
         lanes = (to_device(torch.from_numpy(ids), self.device),
                  to_device(orders, self.device),
                  to_device(torch.from_numpy(on.astype(np.float32)),
                            self.device))
+        if starts is not None:
+            lanes += (starts,)
         return size_grouped_lanes(
             group, lanes, self._host_counts[ids] * on,
             self._cohort_groups if groups is None else groups)
@@ -668,7 +730,8 @@ class FedAvgSim:
             BK.note_round(self.counters, self._block_size, self._n_blocks,
                           self._slots - self._n_active)
             if self._stream_defense is not None:
-                n_params = sum(v.numel() for k, v in state.variables.items()
+                n_params = sum(v.numel() for k, v in
+                               self._view_vars(state.variables).items()
                                if k not in self.model.stat_names)
                 SD.note_defense(self.counters, self._stream_defense,
                                 n_params, self._slots)
@@ -707,41 +770,107 @@ class FedAvgSim:
             metrics = block()
         return state, metrics
 
+    def _stacked_cohort(self, state: ServerState):
+        """The stacked round's cohort (host ids), its host mask of lanes
+        that train and its device mask of live slots (None and None
+        unless elastic: every lane trains)."""
+        if not self._elastic:
+            return self._cohort(state), None, None
+        cohort = self._slot_ids(state.round, self._bucket)
+        on = np.arange(self._bucket) < self._n_active
+        return (cohort.tolist(), on,
+                E.active_mask(self._bucket, self._n_active, self.device))
+
+    def _noise(self, round_idx: int):
+        """The server step's ``normals``: the round's "noise" draws."""
+        draw = self._draw(round_idx)
+        return lambda shapes: {k: v[0] for k, v in draw(
+            "noise", [0], shapes).items()}
+
     def _stacked_round(self, state: ServerState):
-        live = None
-        if self._elastic:
-            cohort = self._slot_ids(state.round, self._bucket)
-            on = np.arange(self._bucket) < self._n_active
-            live = E.active_mask(self._bucket, self._n_active, self.device)
-            stacked, n_k, sums = self._locals(state, cohort, on)
-            cohort = cohort.tolist()
-        else:
-            cohort = self._cohort(state)
-            stacked, n_k, sums = self._locals(state, cohort)
+        """One stacked round. Under PEFT the clients return the trainable
+        variables, and everything after the local updates runs on the
+        view of the aggregated ones; the frozen base is merged back
+        unchanged."""
+        if self._personalized():
+            return self._personal_round(state)
+        cohort, on, live = self._stacked_cohort(state)
+        stacked, n_k, sums = self._locals(
+            state, *((cohort,) if on is None else (cohort, on)))
+        view = self._view(state)
         if self.cfg.adversary.enabled():
-            stacked = self._inject_adversaries(state, stacked, cohort)
+            stacked = self._inject_adversaries(view, stacked, cohort)
         residual = None
         if self.cspec.enabled():
-            stacked, residual = self._wire_roundtrip(state, stacked, live)
+            stacked, residual = self._wire_roundtrip(view, stacked, live)
             self.ef_residual = residual
         if live is not None:
             # the dead slots become the global model with zero weight
             # before the screen, and leave the round's metrics alone
             stacked, n_k, sums = E.mask_padded(stacked, n_k, sums,
-                                               state.variables, live)
-        stacked, n_k, rejected = self._screen_nonfinite(state, stacked, n_k)
-        draw = self._draw(state.round)
-        new_state = server_update(
-            self.cfg.fed, state, stacked, n_k, local_reducer(),
+                                               view.variables, live)
+        stacked, n_k, rejected = self._screen_nonfinite(view, stacked, n_k)
+        new_view = server_update(
+            self.cfg.fed, view, stacked, n_k, local_reducer(),
             self.model.stat_names, self.local_steps,
-            normals=lambda shapes: {k: v[0] for k, v in draw(
-                "noise", [0], shapes).items()}, valid=live)
+            normals=self._noise(state.round), valid=live)
         fin = finalize_sums({k: v.sum() for k, v in sums.items()})
         metrics = {"train_loss": fin["loss"], "train_acc": fin["acc"],
                    "nonfinite_rejected": rejected}
         if residual is not None:
             metrics["compress_residual_norm"] = T.tree_l2_norm(residual)
-        return new_state, metrics
+        return self._merge(new_view, state), metrics
+
+    # -- personalized PEFT (fedml_tpu_torch/peft/personal.py) ---------------
+
+    def _split_private(self, trained: Params) -> tuple[Params, Params]:
+        """A cohort's trained variables as (shared, private): the head and
+        statistics, and the adapters."""
+        private = self.peft.private
+        return ({k: v for k, v in trained.items() if not private.select(k)},
+                {k: v for k, v in trained.items() if private.select(k)})
+
+    def _screen_personal(self, view, shared, private, n_k, live):
+        """The non-finite screen over both halves of each client's update:
+        a poisoned client adds nothing to the shared aggregate and keeps
+        its pre-round bank row. A non-live slot (already healed, zero
+        weight) is no rejection. Returns ``(shared, n_k, rejected, keep)``,
+        ``keep`` the slots whose trained bank rows are written."""
+        ok = robust.finite_client_mask({**shared, **private}, n_k)
+        if live is not None:
+            ok = ok | ~live
+        shared, n_k, rejected = self._screen_nonfinite(view, shared, n_k, ok)
+        return shared, n_k, rejected, ok if live is None else ok & live
+
+    def _personal_round(self, state: ServerState):
+        """The personalized round (the JAX package's ``_personal_round``):
+        each client of the cohort trains from its own bank row of
+        adapters; only the shared leaves (the head) aggregate, and the
+        trained rows go back to the bank (a rejected or non-live slot
+        keeps its pre-round row). The server's adapter leaves are not in
+        the aggregated view, so they stay at init."""
+        self._ensure_adapter_bank(state)
+        bank = self.adapter_bank
+        cohort, on, live = self._stacked_cohort(state)
+        rows = bank.gather(cohort)
+        trained, n_k, sums = self._locals(state, cohort, on, starts=rows)
+        view = self._view(state)
+        shared, private = self._split_private(trained)
+        if live is not None:
+            shared, n_k, sums = E.mask_padded(shared, n_k, sums,
+                                              view.variables, live)
+        shared, n_k, rejected, keep = self._screen_personal(
+            view, shared, private, n_k, live)
+        new_view = server_update(
+            self.cfg.fed, view, shared, n_k, local_reducer(),
+            self.model.stat_names, self.local_steps,
+            normals=self._noise(state.round), valid=live)
+        bank.put(cohort, private, keep=keep, gathered=rows)
+        SB.note_round_io(self.counters, 1, 1)
+        fin = finalize_sums({k: v.sum() for k, v in sums.items()})
+        return self._merge(new_view, state), {
+            "train_loss": fin["loss"], "train_acc": fin["acc"],
+            "nonfinite_rejected": rejected}
 
     # -- the bulk engine (core/bulk.py) ------------------------------------
 
@@ -766,10 +895,17 @@ class FedAvgSim:
         client-keyed residual bank, the heal of dead slots, the screen)
         and is folded by :func:`fold_block_partials`; the server step is
         :func:`server_update_from_partials`. No ``[C, ...]`` tensor is
-        made: a round's memory is O(B + model + sketch)."""
+        made: a round's memory is O(B + model + sketch). Under PEFT the
+        blocks fold the aggregated view, as in the stacked round."""
         fed = self.cfg.fed
         stat_names = self.model.stat_names
         ids, live = self._bulk_slots(state)
+        view = self._view(state)
+        skip = ((lambda block_live: block_live is not None
+                 and not block_live.any())
+                if self._skip_dead_blocks else None)
+        if self._personalized():
+            return self._bulk_personal(state, view, ids, live, skip)
         bank = None
         if self.cspec.enabled():
             self._ensure_ef_bank(state)
@@ -785,18 +921,18 @@ class FedAvgSim:
             sv, n_k, msums = self._locals(state, block_ids, on, groups=1)
             groups.extend(self.last_groups)
             if self.cfg.adversary.enabled():
-                sv = self._inject_adversaries(state, sv, block_ids.tolist())
+                sv = self._inject_adversaries(view, sv, block_ids.tolist())
             rows = new_rows = None
             if bank is not None:
                 rows = bank.gather(block_ids)
-                sv, new_rows = self._wire(state, sv, rows, block_ids.tolist())
+                sv, new_rows = self._wire(view, sv, rows, block_ids.tolist())
             live_dev = None
             if not on.all():
                 live_dev = to_device(torch.from_numpy(on), self.device)
                 sv, n_k, msums = E.mask_padded(sv, n_k, msums,
-                                               state.variables, live_dev)
+                                               view.variables, live_dev)
             ok = robust.finite_client_mask(sv, n_k)
-            sv, n_k, rejected = self._screen_nonfinite(state, sv, n_k, ok)
+            sv, n_k, rejected = self._screen_nonfinite(view, sv, n_k, ok)
             if bank is not None:
                 SB.note_round_io(self.counters, 1, int(write_bank))
                 if write_bank:
@@ -807,12 +943,9 @@ class FedAvgSim:
             return sv, n_k, msums, rejected
 
         def partials_of(sv, n_k, msums, rejected):
-            return fold_block_partials(fed, self.local_steps, state, sv, n_k,
+            return fold_block_partials(fed, self.local_steps, view, sv, n_k,
                                        msums, rejected, stat_names)
 
-        skip = ((lambda block_live: block_live is not None
-                 and not block_live.any())
-                if self._skip_dead_blocks else None)
         agg = None
         if self._stream_defense is None:
             def fold_block(block_ids, block_live, *banks):
@@ -825,19 +958,61 @@ class FedAvgSim:
             if bank is not None:
                 partials = partials[0]
         else:
-            partials, agg = self._defended_fold(state, ids, live, bank,
+            partials, agg = self._defended_fold(view, ids, live, bank,
                                                 local_block, partials_of,
                                                 skip)
         self.last_groups = groups
-        draw = self._draw(state.round)
-        new_state = server_update_from_partials(
-            fed, state, partials, stat_names,
-            normals=lambda shapes: {k: v[0] for k, v in draw(
-                "noise", [0], shapes).items()}, agg_delta=agg)
+        new_view = server_update_from_partials(
+            fed, view, partials, stat_names,
+            normals=self._noise(state.round), agg_delta=agg)
         fin = finalize_sums(partials.msums)
-        return new_state, {"train_loss": fin["loss"],
-                           "train_acc": fin["acc"],
-                           "nonfinite_rejected": partials.rejected}
+        return self._merge(new_view, state), {
+            "train_loss": fin["loss"], "train_acc": fin["acc"],
+            "nonfinite_rejected": partials.rejected}
+
+    def _bulk_personal(self, state, view, ids, live, skip):
+        """The personalized round streamed in blocks (the JAX package's
+        ``_bulk_personal``): each block gathers its clients' bank rows,
+        trains from them, folds the shared half into its partials and
+        writes its trained rows back, under :meth:`_personal_round`'s
+        screen."""
+        fed = self.cfg.fed
+        stat_names = self.model.stat_names
+        self._ensure_adapter_bank(state)
+        groups = []
+
+        def fold_block(block_ids, block_live, bank):
+            on = (np.ones(block_ids.shape, bool) if block_live is None
+                  else block_live)
+            rows = bank.gather(block_ids)
+            trained, n_k, msums = self._locals(state, block_ids, on,
+                                               groups=1, starts=rows)
+            groups.extend(self.last_groups)
+            shared, private = self._split_private(trained)
+            live_dev = None
+            if block_live is not None:
+                live_dev = to_device(torch.from_numpy(block_live),
+                                     self.device)
+                shared, n_k, msums = E.mask_padded(shared, n_k, msums,
+                                                   view.variables, live_dev)
+            shared, n_k, rejected, keep = self._screen_personal(
+                view, shared, private, n_k, live_dev)
+            bank.put(block_ids, private, keep=keep, gathered=rows)
+            SB.note_round_io(self.counters, 1, 1)
+            return fold_block_partials(fed, self.local_steps, view, shared,
+                                       n_k, msums, rejected, stat_names), bank
+
+        partials, self.adapter_bank = BK.stream_blocks(
+            fold_block, ids, live, self._block_size, banks=self.adapter_bank,
+            skip=skip)
+        self.last_groups = groups
+        new_view = server_update_from_partials(
+            fed, view, partials, stat_names,
+            normals=self._noise(state.round))
+        fin = finalize_sums(partials.msums)
+        return self._merge(new_view, state), {
+            "train_loss": fin["loss"], "train_acc": fin["acc"],
+            "nonfinite_rejected": partials.rejected}
 
     def _defended_fold(self, state, ids, live, bank, local_block,
                        partials_of, skip):
@@ -846,7 +1021,8 @@ class FedAvgSim:
         (the residual rows read, not written); the rule decides from the
         sketch; pass 2 recomputes the same blocks, folds the decided
         aggregate and writes the residual bank. Returns ``(partials,
-        aggregate)``, the aggregate flat."""
+        aggregate)``, the aggregate flat. ``state`` is the aggregated
+        view."""
         fed = self.cfg.fed
         stat_names = self.model.stat_names
         method = self.defense.method
@@ -927,33 +1103,53 @@ class FedAvgSim:
 
     def _ensure_ef_bank(self, state: ServerState) -> None:
         """The bulk engine's error-feedback bank, made at the first
-        compressed round: a zero row per client (round 0 sends the
-        uncorrected delta, as the stacked zero residual)."""
+        compressed round: a zero row per client of what goes on the wire
+        (the aggregated variables; round 0 sends the uncorrected delta,
+        as the stacked zero residual)."""
         if self.ef_bank is not None:
             return
+        wire = self._view_vars(state.variables)
         self.ef_bank = SB.ClientStateBank.zeros(
-            "ef_residual", state.variables, self.arrays.num_clients)
-        self.counters["compress.ratio"] = C.wire_ratio(self.cspec,
-                                                       state.variables)
+            "ef_residual", wire, self.arrays.num_clients)
+        self.counters["compress.ratio"] = C.wire_ratio(self.cspec, wire)
         SB.note_bank(self.ef_bank, self.counters)
 
+    def _ensure_adapter_bank(self, state: ServerState) -> None:
+        """The private adapter bank of a personalized run, made at its
+        first round from the state's (init-valued) adapters, so that
+        calling :meth:`init` again for a snapshot never resets a trained
+        bank."""
+        if self.adapter_bank is not None:
+            return
+        rows = PP.init_bank(self.peft, state.variables,
+                            self.arrays.num_clients)
+        self.adapter_bank = SB.ClientStateBank("adapter", rows)
+        self.counters["peft.personal_bank_mb"] = PP.bank_bytes(rows) / 1e6
+        SB.note_bank(self.adapter_bank, self.counters)
+
     def bank_state(self) -> dict:
-        """The client-state banks, ``{name: rows}``; empty before a bank
-        is made."""
-        if self.ef_bank is None:
-            return {}
-        return {self.ef_bank.name: self.ef_bank.savable()}
+        """The client-state banks, ``{name: rows}`` (the adapter bank and
+        the bulk engine's error-feedback bank); empty before a bank is
+        made."""
+        return {bank.name: bank.savable()
+                for bank in (self.adapter_bank, self.ef_bank)
+                if bank is not None}
 
     def restore_banks(self, state: ServerState, blob) -> None:
         """Adopt banked rows (the inverse of :meth:`bank_state`). An empty
-        blob, or one without this run's bank, leaves the fresh bank to be
-        made at the first round."""
-        if (not blob or "ef_residual" not in blob
-                or not self._bulk.enabled() or not self.cspec.enabled()):
+        blob, or one without this run's banks, leaves the fresh banks to
+        be made at the first round."""
+        if not blob:
             return
-        self._ensure_ef_bank(state)
-        self.ef_bank = SB.ClientStateBank.from_savable(
-            "ef_residual", self.ef_bank.rows, blob["ef_residual"])
+        if "adapter" in blob and self._personalized():
+            self._ensure_adapter_bank(state)
+            self.adapter_bank = SB.ClientStateBank.from_savable(
+                "adapter", self.adapter_bank.rows, blob["adapter"])
+        if ("ef_residual" in blob and self._bulk.enabled()
+                and self.cspec.enabled()):
+            self._ensure_ef_bank(state)
+            self.ef_bank = SB.ClientStateBank.from_savable(
+                "ef_residual", self.ef_bank.rows, blob["ef_residual"])
 
     def evaluate_global(self, state: ServerState) -> dict:
         m = self.evaluator(state.variables, self.arrays.test_x,

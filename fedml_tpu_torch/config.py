@@ -110,9 +110,18 @@ class FedConfig:
     # run the round loop in blocks of this many rounds (core/fuse.py): the
     # host reads a block's metrics back once, at its end (1: per round)
     fuse_rounds: int = 1
-    # a feature of the JAX package not ported yet; any value other than
-    # the default makes FedAvgSim raise NotImplementedError
+    # parameter-efficient fine-tuning (fedml_tpu_torch/peft): "lora" wraps
+    # the transformer's targeted projections (lora_targets, from q_proj,
+    # k_proj, v_proj, attn_out, mlp_up, mlp_down) with zero-init rank
+    # lora_rank branches scaled by lora_alpha / lora_rank, and the rounds
+    # train and aggregate only the adapters and the LM head
     peft: str = "none"
+    lora_rank: int = 4
+    lora_alpha: float = 8.0
+    lora_targets: tuple[str, ...] = ("q_proj", "v_proj")
+    # keep each client's adapters in a private per-client bank: only the
+    # LM head aggregates (fedml_tpu_torch/peft/personal.py)
+    peft_personalize: bool = False
 
 
 ADVERSARY_MODES = ("sign_flip", "scale_boost", "gauss", "zero", "constant",
@@ -220,6 +229,9 @@ class ExperimentConfig:
                     v = tuple(v)
                 elif k == "ranks" and isinstance(v, Sequence):
                     v = tuple(int(r) for r in v)
+                elif k == "lora_targets" and isinstance(v, Sequence) \
+                        and not isinstance(v, str):
+                    v = tuple(v)
                 kw[k] = v
             return cls(**kw)
 

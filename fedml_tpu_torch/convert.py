@@ -23,7 +23,11 @@ import torch
 _TOP = {"Embed_0": "embed", "LayerNorm_0": "ln_f"}
 _BLOCK = {"LayerNorm_0": "ln_1", "LayerNorm_1": "ln_2"}
 _LEAF = {"embedding": "weight", "scale": "weight", "kernel": "weight",
-         "bias": "bias"}
+         "bias": "bias", "lora_a": "lora_a", "lora_b": "lora_b"}
+# leaves stored transposed: flax [in, out] against the port's [out, in]
+# (a LoRA branch's lora_a [in, r] and lora_b [r, out] become [r, in] and
+# [out, r], nn.Linear's layout)
+_TRANSPOSED = ("kernel", "lora_a", "lora_b")
 
 
 def _module_name(path: tuple[str, ...]) -> str:
@@ -41,8 +45,11 @@ def _module_name(path: tuple[str, ...]) -> str:
 def transformer_state_dict(
     variables: Mapping[str, Any], device: str | torch.device = "cpu"
 ) -> dict[str, torch.Tensor]:
-    """Flax ``TransformerLM`` variables (``{"params": {...}}``) to the
-    port's ``TransformerLM`` state_dict."""
+    """Flax ``TransformerLM`` variables (``{"params": {...}}``, LoRA's
+    ``lora_a``/``lora_b`` included) to the port's ``TransformerLM``
+    state_dict. Only the last two axes of a matrix swap, so leaves with
+    leading axes of rows (a stacked cohort, or a personal adapter bank
+    ``[num_clients, ...]``) convert the same way."""
     out = {}
 
     def walk(tree, path):
@@ -51,8 +58,8 @@ def transformer_state_dict(
                 walk(val, path + (key,))
                 continue
             arr = np.asarray(val)
-            if key == "kernel":
-                arr = arr.T
+            if key in _TRANSPOSED:
+                arr = np.swapaxes(arr, -1, -2)
             name = f"{_module_name(path)}.{_LEAF[key]}"
             out[name] = torch.tensor(arr, device=device)  # a copy
 

@@ -74,10 +74,11 @@ class BulkSpec:
 
 def check_bulk_compat(fed, adversary=None) -> None:
     """The bulk engine's compatibility check, at construction and at the
-    CLI's parse time. Every defense (streamed), codec (banked residual)
-    and attack composes with it, as in the JAX package; fednova with a
-    defense is refused by ``robust.check_fednova_compat``. PEFT is not
-    ported (``_NOT_PORTED``)."""
+    CLI's parse time. Every defense (streamed), codec (banked residual),
+    attack and PEFT setting (the personalized round streams its adapter
+    bank) composes with it, as in the JAX package; fednova with a defense
+    is refused by ``robust.check_fednova_compat``, and PEFT's own table by
+    ``peft.check_peft_compat``."""
     del fed, adversary  # everything ported composes
 
 

@@ -20,6 +20,8 @@
 // device memory (3.35 TB/s) bounds it at about 12.5 us. The products need
 // 4,608 score entries per head once no work is padded: about 0.3 GFMA, or
 // 9 us of the FP32 cores' 67 TFLOP/s. At long context the products bound it.
+// The PEFT path's evaluation ([256, 20, 4, 16] f32, causal) moves 5.2 MB,
+// 1.6 us of device memory, for 0.014 GFLOP: memory and the launch bound it.
 //
 // What the design does about it:
 // - No padded work beyond 16 query rows x 32 keys. Each warp owns 16
@@ -31,14 +33,17 @@
 //   computes the scores of rows rg + 4i and keys cg + 8j (i, j < 4) and the
 //   output of the same rows at columns 4 (cg + 8m) .. 4 (cg + 8m) + 3.
 //   Every operand comes from shared memory as a float4: 8 loads for 64 FMAs
-//   in each product. Shared rows have a stride of D + 4 floats, so float4s
-//   stay aligned and 8 consecutive rows fall on 8 distinct 4-bank groups.
+//   in each product. At D = 16 a thread owns 2 output columns, 2 (cg + 8m)
+//   and the next, read and written as float2s. Shared rows have a stride
+//   of D + 4 floats, so float4s stay aligned and 8 consecutive rows fall
+//   on 8 distinct 4-bank groups.
 //   P goes through a warp-private slab (row stride 40: its scalar stores
 //   hit 32 distinct banks) with __syncwarp and no block barrier. Row max
 //   and row sum are reduced with __shfl_xor_sync over the 8 lanes of a row.
 // - 16-byte global loads when the head dim is contiguous and every row
 //   starts on a 16-byte boundary (the contiguous inputs of the main path:
-//   a D = 32 f32 row is 128 B); a scalar path for other strides.
+//   a D = 32 f32 row is 128 B, a D = 16 row of the PEFT path 64 B); a
+//   scalar path for other strides.
 // - For T <= 128 one block holds all ceil(T / 16) row groups of a (b, h), so
 //   K and V are read from device memory once per head. Longer sequences use
 //   blocks of 64 rows that stream K/V through tiles of 64 keys.
@@ -64,6 +69,8 @@
 //   registers) and keeps their q as A fragments in registers, loaded once
 //   with ldmatrix.x4. K fragments come from ldmatrix.x4 and V fragments
 //   from ldmatrix.x4.trans, and each feeds the products of all MG groups.
+//   At D = 16, q k^T is one k-step and the output two n8 tiles, fed by one
+//   ldmatrix.x4.trans of V per 16 keys.
 //   Shared rows are padded by 8 elements (16 bytes), so the 8 row
 //   addresses of an ldmatrix phase fall on distinct banks.
 // - P never leaves the registers: the float32 accumulators of two adjacent
@@ -124,17 +131,41 @@ __device__ __forceinline__ void store_f32<float>(float* d, const uint4& x) {
                   __uint_as_float(x.z), __uint_as_float(x.w));
 }
 
-// Writes 4 consecutive outputs, as one store when `vec` (unit stride and
-// aligned to 4 elements), else through the stride.
-__device__ __forceinline__ void store4(float* p, float4 x, long long sd,
-                                       bool vec) {
-  if (vec) {
-    *reinterpret_cast<float4*>(p) = x;
+// Output columns a thread owns per chunk: 4 (a float4) for D >= 32, so
+// that 8 lanes cover 32 columns; 2 (a float2) at D = 16.
+template <int D>
+constexpr int OUT_VEC = D >= 32 ? 4 : D / 8;
+
+// Reads N = 4 or 2 consecutive floats of shared memory as one access.
+template <int N>
+__device__ __forceinline__ void load_vec(float (&x)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 y = *reinterpret_cast<const float4*>(p);
+    x[0] = y.x;
+    x[1] = y.y;
+    x[2] = y.z;
+    x[3] = y.w;
   } else {
-    p[0] = x.x;
-    p[sd] = x.y;
-    p[2 * sd] = x.z;
-    p[3 * sd] = x.w;
+    static_assert(N == 2, "a chunk is 4 or 2 floats");
+    const float2 y = *reinterpret_cast<const float2*>(p);
+    x[0] = y.x;
+    x[1] = y.y;
+  }
+}
+
+// Writes N consecutive outputs, as one store when `vec` (unit stride and
+// aligned to N elements), else through the stride.
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[N],
+                                          long long sd, bool vec) {
+  if (vec) {
+    if constexpr (N == 4)
+      *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+    else
+      *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) p[e * sd] = x[e];
   }
 }
 
@@ -210,8 +241,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int heads, int groups, int kv_tile, int paired, Strides sq,
                  Strides sk, Strides sv, Strides so, float scale_log2,
                  int causal, int vec) {
-  constexpr int LD = D + 4;   // shared row stride, in floats
-  constexpr int DC = D / 32;  // float4 output columns per thread
+  constexpr int LD = D + 4;            // shared row stride, in floats
+  constexpr int CV = OUT_VEC<D>;       // output columns per chunk
+  constexpr int DC = D / (8 * CV);     // output chunks per thread
   const int block_rows = groups * WARP_ROWS;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);  // [block_rows][LD]
@@ -221,7 +253,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int rg = lane >> 3;  // rows w0 + rg + 4i
-  const int cg = lane & 7;   // keys cg + 8j, columns 4 (cg + 8m) + 0..3
+  const int cg = lane & 7;   // keys cg + 8j, columns CV (cg + 8m) + 0..CV-1
   float* p_w = v_s + kv_tile * LD + warp * WARP_ROWS * LDP;  // [16][LDP]
 
   const int b = blockIdx.x / heads;
@@ -245,7 +277,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                   : seq_len;
     const float* q_w = q_s + max(g, 0) * WARP_ROWS * LD;
 
-    float4 acc[4][DC];
+    float acc[4][DC][CV];
     float m[4], l[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -253,7 +285,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[i] = 0.f;  // this lane's share of the row sum
 #pragma unroll
       for (int c = 0; c < DC; ++c)
-        acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int e = 0; e < CV; ++e) acc[i][c][e] = 0.f;
     }
 
     for (int k0 = 0; k0 < block_end; k0 += kv_tile) {
@@ -330,12 +363,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           l[i] = l[i] * alpha + p_sum;
           m[i] = m_new;
 #pragma unroll
-          for (int c = 0; c < DC; ++c) {
-            acc[i][c].x *= alpha;
-            acc[i][c].y *= alpha;
-            acc[i][c].z *= alpha;
-            acc[i][c].w *= alpha;
-          }
+          for (int c = 0; c < DC; ++c)
+#pragma unroll
+            for (int e = 0; e < CV; ++e) acc[i][c][e] *= alpha;
         }
         __syncwarp();  // the slab is written
 
@@ -355,15 +385,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           for (int e = 0; e < 4; ++e)
 #pragma unroll
             for (int c = 0; c < DC; ++c) {
-              const float4 y = *reinterpret_cast<const float4*>(
-                  v_t + (kk + e) * LD + 4 * (cg + 8 * c));
+              float y[CV];
+              load_vec<CV>(y, v_t + (kk + e) * LD + CV * (cg + 8 * c));
 #pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                acc[i][c].x = fmaf(p[i][e], y.x, acc[i][c].x);
-                acc[i][c].y = fmaf(p[i][e], y.y, acc[i][c].y);
-                acc[i][c].z = fmaf(p[i][e], y.z, acc[i][c].z);
-                acc[i][c].w = fmaf(p[i][e], y.w, acc[i][c].w);
-              }
+              for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int n = 0; n < CV; ++n)
+                  acc[i][c][n] = fmaf(p[i][e], y[n], acc[i][c][n]);
             }
         }
         __syncwarp();  // the slab is read before the next subtile writes it
@@ -380,11 +408,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 (long long)row * so.t;
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
-        const float4 a = acc[i][c];
-        store4(orow + (long long)(4 * (cg + 8 * c)) * so.d,
-               make_float4(a.x / denom, a.y / denom, a.z / denom,
-                           a.w / denom),
-               so.d, vec & 8);
+        float out[CV];
+#pragma unroll
+        for (int e = 0; e < CV; ++e) out[e] = acc[i][c][e] / denom;
+        store_vec<CV>(orow + (long long)(CV * (cg + 8 * c)) * so.d, out,
+                      so.d, vec & 8);
       }
     }
   }
@@ -425,7 +453,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       vectorizable(q, st[0], batch, seq_len, heads, elem, 16) |
       vectorizable(k, st[1], batch, seq_len, heads, elem, 16) << 1 |
       vectorizable(v, st[2], batch, seq_len, heads, elem, 16) << 2 |
-      vectorizable(o, st[3], batch, seq_len, heads, elem, 4 * elem) << 3;
+      vectorizable(o, st[3], batch, seq_len, heads, elem,
+                   OUT_VEC<D> * elem) << 3;
   const dim3 grid(batch * heads, (seq_len + block_rows - 1) / block_rows);
   flash_fwd_kernel<T, D><<<grid, nwarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -881,6 +910,9 @@ cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v,
                               int head_dim, const Strides* st, float scale,
                               int causal, cudaStream_t stream) {
   switch (head_dim) {
+    case 16:
+      return launch_for<T, 16>(q, k, v, o, batch, seq_len, heads, st, scale,
+                               causal, stream);
     case 32:
       return launch_for<T, 32>(q, k, v, o, batch, seq_len, heads, st, scale,
                                causal, stream);

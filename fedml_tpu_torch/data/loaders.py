@@ -16,6 +16,7 @@ from fedml_tpu_torch.data.federated import (
     FederatedData,
     build_federated_data,
 )
+from fedml_tpu_torch.data.natural import synthetic_stackoverflow_nwp
 
 # name -> (input_shape, num_classes) for image datasets (NHWC)
 IMAGE_SPECS: dict[str, tuple[tuple[int, ...], int]] = {
@@ -156,11 +157,17 @@ def make_fake_text_dataset(
 
 def load_dataset(cfg: DataConfig) -> FederatedData:
     """Dataset dispatch. Only the offline datasets are ported:
-    ``synthetic``, ``synthetic_<alpha>_<beta>`` and the ``fake_<name>``
-    sets of the image (``IMAGE_SPECS``) and text paths; any other name
-    raises."""
+    ``synthetic_stackoverflow_nwp`` (``data/natural.py``, its 10,000-word
+    vocabulary), ``synthetic``, ``synthetic_<alpha>_<beta>`` and the
+    ``fake_<name>`` sets of the image (``IMAGE_SPECS``) and text paths;
+    any other name raises."""
     name = cfg.dataset.lower()
-    if name.startswith("synthetic") and name != "synthetic_stackoverflow_nwp":
+    if name == "synthetic_stackoverflow_nwp":
+        # before the synthetic_<a>_<b> family, as in the JAX package: the
+        # explicitly named StackOverflow-shaped stand-in
+        return synthetic_stackoverflow_nwp(num_clients=cfg.num_clients,
+                                           seed=cfg.seed)
+    if name.startswith("synthetic"):
         # "synthetic", "synthetic_1_1", "synthetic_0.5_0.5", ...
         parts = name.split("_")
         a = float(parts[1]) if len(parts) > 1 else 1.0
@@ -177,7 +184,8 @@ def load_dataset(cfg: DataConfig) -> FederatedData:
         )
     raise ValueError(
         f"dataset {cfg.dataset!r} is not ported to fedml_tpu_torch yet "
-        f"(available: synthetic[_<alpha>_<beta>], "
+        f"(available: synthetic_stackoverflow_nwp, "
+        f"synthetic[_<alpha>_<beta>], "
         f"fake_<{'|'.join(IMAGE_SPECS)}>, fake_shakespeare, "
         "fake_stackoverflow_nwp)"
     )

@@ -37,9 +37,12 @@ from fedml_tpu_torch.models import create_model
 from fedml_tpu_torch.utils.checkpoint import RoundCheckpointer, from_savable
 
 # the registry's FedAvg family: --algorithm -> the FedConfig.algorithm
-# FedAvgSim runs (fedprox is fedavg with TrainConfig.prox_mu)
+# FedAvgSim runs (fedprox is fedavg with TrainConfig.prox_mu; the robust
+# and multiclient aliases are fedavg with the FedConfig defenses and the
+# adversaries, as in the JAX package)
 ALGORITHMS = {"fedavg": "fedavg", "fedopt": "fedopt", "fedprox": "fedavg",
-              "fednova": "fednova"}
+              "fednova": "fednova", "fedavg_robust": "fedavg",
+              "fedavg_multiclient": "fedavg"}
 
 
 def build_sim(cfg: ExperimentConfig,
@@ -182,12 +185,13 @@ class Experiment:
     @staticmethod
     def _save_state(ckpt: RoundCheckpointer, sim: FedAvgSim, r: int,
                     state: ServerState) -> None:
-        """Checkpoint round ``r``: with client-state banks (the bulk
-        engine's error-feedback residual) the ``{"server": state, "bank":
-        {name: rows}}`` composite, so every client's row restores bit for
-        bit; without them the bare state. The stacked round's ``[C, ...]``
-        residual (``FedAvgSim.ef_residual``) is not saved, as in the JAX
-        package: a resumed stacked compressed run starts it from zero."""
+        """Checkpoint round ``r``: with client-state banks (a personalized
+        run's adapters, the bulk engine's error-feedback residual) the
+        ``{"server": state, "bank": {name: rows}}`` composite, so every
+        client's row restores bit for bit; without them the bare state.
+        The stacked round's ``[C, ...]`` residual
+        (``FedAvgSim.ef_residual``) is not saved, as in the JAX package: a
+        resumed stacked compressed run starts it from zero."""
         banks = sim.bank_state()
         ckpt.save(r, {"server": state, "bank": banks} if banks else state)
 

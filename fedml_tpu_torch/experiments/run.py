@@ -1,13 +1,16 @@
 """CLI entry: ``python -m fedml_tpu_torch.experiments.run ...``.
 
 The FedAvg family of ``fedml_tpu.experiments.run`` (``--algorithm``
-fedavg, fedopt, fedprox, fednova), with its flag names: the defenses
+fedavg, fedopt, fedprox, fednova, fedavg_robust, fedavg_multiclient),
+with its flag names: the defenses
 (``--defense`` or ``--robust_method``, ``--defense_*``,
 ``--robust_norm_clip``, ``--robust_noise_stddev``), the wire codec
 (``--compress``, ``--compress_topk_frac``), the seeded adversaries
 (``--adversary_*``), the bulk engine (``--client_block_size``) and
-elastic buckets (``--elastic``), fused blocks (``--fuse_rounds``) and
-the harness's flags (``--repetitions``, ``--run_name``, ``--out_dir``,
+elastic buckets (``--elastic``), fused blocks (``--fuse_rounds``), LoRA
+fine-tuning (``--peft lora``, ``--lora_rank``, ``--lora_alpha``,
+``--lora_targets``, ``--peft_personalize``) and the harness's flags
+(``--repetitions``, ``--run_name``, ``--out_dir``,
 ``--checkpoint_every``). Config precedence: ``--config`` JSON (the full
 :class:`ExperimentConfig` shape, the same file the JAX package reads)
 overridden by explicit flags. Client momentum and weight decay come in
@@ -34,6 +37,12 @@ from fedml_tpu_torch.core.device import resolve_device
 from fedml_tpu_torch.core.robust import (
     DefensePipeline,
     check_fednova_compat,
+)
+from fedml_tpu_torch.peft import (
+    LORA_TARGETS,
+    LoRASpec,
+    check_model_supported,
+    check_peft_compat,
 )
 
 
@@ -133,6 +142,32 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
                         "once, at its end; evaluation and checkpoint "
                         "rounds end a block. 1 (default) keeps the "
                         "per-round loop")
+    p.add_argument("--peft", type=str, default=None,
+                   choices=["none", "lora"],
+                   help="parameter-efficient fine-tuning: 'lora' wraps the "
+                        "transformer's targeted projections with zero-init "
+                        "low-rank branches and trains and aggregates only "
+                        "the adapters and the LM head; the frozen base takes "
+                        "no optimizer state, builds no delta and ships no "
+                        "wire bytes (composes with --compress). Transformer "
+                        "models only; round 0 computes what the base model "
+                        "does")
+    p.add_argument("--lora_rank", type=int, default=None,
+                   help="LoRA rank r (>= 1); the branch is (alpha / r) x "
+                        "A B, A seeded and B zero at init")
+    p.add_argument("--lora_alpha", type=float, default=None,
+                   help="LoRA scale alpha (> 0)")
+    p.add_argument("--lora_targets", type=str, nargs="+", default=None,
+                   help=f"which TransformerLM projections get adapters "
+                        f"(a subset of {' '.join(LORA_TARGETS)}; default "
+                        "q_proj v_proj)")
+    p.add_argument("--peft_personalize", action="store_true",
+                   help="keep each client's adapters in a private "
+                        "per-client bank: only the LM head aggregates. "
+                        "Composes with --client_block_size, --elastic, "
+                        "--fuse_rounds and --checkpoint_every; --compress, "
+                        "a defense other than mean and adversaries are "
+                        "refused")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--repetitions", type=int, default=1)
     p.add_argument("--run_name", type=str, default=None)
@@ -200,6 +235,11 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
             elastic_buckets=True if a.elastic else None,
             client_block_size=a.client_block_size,
             fuse_rounds=a.fuse_rounds,
+            peft=a.peft,
+            lora_rank=a.lora_rank,
+            lora_alpha=a.lora_alpha,
+            lora_targets=tuple(a.lora_targets) if a.lora_targets else None,
+            peft_personalize=True if a.peft_personalize else None,
         ),
         adversary=rep(
             cfg.adversary,
@@ -227,6 +267,7 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
         bulk = BulkSpec.from_fed(cfg.fed)
     except ValueError as err:
         raise SystemExit(str(err)) from err
+    check_peft(cfg)
     if bulk.enabled():
         check_bulk_compat(cfg.fed, cfg.adversary)
         if bulk.block_size >= cfg.fed.clients_per_round:
@@ -236,6 +277,36 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
                   "(client_block_size=0) runs the same work without the "
                   "streaming wrapper and wins", file=sys.stderr)
     return cfg, a
+
+
+def check_peft(cfg: ExperimentConfig) -> None:
+    """PEFT's settings, checked at parse time against the merged config
+    (as the JAX CLI does): a warning for lora_* settings without
+    peft='lora'; ``SystemExit`` for a bad spec, a model without the named
+    projections, an algorithm outside the FedAvg family or a combination
+    ``check_peft_compat`` refuses."""
+    fed, default = cfg.fed, type(cfg.fed)()
+    if fed.peft == "none" and not fed.peft_personalize:
+        if ((fed.lora_rank, fed.lora_alpha, fed.lora_targets)
+                != (default.lora_rank, default.lora_alpha,
+                    default.lora_targets)):
+            print("warning: lora_rank/lora_alpha/lora_targets are inert "
+                  "without peft='lora': this run fine-tunes the FULL model",
+                  file=sys.stderr)
+        return
+    from fedml_tpu_torch.experiments.harness import ALGORITHMS
+
+    try:
+        LoRASpec.from_fed(fed)
+        check_peft_compat(fed, cfg.adversary)
+        check_model_supported(cfg.model.name)
+    except ValueError as err:
+        raise SystemExit(str(err)) from err
+    if fed.algorithm not in ALGORITHMS:
+        raise SystemExit(
+            f"--peft covers the FedAvg family ({sorted(ALGORITHMS)}); "
+            f"{fed.algorithm!r} would fine-tune the full model under a "
+            "'lora' label")
 
 
 def main(argv=None) -> int:

@@ -24,6 +24,8 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from fedml_tpu_torch.core.tree import wide
+
 Params = dict[str, torch.Tensor]
 
 
@@ -53,15 +55,16 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     ``(y, new_mean, new_var)``.
 
     In train mode the statistics are taken over every other dim in
-    float32 whatever ``x``'s type, the variance in the fast form
-    E[x^2] - E[x]^2 clipped at 0 (biased), and the running values move as
+    float32 whatever ``x``'s type (float64 stays float64), the variance in
+    the fast form E[x^2] - E[x]^2 clipped at 0 (biased), and the running
+    values move as
     ``BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch`` with that biased
     variance (torch's BatchNorm would use the unbiased one, and its
     momentum is 1 - this one). In eval mode ``mean``/``var`` normalize and
     come back unchanged. The normalization (epsilon ``BN_EPS``) runs in
     float32 and the result takes ``x``'s type, as flax computes it."""
     shape = (1, -1) + (1,) * (x.ndim - 2)
-    xf = x.float()
+    xf = wide(x)
     if train:
         dims = [0, *range(2, x.ndim)]
         use_mean = xf.mean(dims)
@@ -70,9 +73,9 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         new_mean, new_var = batch_norm_update(mean, var, use_mean, use_var)
     else:
         use_mean, use_var, new_mean, new_var = mean, var, mean, var
-    mul = torch.rsqrt(use_var + BN_EPS) * scale.float()
+    mul = torch.rsqrt(use_var + BN_EPS) * wide(scale)
     y = (xf - use_mean.reshape(shape)) * mul.reshape(shape)
-    return (y + bias.float().reshape(shape)).to(x.dtype), new_mean, new_var
+    return (y + wide(bias).reshape(shape)).to(x.dtype), new_mean, new_var
 
 
 class BatchNorm(nn.Module):
@@ -168,15 +171,23 @@ def _orthogonal_blocks(shape, gen: torch.Generator) -> torch.Tensor:
                       for q, r in blocks])
 
 
+# the LoRA adapter leaves (fedml_tpu_torch/peft/lora.py): drawn after
+# every other leaf, so injecting adapters leaves the base draws unchanged
+ADAPTER_LEAVES = ("lora_a", "lora_b")
+
+
 def _init_tensor(mod: nn.Module, leaf: str, shape, gen: torch.Generator):
     """Flax's default initializers: Dense and Conv kernels and an LSTM's
     input kernels lecun-normal (fan_in = in features, or kh * kw * in
     channels per group for a conv), an LSTM's recurrent kernels orthogonal,
     embeddings normal with std 1/sqrt(features), LayerNorm, BatchNorm and
     GroupNorm scale ones, every bias zeros, BatchNorm running mean zeros
-    and variance ones."""
-    if leaf in ("bias", "running_mean"):
+    and variance ones; a LoRA ``lora_a`` ``[rank, in]`` lecun-normal
+    (fan_in = in features) and ``lora_b`` zeros."""
+    if leaf in ("bias", "running_mean", "lora_b"):
         return torch.zeros(shape)
+    if leaf == "lora_a":
+        return _lecun_normal(shape, shape[1], gen)
     if leaf == "running_var" or isinstance(
             mod, (nn.LayerNorm, BatchNorm, GroupNorm)):
         return torch.ones(shape)
@@ -213,15 +224,22 @@ class FedModel:
 
     def init(self, generator: torch.Generator) -> Params:
         """Fresh variables drawn on the CPU from ``generator`` (so a seed
-        gives the same weights on every device), moved to the device."""
-        variables = {}
+        gives the same weights on every device), moved to the device, in
+        module order. The leaves are drawn in module order too, except
+        LoRA adapter leaves, which are drawn after all the others: every
+        other leaf is then drawn as for the model without adapters."""
+        leaves = {}
         for mod_name, mod in self.module.named_modules():
-            leaves = [*mod.named_parameters(recurse=False),
-                      *mod.named_buffers(recurse=False)]
-            for leaf, p in leaves:
+            for leaf, p in [*mod.named_parameters(recurse=False),
+                            *mod.named_buffers(recurse=False)]:
                 name = f"{mod_name}.{leaf}" if mod_name else leaf
-                variables[name] = _init_tensor(mod, leaf, p.shape, generator)
-        return {k: v.to(self.device) for k, v in variables.items()}
+                leaves[name] = (mod, leaf, p.shape)
+        drawn = {}
+        for adapters in (False, True):
+            for name, (mod, leaf, shape) in leaves.items():
+                if (leaf in ADAPTER_LEAVES) == adapters:
+                    drawn[name] = _init_tensor(mod, leaf, shape, generator)
+        return {k: drawn[k].to(self.device) for k in leaves}
 
     def apply_train(self, variables: Params, x: torch.Tensor):
         """Forward in train mode; returns (logits, variables with the new

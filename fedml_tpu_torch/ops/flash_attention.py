@@ -11,7 +11,9 @@ on the H100 and what its design does about that.
 
 Unlike the Pallas kernel, T need not divide by the tile: the kernel masks
 the ragged edge (the Shakespeare task runs at T = 80). Inputs may be
-float32, bfloat16 or float16 with D in {32, 64, 128}. The library holds
+float32, bfloat16 or float16 with D in {16, 32, 64, 128} (16: the LoRA
+transformer's heads); any other head dim raises, and nothing falls back
+to the plain version. The library holds
 two kernels behind one C function: float32 runs on the FP32 cores, and
 bfloat16 and float16 run on the tensor cores, with the probabilities
 rounded to the input type before the ``p v`` product.
@@ -33,7 +35,7 @@ import torch
 from fedml_tpu_torch.ops import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instances
 
 
 def flash_attention_reference(
@@ -109,8 +111,8 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
                          f"{k.dtype}, {v.dtype}")
     b, t, h, d = q.shape
     if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention's kernel takes head dim in "
-                         f"{_HEAD_DIMS}, got {d}")
+        raise ValueError(f"flash_attention's kernel has instances for head "
+                         f"dims {_HEAD_DIMS}, got {d}")
     if (t + 63) // 64 > 65535:
         raise ValueError(f"sequence length {t} exceeds the kernel's grid")
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)

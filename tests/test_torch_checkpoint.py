@@ -193,6 +193,29 @@ def test_resumed_equals_uninterrupted_bitwise(tmp_path, fuse):
     assert after == {r: straight[r] for r in after}
 
 
+@pytest.mark.parametrize("alias", ["fedavg_robust", "fedavg_multiclient"])
+def test_fedavg_aliases_run_fedavgs_rounds(tmp_path, alias):
+    """The JAX package's registry maps fedavg_robust and
+    fedavg_multiclient to FedAvgSim running fedavg: with the same flags
+    (a defense and seeded adversaries) they run fedavg's rounds, bit for
+    bit."""
+    import dataclasses
+
+    cfg = dataclasses.replace(
+        _cfg(tmp_path, 2, robust_method="median", robust_norm_clip=5.0),
+        adversary=tc.AdversaryPolicy(mode="sign_flip", num_adversaries=2))
+    runs = {}
+    for algorithm in ("fedavg", alias):
+        sim = build_sim(dataclasses.replace(cfg, fed=dataclasses.replace(
+            cfg.fed, algorithm=algorithm)), "cpu")
+        assert sim.cfg.fed.algorithm == "fedavg"
+        state = sim.init()
+        for _ in range(2):
+            state, _ = sim.run_round(state)
+        runs[algorithm] = state
+    _same(runs[alias]._asdict(), runs["fedavg"]._asdict())
+
+
 def test_bulk_ef_bank_rides_the_composite(tmp_path):
     """The bulk engine's client-keyed residual bank is saved in the
     ``{"server", "bank"}`` composite and restores bit for bit into a

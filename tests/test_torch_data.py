@@ -74,9 +74,14 @@ def test_unported_dataset_raises():
     # stand-ins are
     with pytest.raises(ValueError, match="not ported"):
         load_dataset(DataConfig(dataset="cifar10"))
-    # the StackOverflow stand-in comes with PEFT (ROADMAP item 12)
-    with pytest.raises(ValueError, match="not ported"):
-        load_dataset(DataConfig(dataset="synthetic_stackoverflow_nwp"))
+    # the StackOverflow stand-in came with PEFT (ROADMAP item 12): it is
+    # dispatched before the synthetic_<alpha>_<beta> family, not parsed as
+    # one (tests/test_torch_peft.py holds it bitwise against the JAX
+    # package's)
+    data = load_dataset(DataConfig(dataset="synthetic_stackoverflow_nwp",
+                                   num_clients=3))
+    assert (data.task, data.num_classes, data.num_clients) == ("nwp", 10004,
+                                                               3)
 
 
 def _assert_arrays_equal(got, ref):

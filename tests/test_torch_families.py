@@ -3,7 +3,8 @@ package with weights carried across by ``fedml_tpu_torch.convert``:
 GroupNorm, the GroupNorm ResNets (``resnet<d>_gn``, ``ResNet18GN``),
 MobileNet and the federated LSTMs forward; one FedAvg round of ResNet-8-GN
 under server adam, of MobileNet and of the char LSTM under FedNova with the
-JAX package's cohorts and batch orders replayed, in float32 and bf16; the
+JAX package's cohorts and batch orders replayed, in float32 and bf16
+(MobileNet's round in float64 on both sides); the
 batched cohort against the per-client loop on a GroupNorm and an LSTM
 model; the model factory and the command line."""
 
@@ -40,6 +41,7 @@ from fedml_tpu_torch.models import create_model
 from fedml_tpu_torch.models.base import FedModel, group_norm, weightless
 from fedml_tpu_torch.models.nlp import NWPLSTM, CharLSTM
 from fedml_tpu_torch.models.vision import MobileNet, ResNet18GN, ResNetCIFAR
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 IMG = (16, 16, 3)
 # CIFAR's size: at 16 x 16 MobileNet's last blocks are 1 x 1, and their
@@ -59,10 +61,10 @@ BF16_TOL = dict(atol=0.05, rtol=0.1)
 # MobileNet's float32 BatchNorm is ill-conditioned at a random init: its
 # depthwise convolutions of ReLU outputs have a mean far above their
 # spread, so the fast variance E[x^2] - E[x]^2 cancels, and the gradient
-# reaches hundreds. Its round is held against the JAX package run in
-# float64: measured, the port's float32 round is 0.0128 from it at most,
-# and the JAX package's own float32 round 0.167
-MOBILENET_TOL = dict(atol=0.04, rtol=0.0)
+# reaches hundreds. Its round runs in float64 in both packages and is held
+# at ROUND_TOL: measured, 1.4e-7 at most at 1, 2, 4 and 8 torch threads
+# (the port's float32 round was 0.0128-0.0403 from the JAX float64 one,
+# the JAX package's own float32 round 0.167)
 # its train-mode forward (batch statistics) against flax in float64:
 # measured at most 1.1e-5 over three inputs
 MOBILENET_FWD_TOL = dict(atol=5e-5, rtol=1e-5)
@@ -278,22 +280,22 @@ def test_fedavg_round_matches_jax(name, compute_dtype):
     algorithm, server_opt, server_lr, lr, batch, epochs = ROUNDS[name]
     tol = ROUND_TOL if compute_dtype == "float32" else BF16_TOL
 
-    def cfg(m):
+    # MobileNet's BatchNorm is ill-conditioned in float32 (see ROUND_TOL):
+    # both packages run its round in float64, the port through a float64
+    # compute type and float64 variables
+    x64 = name == "mobilenet"
+
+    def cfg(m, dtype=compute_dtype):
         return m.ExperimentConfig(
             data=m.DataConfig(num_clients=len(COUNTS), batch_size=batch),
             model=m.ModelConfig(name=name, input_shape=shape),
             train=m.TrainConfig(lr=lr, epochs=epochs, cohort_groups=1,
-                                compute_dtype=compute_dtype),
+                                compute_dtype=dtype),
             fed=m.FedConfig(algorithm=algorithm, num_rounds=1,
                             clients_per_round=3, server_optimizer=server_opt,
                             server_lr=server_lr, gmf=0.5),
             seed=3)
 
-    # MobileNet's BatchNorm is ill-conditioned in float32 (MOBILENET_TOL):
-    # the JAX package runs it in float64, its exact reference
-    x64 = name == "mobilenet"
-    if x64:
-        tol = MOBILENET_TOL
     with jax.enable_x64(True) if x64 else contextlib.nullcontext():
         jsim = jfed.FedAvgSim(JaxFedModel(
             flax_net, shape, has_batch_stats=bool(model.stat_names),
@@ -322,20 +324,25 @@ def test_fedavg_round_matches_jax(name, compute_dtype):
         jstate, jm = jsim.run_round(jstate)
         cohort = [sampler(0, len(COUNTS), 3)] + [
             batch_orders(0, c) for c in range(len(COUNTS))]
-        jstate = jax.tree.map(lambda a: np.asarray(a, np.float32),
-                              jax.device_get(jstate.variables))
+        jstate = jax.tree.map(
+            lambda a: np.asarray(a, np.float64 if x64 else np.float32),
+            jax.device_get(jstate.variables))
         jm = {k: float(v) for k, v in jm.items()}
-    tsim = tfed.FedAvgSim(model, tdata, cfg(tc), device="cpu",
+    dtype = torch.float64 if x64 else torch.float32
+    tsim = tfed.FedAvgSim(model, tdata,
+                          cfg(tc, "float64") if x64 else cfg(tc),
+                          device="cpu",
                           sampler=lambda r, n, k: cohort[0],
                           batch_orders=lambda r, c: cohort[1 + c])
-    tstate = tsim.init()._replace(variables=port)
+    tstate = tsim.init()._replace(
+        variables={k: v.to(dtype) for k, v in port.items()})
     tstate, tm = tsim.run_round(tstate)
     for k in ("train_loss", "train_acc"):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), **tol)
     want = _archs()[name][2](jstate)
     assert set(tstate.variables) == set(want)
     for k in want:
-        assert tstate.variables[k].dtype == torch.float32, k
+        assert tstate.variables[k].dtype == dtype, k
         np.testing.assert_allclose(tstate.variables[k].numpy(),
                                    want[k].numpy(), **tol, err_msg=k)
 

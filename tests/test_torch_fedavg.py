@@ -199,17 +199,30 @@ def test_two_fedavg_rounds_match_jax():
 def test_unported_settings_raise():
     _, tdata = _data()
     model = create_model(tc.ModelConfig(**MODEL), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfed.FedAvgSim(model, tdata, tc.ExperimentConfig(
+    # every FedConfig setting of the FedAvg family is ported: nothing is
+    # left to refuse as unported
+    assert tfed._NOT_PORTED == ()
+    # a setting the port cannot run still raises by name: LoRA on a
+    # model without the transformer's projections, personalization with
+    # a codec, in the stacked round and in the bulk engine
+    lr = create_model(tc.ModelConfig(name="lr", num_classes=VOCAB,
+                                     input_shape=(T,)), "cpu")
+    with pytest.raises(ValueError, match="TransformerLM"):
+        tfed.FedAvgSim(lr, tdata, tc.ExperimentConfig(
             fed=tc.FedConfig(peft="lora")), device="cpu")
-    # the bulk engine's personalized round waits for PEFT
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tfed.FedAvgSim(model, tdata, tc.ExperimentConfig(fed=tc.FedConfig(
-            client_block_size=4, peft="lora")), device="cpu")
-    assert [p for p, _, _ in tfed._NOT_PORTED] == ["fed.peft"]
+    for block in (0, 4):
+        with pytest.raises(ValueError, match="compress"):
+            tfed.FedAvgSim(model, tdata, tc.ExperimentConfig(
+                fed=tc.FedConfig(client_block_size=block, peft="lora",
+                                 peft_personalize=True, compress="int8")),
+                device="cpu")
     # the defenses, the codecs, the adversaries, elastic buckets, the
-    # bulk engine and fused blocks are ported
-    for good in (dict(fed=tc.FedConfig(fuse_rounds=2)),
+    # bulk engine, fused blocks and PEFT (in the bulk engine too) are
+    # ported
+    for good in (dict(fed=tc.FedConfig(peft="lora")),
+                 dict(fed=tc.FedConfig(client_block_size=4, peft="lora",
+                                       peft_personalize=True)),
+                 dict(fed=tc.FedConfig(fuse_rounds=2)),
                  dict(fed=tc.FedConfig(elastic_buckets=True)),
                  dict(fed=tc.FedConfig(client_block_size=4)),
                  dict(fed=tc.FedConfig(robust_method="median",

@@ -129,3 +129,16 @@ def test_kernel_matches_plain(cuda_device, shape, dtype, atol, layout,
     # the plain version in float32 from the same low-precision inputs
     want = flash_attention_reference(q.float(), k.float(), v.float(), causal)
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [8, 24, 48])
+def test_kernel_raises_for_a_head_dim_without_an_instance(cuda_device,
+                                                          head_dim):
+    # no fallback to the plain version: a head dim the kernels have no
+    # instance for is refused before any launch
+    q = torch.randn(1, 8, 2, head_dim, device=cuda_device)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, q, causal=True)
+    assert flash_attention.launches == before

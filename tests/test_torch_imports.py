@@ -10,7 +10,12 @@ import pytest
 import torch
 
 from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
-from fedml_tpu_torch.config import DataConfig, ExperimentConfig, ModelConfig
+from fedml_tpu_torch.config import (
+    DataConfig,
+    ExperimentConfig,
+    FedConfig,
+    ModelConfig,
+)
 from fedml_tpu_torch.data import load_dataset
 from fedml_tpu_torch.models import create_model
 
@@ -19,7 +24,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fedml_tpu")
 SOURCES = sorted((ROOT / "fedml_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_round.py",
     ROOT / "scripts" / "resnet_parity_spread.py",
-    ROOT / "scripts" / "time_torch_flash.py"]
+    ROOT / "scripts" / "time_torch_flash.py",
+    ROOT / "scripts" / "cohort_band_loop.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -49,8 +55,8 @@ names = [m.name for m in pkgutil.walk_packages(fedml_tpu_torch.__path__,
                                                "fedml_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-# the defended round's, the bulk engine's, the harness's and the s2d
-# models' modules are among them
+# the defended round's, the bulk engine's, the harness's, the s2d
+# models' and PEFT's modules are among them
 assert {"fedml_tpu_torch.core.robust", "fedml_tpu_torch.core.adversary",
         "fedml_tpu_torch.core.compress", "fedml_tpu_torch.core.random",
         "fedml_tpu_torch.core.bulk", "fedml_tpu_torch.core.elastic",
@@ -58,13 +64,22 @@ assert {"fedml_tpu_torch.core.robust", "fedml_tpu_torch.core.adversary",
         "fedml_tpu_torch.core.streamdef", "fedml_tpu_torch.core.fuse",
         "fedml_tpu_torch.utils.checkpoint",
         "fedml_tpu_torch.experiments.harness",
-        "fedml_tpu_torch.models.s2d_exact"} <= set(names), names
+        "fedml_tpu_torch.models.s2d_exact", "fedml_tpu_torch.peft",
+        "fedml_tpu_torch.peft.lora", "fedml_tpu_torch.peft.partition",
+        "fedml_tpu_torch.peft.personal",
+        "fedml_tpu_torch.data.natural"} <= set(names), names
 from fedml_tpu_torch.config import ModelConfig
 from fedml_tpu_torch.models import create_model
 model = create_model(ModelConfig(name="transformer_lm", num_classes=37,
                                  input_shape=(16,)), device="cpu")
 params = model.init(torch.Generator().manual_seed(0))
 logits = model.apply_eval(params, torch.zeros(2, 16, dtype=torch.int32))
+assert logits.shape == (2, 16, 37)
+from fedml_tpu_torch.peft import LoRASpec, apply_lora
+lora = apply_lora(model, LoRASpec())
+params = lora.init(torch.Generator().manual_seed(0))
+assert "blocks.0.q_proj.lora_a" in params
+logits = lora.apply_eval(params, torch.zeros(2, 16, dtype=torch.int32))
 assert logits.shape == (2, 16, 37)
 model = create_model(ModelConfig(name="resnet8", num_classes=10,
                                  input_shape=(16, 16, 3)), device="cpu")
@@ -99,9 +114,10 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
         create_model(mcfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         data.to_arrays()
-    cfg = ExperimentConfig(model=mcfg)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        FedAvgSim(create_model(mcfg, device="cpu"), data, cfg)
+    for fed in (FedConfig(), FedConfig(peft="lora", peft_personalize=True)):
+        cfg = ExperimentConfig(model=mcfg, fed=fed)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            FedAvgSim(create_model(mcfg, device="cpu"), data, cfg)
     assert create_model(mcfg, device="cpu").device.type == "cpu"
 
 
