@@ -153,14 +153,15 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    final checkpoint equal to an uninterrupted run's, bit for bit or within
    (c)'s spread. The flash counters, set to 0 before the phase, must read
    0 after it.
-11. A "kernels" JSON line, printed after phase 12, with one entry per
+11. A "kernels" JSON line, printed after phase 13, with one entry per
    kernel instance the paths run (flash_attention, the float32 body at
    head dim 32; flash_attention_d16, its head-dim-16 instance; and
    flash_attention_mma, the bf16/fp16 body), each with its launches on
    the transformer path, on the LoRA path, on the ResNet-56 path, on each
-   family, in the defended rounds, in the bulk phase and in phase 10
-   (none of them but the transformer and LoRA paths runs a hand-written
-   kernel), the card's name and power limit, and last the result line
+   family, in the defended rounds, in the bulk phase, in phase 10 and on
+   the FedGDKD path (none of them but the transformer and LoRA paths runs
+   a hand-written kernel), the card's name and power limit, and last the
+   result line
    {"ok": true, "device": {...}}.
 12. Federated LoRA fine-tuning at the shape of bench.py's --lora-bench
    stage (synthetic_stackoverflow_nwp, 64 clients, vocab 2000 + 4;
@@ -186,6 +187,26 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    rounds_to_match_full_transformer_lora (16 full rounds, then at most
    48 LoRA rounds). The flash counters, set to 0 before (c) and (d), must
    read 0 after them.
+13. FedGDKD at bench.py's --fedgdkd configuration (cnn_medium and the
+   conditional generator at GanConfig's defaults on fake_mnist, 10
+   clients, hetero 0.1, all sampled, batch 32, SGD lr 0.03, 5 epochs,
+   cohort_groups 5, float32), each record a JSON line with the card's name
+   and power limit: (a) 3 rounds (finite g_loss, d_loss and kd_loss; the
+   groups, their steps and the adversarial and distillation graphs'
+   replays), one more round under set_sync_debug_mode("error") (one
+   replay per group-step and per distillation step), every client's
+   accuracy in [0, 1], and fedgdkd_rounds_per_sec_10c_mnist_cnn_medium
+   over 6 more rounds (a smoke figure); (b) the --fedgdkd-scale stage (50
+   clients, 25 a round, 30,000 samples), 3 rounds: the drift-corrected
+   new joiners counted, the classifiers of the clients a round did not
+   sample equal to their previous values bit for bit, and
+   fedgdkd_rounds_per_sec_50c_sampled25_mnist_cnn_medium; (c) two rounds
+   at the CPU parity test's tiny configuration on the card and on the CPU
+   from the same variables and draws (TF32 off, cuDNN deterministic):
+   every leaf within atol 1e-5, rtol 1e-4, or else the first step within
+   1e-3 and the rounds within SPREAD_FACTOR times the CPU's own spread;
+   (d) the phase's seconds. The flash counters, set to 0 before the
+   phase, must read 0 after it. The "kernels" line comes after it.
 """
 
 from __future__ import annotations
@@ -2575,6 +2596,345 @@ def peft_phase(card: str) -> int:
     return launches
 
 
+# phase 13: bench.py's --fedgdkd and --fedgdkd-scale stages
+FEDGDKD_ROUNDS = 3
+FEDGDKD_RATE_ROUNDS = 6
+FEDGDKD_SCALE = dict(num_clients=50, cpr=25, n_train=30000)
+# the CPU parity test's band (tests/test_torch_gan.py ROUND: the JAX
+# package's own band between its fused and vmapped GAN updates)
+GAN_BAND = dict(atol=1e-5, rtol=1e-4)
+GAN_FIRST_STEP = 1e-3
+
+
+def fedgdkd_config(num_clients: int = 10, cpr: int = 10):
+    """bench.py build_fedgdkd_sim's configuration: cnn_medium and the
+    conditional generator at GanConfig's defaults (nz 100, ngf 64, adam
+    1e-3, kd_alpha 0.8, 5 KD epochs, T 4, a distillation set of 1024) on
+    fake_mnist, hetero 0.1, batch 32, SGD lr 0.03, 5 epochs, cohort_groups
+    5, float32."""
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        GanConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+
+    return ExperimentConfig(
+        data=DataConfig(dataset="fake_mnist", num_clients=num_clients,
+                        partition_method="hetero", partition_alpha=0.1,
+                        batch_size=32, seed=0),
+        model=ModelConfig(name="cnn_medium", num_classes=10,
+                          input_shape=(28, 28, 1)),
+        train=TrainConfig(lr=0.03, epochs=5, cohort_groups=5),
+        fed=FedConfig(num_rounds=FEDGDKD_ROUNDS, clients_per_round=cpr,
+                      eval_every=10**9),
+        gan=GanConfig(), seed=0)
+
+
+def fedgdkd_sim(cfg, n_train: int, device: str = "cuda", n_test: int = 1000,
+                **hooks):
+    from fedml_tpu_torch.algorithms.gan_family import FedGDKDSim
+    from fedml_tpu_torch.data.loaders import make_fake_image_dataset
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.models.gan import generator_from_config
+
+    data = make_fake_image_dataset("mnist", cfg.data, n_train=n_train,
+                                   n_test=n_test)
+    h, _, c = cfg.model.input_shape
+    gen = generator_from_config(cfg.gan, cfg.model.num_classes, h, c,
+                                device=device)
+    return FedGDKDSim(gen, create_model(cfg.model, device), data, cfg,
+                      device, **hooks)
+
+
+def gan_replays(sim) -> tuple[int, int]:
+    return sim.gan_update.graph.replays, sim.kd_update.graph.replays
+
+
+def gan_report(sim, before=(0, 0)) -> dict:
+    """The last round's groups (clients, steps an epoch), the adversarial
+    and distillation graphs' replays since ``before``; raises unless both
+    phases ran as graph replays."""
+    adv, kd = (now - was for now, was in zip(gan_replays(sim), before))
+    report = {"groups": [{"clients": n, "steps_per_epoch": st}
+                         for n, st in sim.last_groups],
+              "adversarial_replays": adv, "kd_replays": kd,
+              "group_steps_last_round": sim.cfg.train.epochs * sum(
+                  st for _, st in sim.last_groups),
+              "drift_corrected_last_round": sim.last_drift}
+    print(json.dumps({"fedgdkd_cohort": report}), flush=True)
+    if sim.gan_update.graph.graph is None or adv <= 0 or kd <= 0:
+        raise RuntimeError(f"FedGDKD did not run as graph replays: {report}")
+    return report
+
+
+def gan_rounds(sim, state, rounds: int):
+    """``rounds`` rounds, each timed on the host clock ending in a
+    synchronize; returns the state, the losses as floats and the times."""
+    losses, times = [], []
+    for _ in range(rounds):
+        state, m, dt = timed_round(sim, state)
+        losses.append({k: float(v) for k, v in m.items()})
+        times.append(dt)
+    if not all(math.isfinite(v) for row in losses for v in row.values()):
+        raise RuntimeError(f"non-finite FedGDKD loss: {losses}")
+    return state, losses, times
+
+
+def fedgdkd_bench(card: str) -> None:
+    """(a): the --fedgdkd stage, 3 rounds, one more under
+    set_sync_debug_mode("error"), the clients' evaluation and the round
+    rate over FEDGDKD_RATE_ROUNDS more rounds."""
+    cfg = fedgdkd_config()
+    sim = fedgdkd_sim(cfg, 6000)
+    state, losses, times = gan_rounds(sim, sim.init(), FEDGDKD_ROUNDS)
+    cohort = gan_report(sim)
+    before = gan_replays(sim)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = sim.run_round(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    synced = {"losses": {k: float(v) for k, v in m.items()},
+              "cohort": gan_report(sim, before)}
+    kd_steps = sim.cfg.gan.kd_epochs * sim.synth_size // sim.batch_size
+    if (synced["cohort"]["adversarial_replays"]
+            != synced["cohort"]["group_steps_last_round"]
+            or synced["cohort"]["kd_replays"] != kd_steps):
+        raise RuntimeError(f"replays are not one per step: {synced}")
+    ev = sim.evaluate_clients(state)
+    if not all(0.0 <= a <= 1.0 for a in ev["per_client_acc"]):
+        raise RuntimeError(f"client accuracies outside [0, 1]: {ev}")
+    state, _, rate_times = gan_rounds(sim, state, FEDGDKD_RATE_ROUNDS)
+    print(json.dumps({"fedgdkd_10c": {
+        "per_round": losses, "round_seconds": times,
+        "round_under_sync_debug_error": synced, "cohort": cohort,
+        "synth_size": sim.synth_size, "test_acc": ev["test_acc"],
+        "test_loss": ev["test_loss"], "card": card}}), flush=True)
+    record_line(card, metric="fedgdkd_rounds_per_sec_10c_mnist_cnn_medium",
+                value=FEDGDKD_RATE_ROUNDS / sum(rate_times),
+                unit="rounds/s", round_seconds=rate_times,
+                note="smoke figure: host clock around each of 6 rounds "
+                     "after 4, each ending in a synchronize")
+
+
+def fedgdkd_scale(card: str) -> None:
+    """(b): the --fedgdkd-scale stage (50 clients, 25 a round, 30,000
+    samples), 3 rounds: from round 1 the cohort has new joiners, which the
+    drift correction distills; the classifiers of the clients a round did
+    not sample stay bit for bit."""
+    cfg = fedgdkd_config(FEDGDKD_SCALE["num_clients"], FEDGDKD_SCALE["cpr"])
+    sim = fedgdkd_sim(cfg, FEDGDKD_SCALE["n_train"])
+    state = sim.init()
+    rows = []
+    for r in range(FEDGDKD_ROUNDS):
+        before = {k: v.clone() for k, v in state.cls_stack.items()}
+        state, losses, (dt,) = gan_rounds(sim, state, 1)
+        idle = torch.nonzero(~state.prev_sampled).flatten().cuda()
+        moved = [k for k, v in state.cls_stack.items()
+                 if not torch.equal(v[idle], before[k][idle])]
+        if moved:
+            raise RuntimeError(f"round {r} changed unsampled classifiers: "
+                               f"{moved}")
+        rows.append({"round": r, **losses[0], "seconds": dt,
+                     "drift_corrected": sim.last_drift,
+                     "groups": sim.last_groups})
+    drifted = int(sim.counters["fedgdkd.drift_corrected"])
+    print(json.dumps({"fedgdkd_50c_sampled25": {
+        "per_round": rows, "drift_corrected": drifted, "card": card}}),
+        flush=True)
+    if drifted == 0:
+        raise RuntimeError("the sampled cohorts had no new joiner")
+    record_line(card,
+                metric="fedgdkd_rounds_per_sec_50c_sampled25_mnist_cnn_medium",
+                value=2 / (rows[1]["seconds"] + rows[2]["seconds"]),
+                unit="rounds/s",
+                round_seconds=[row["seconds"] for row in rows],
+                note="smoke figure: rounds 1-2 (round 0 captures the "
+                     "graphs; each new drift-correction cohort size "
+                     "captures one), host clock ending in a synchronize")
+
+
+def gan_state_err(x, y) -> tuple[float, float]:
+    """Max |x - y| over the float leaves of two FedGDKD states, and the
+    band's use, max |x - y| / (atol + rtol |y|) (above 1: outside)."""
+    err = use = 0.0
+    for a, b in zip(tree_tensors(x), tree_tensors(y)):
+        if not b.is_floating_point():
+            if not torch.equal(a.cpu(), b.cpu()):
+                raise RuntimeError("card and CPU disagree on an integer leaf")
+            continue
+        d = (a.cpu() - b.cpu()).abs()
+        err = max(err, d.max().item())
+        use = max(use, (d / (GAN_BAND["atol"] + GAN_BAND["rtol"]
+                             * b.cpu().abs())).max().item())
+    return err, use
+
+
+def tree_tensors(state) -> list:
+    from fedml_tpu_torch.core import tree as T
+
+    return [v for v in T.tree_leaves(tuple(state)) if torch.is_tensor(v)]
+
+
+def fedgdkd_card_vs_cpu(device: str = "cuda",
+                        gen_optimizer: str = "adam") -> dict:
+    """(c): two rounds at the CPU parity test's tiny configuration (4
+    clients, 2 a round, cnn_small, nz 16, ngf 8, batch 8, a set of 16,
+    one KD epoch; the generator's optimizer ``gen_optimizer``) on
+    ``device`` and on the CPU, float32 with TF32 off and
+    cuDNN deterministic, from the same variables and the same draws (both
+    made on the CPU). Every leaf of the state must agree within GAN_BAND;
+    where one does not, the first adversarial step must agree within
+    GAN_FIRST_STEP and the rounds within SPREAD_FACTOR times the CPU's own
+    spread under a PERTURB relative change of the starting variables."""
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        GanConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from fedml_tpu_torch.core import random as R
+
+    cfg = ExperimentConfig(
+        data=DataConfig(dataset="fake_mnist", num_clients=4,
+                        partition_method="hetero", partition_alpha=0.3,
+                        batch_size=8, seed=0),
+        model=ModelConfig(name="cnn_small", num_classes=10,
+                          input_shape=(28, 28, 1)),
+        train=TrainConfig(lr=0.05, epochs=1),
+        fed=FedConfig(num_rounds=2, clients_per_round=2),
+        gan=GanConfig(nz=16, ngf=8, distillation_size=16, kd_epochs=1,
+                      gen_optimizer=gen_optimizer),
+        seed=1)
+    cpu_draws = R.DeviceDraws({"gan_z": 1, "gan_labels": 1, "synth": 1},
+                              "cpu", high={"gan_labels": 10})
+
+    def sim_on(dev):
+        return fedgdkd_sim(cfg, 96, dev, n_test=32, draws=lambda *a: {
+            k: v.to(dev) for k, v in cpu_draws(*a).items()})
+
+    deterministic = torch.backends.cudnn.deterministic
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        t0 = time.perf_counter()
+        cpu, card = sim_on("cpu"), sim_on(device)
+        start = cpu.init()
+        want = rounds_of(cpu, start)
+        got = rounds_of(card, moved_state(start, device))
+        errs = [gan_state_err(g, w) for g, w in zip(got, want)]
+        report = {"rounds": [{"max_abs_err": e, "band_use": u}
+                             for e, u in errs], **GAN_BAND,
+                  "drift_corrected": int(card.counters[
+                      "fedgdkd.drift_corrected"])}
+        if max(u for _, u in errs) > 1.0:
+            report.update(gan_spread_check(cpu, card, start, want, got))
+        report["seconds"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = benchmark
+    return report
+
+
+def rounds_of(sim, start, n: int = 2) -> list:
+    """The states after each of ``n`` rounds from ``start``."""
+    state, out = start, []
+    for _ in range(n):
+        state, _ = sim.run_round(state)
+        out.append(state)
+    return out
+
+
+def moved_state(state, device, perturb: float = 0.0):
+    """A FedGDKD state on ``device``, its float tensors scaled by 1 +
+    ``perturb`` x a seeded standard normal draw."""
+    from fedml_tpu_torch.core import tree as T
+
+    gen = torch.Generator().manual_seed(0)
+
+    def one(v):
+        if perturb and v.is_floating_point():
+            v = v * (1 + perturb * torch.randn(v.shape, generator=gen))
+        return v.to(device)
+
+    return state._replace(gen_vars=T.tree_map(one, state.gen_vars),
+                          cls_stack=T.tree_map(one, state.cls_stack),
+                          prev_synth_x=one(state.prev_synth_x),
+                          prev_synth_y=one(state.prev_synth_y),
+                          prev_teacher=one(state.prev_teacher))
+
+
+def first_gan_step(sim, state):
+    """One adversarial step of round 0's cohort from ``state``: the
+    lanes' generators and classifiers, on the CPU."""
+    cohort = torch.as_tensor(sim.sampler(0, sim.arrays.num_clients,
+                                         sim.cfg.fed.clients_per_round))
+    ids = cohort.to(sim.device)
+    a, b = sim.arrays, sim.batch_size
+    orders = torch.stack([torch.stack(list(sim.batch_orders(0, c)))
+                          for c in cohort.tolist()]).long().to(sim.device)
+    shape = (1, sim.steps_per_epoch, b)
+    z = sim.draws("gan_z", 0, cohort.tolist(), {"z": shape + (sim.gen.nz,)})
+    labels = sim.draws("gan_labels", 0, cohort.tolist(), {"labels": shape})
+    g, d, _, _ = sim.gan_update(
+        state.gen_vars, {k: v.index_select(0, ids)
+                         for k, v in state.cls_stack.items()},
+        a.idx.index_select(0, ids), a.mask.index_select(0, ids), a.x, a.y,
+        orders[:, :1], z["z"], labels["labels"].long(), 1)
+    return {k: v.cpu() for k, v in {**g, **d}.items()}
+
+
+def gan_spread_check(cpu, card, start, want, got) -> dict:
+    """The fallback of (c): the first adversarial step of round 0's cohort
+    within GAN_FIRST_STEP, then the rounds' card-vs-CPU error within
+    SPREAD_FACTOR times the CPU's against itself from perturbed starting
+    variables."""
+    steps = [first_gan_step(cpu, start),
+             first_gan_step(card, moved_state(start, card.device))]
+    first = max((steps[1][k] - v).abs().max().item()
+                for k, v in steps[0].items())
+    perturbed = rounds_of(cpu, moved_state(start, "cpu", PERTURB))
+    row = {"first_step_max_abs_err": first,
+           "card_vs_cpu": max(gan_state_err(g, w)[0]
+                              for g, w in zip(got, want)),
+           "cpu_spread": max(gan_state_err(p, w)[0]
+                             for p, w in zip(perturbed, want)),
+           "spread_factor": SPREAD_FACTOR}
+    if (first > GAN_FIRST_STEP
+            or row["card_vs_cpu"] > SPREAD_FACTOR * row["cpu_spread"]):
+        raise RuntimeError(f"FedGDKD card vs CPU outside the band and the "
+                           f"spread: {row}")
+    return row
+
+
+def fedgdkd_phase(card: str) -> int:
+    """Phase 13: (a)-(d). Returns the flash kernels' launches over it
+    (0: FedGDKD has no attention)."""
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+
+    t0 = time.perf_counter()
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    fedgdkd_bench(card)
+    free_card()
+    fedgdkd_scale(card)
+    free_card()
+    parity = fedgdkd_card_vs_cpu()
+    print(json.dumps({"fedgdkd_card_vs_cpu": parity}), flush=True)
+    launches = flash_attention.launches + flash_attention.mma_launches
+    if launches != 0:
+        raise RuntimeError(f"phase 13 launched flash attention {launches} "
+                           "times")
+    record_line(card, metric="phase13_s", value=time.perf_counter() - t0)
+    return launches
+
+
 def kernel_entry(name, source, launches, by_path, rows, row,
                  note=None) -> dict:
     """One entry of the "kernels" line: the timed ``row``'s numbers, the
@@ -2623,6 +2983,9 @@ def main() -> int:
     # 12. federated LoRA fine-tuning: its evaluations run the float32
     # kernel at head dim 16
     peft_launches = peft_phase(card)
+    free_card()
+    # 13. FedGDKD (no hand kernel)
+    paths["fedgdkd"] = fedgdkd_phase(card)
 
     # report: the float32 entry's times are at the transformer path's
     # shape, the D = 16 entry's at the LoRA path's, the tensor-core entry's

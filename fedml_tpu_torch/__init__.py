@@ -14,6 +14,7 @@ from fedml_tpu_torch.config import (
     DataConfig,
     ExperimentConfig,
     FedConfig,
+    GanConfig,
     ModelConfig,
     TrainConfig,
 )
@@ -22,6 +23,7 @@ __all__ = [
     "DataConfig",
     "ExperimentConfig",
     "FedConfig",
+    "GanConfig",
     "ModelConfig",
     "TrainConfig",
 ]

@@ -377,6 +377,20 @@ def build_local_update(model: FedModel, task: Task, cfg: TrainConfig,
     return local_update
 
 
+def lane_batches(idx_rows, mask_rows, orders, epochs: int, steps: int,
+                 batch_size: int) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """The batches of ``steps`` steps an epoch for ``epochs`` epochs of G
+    lanes, epoch-major: each ``(b_idx [G, B] int64 rows of x/y, w_b [G, B]
+    loss weights)``, lane ``g``'s epoch ``e`` taking its samples in the
+    order ``orders[g, e]``."""
+    lanes, b = idx_rows.shape[0], batch_size
+    flat = orders[:, :epochs].reshape(lanes, -1)
+    b_all = torch.gather(idx_rows, 1, flat).long().view(lanes, epochs, -1)
+    w_all = torch.gather(mask_rows, 1, flat).view(lanes, epochs, -1)
+    return [(b_all[:, e, s * b:(s + 1) * b], w_all[:, e, s * b:(s + 1) * b])
+            for e in range(epochs) for s in range(steps)]
+
+
 class CohortUpdate:
     """``cohort_update(global_vars, idx_rows, mask_rows, x, y, orders,
     steps, starts=None) -> (stacked variables, n_k, metric sums)``: the
@@ -435,14 +449,9 @@ class CohortUpdate:
 
     def __call__(self, global_vars, idx_rows, mask_rows, x, y, orders,
                  steps: int, starts: Params | None = None):
-        lanes, b = idx_rows.shape[0], self.batch_size
-        flat = orders[:, :self.epochs].reshape(lanes, -1)
-        b_all = torch.gather(idx_rows, 1, flat).long().view(
-            lanes, self.epochs, -1)
-        w_all = torch.gather(mask_rows, 1, flat).view(lanes, self.epochs, -1)
-        batches = [(b_all[:, e, s * b:(s + 1) * b],
-                    w_all[:, e, s * b:(s + 1) * b])
-                   for e in range(self.epochs) for s in range(steps)]
+        lanes = idx_rows.shape[0]
+        batches = lane_batches(idx_rows, mask_rows, orders, self.epochs,
+                               steps, self.batch_size)
         global_params = {k: v for k, v in global_vars.items()
                          if k not in self.stat_names}
         carry = self.init_carry(global_vars, lanes, starts)

@@ -1,5 +1,10 @@
-"""Size-sorted sub-groups of a cohort: the part of the JAX package's
-``fedml_tpu.algorithms.stack_utils`` that FedAvg's round runs.
+"""Per-client model stacks and size-sorted sub-groups of a cohort
+(``fedml_tpu.algorithms.stack_utils``).
+
+A stack is a flat dict of tensors with a leading ``[num_clients]`` axis:
+the per-client stateful models of FedGDKD. A cohort's rows are gathered
+from it, trained, and scattered back; evaluation averages every client's
+model on the global test set.
 
 A cohort runs as lanes, tensors with a leading client axis. Sorted by
 sample count, clients of like size share a group, so each group runs only
@@ -15,8 +20,44 @@ from typing import Callable
 import numpy as np
 import torch
 
+from fedml_tpu_torch.core import random as R
 from fedml_tpu_torch.core import tree as T
 from fedml_tpu_torch.core.device import to_device
+
+Stack = dict[str, torch.Tensor]
+
+
+def stack_gather(stack: Stack, ids: torch.Tensor) -> Stack:
+    """Rows ``ids`` (a device index tensor) of every leaf."""
+    return {k: v.index_select(0, ids) for k, v in stack.items()}
+
+
+def stack_scatter(stack: Stack, ids: torch.Tensor, new: Stack) -> Stack:
+    """A copy of ``stack`` with rows ``ids`` replaced by ``new``'s; every
+    other row is the old one, bit for bit."""
+    return {k: v.index_copy(0, ids, new[k]) for k, v in stack.items()}
+
+
+def vmap_init(init_fn: Callable[[torch.Generator], Stack], n: int,
+              *seed: int) -> Stack:
+    """Independent inits of ``n`` clients, stacked: client ``i`` from a
+    generator seeded by ``(*seed, i)``."""
+    inits = [init_fn(R.generator(*seed, i)) for i in range(n)]
+    return {k: torch.stack([v[k] for v in inits]) for k in inits[0]}
+
+
+def evaluate_stack(evaluator: Callable, stack: Stack, test_x, test_y,
+                   n: int) -> dict:
+    """Every client's model on the global test set, averaged over the
+    ``n`` clients (not the cohort): ``test_acc``, ``test_loss`` and
+    ``per_client_acc``. One read back from the device."""
+    ms = [evaluator({k: v[i] for k, v in stack.items()}, test_x, test_y)
+          for i in range(n)]
+    accs, losses = torch.stack([torch.stack([m["acc"] for m in ms]),
+                                torch.stack([m["loss"] for m in ms])]
+                               ).tolist()
+    return {"test_acc": sum(accs) / n, "test_loss": sum(losses) / n,
+            "per_client_acc": accs}
 
 
 def resolve_cohort_groups(requested: int, cohort: int,

@@ -124,6 +124,32 @@ class FedConfig:
     peft_personalize: bool = False
 
 
+@dataclasses.dataclass(frozen=True)
+class GanConfig:
+    """GAN and knowledge-distillation settings of the fork's GAN family
+    (the JAX package's ``GanConfig``, every field, so a ``gan`` section
+    round-trips). FedGDKD reads ``nz``, ``ngf``, ``gen_optimizer``,
+    ``gen_lr``, ``kd_alpha``, ``kd_epochs``, ``kd_temperature`` and
+    ``distillation_size``; the rest belong to algorithms not ported yet."""
+
+    nz: int = 100  # latent vector size
+    ngf: int = 64  # generator feature multiplier
+    gen_optimizer: str = "adam"  # "adam" | "sgd"
+    gen_lr: float = 1e-3
+    kd_alpha: float = 0.8  # weight of the KD term against the CE
+    kd_epochs: int = 5
+    kd_temperature: float = 4.0  # SoftTarget's T
+    distillation_size: int = 1024
+    pseudo_label_threshold: float = 0.9
+    public_size: int = 1024
+    digest_epochs: int = 1
+    revisit_epochs: int = 1
+    pretrain_epochs_public: int = 1
+    pretrain_epochs_private: int = 1
+    kd_lambda: float = 1.0
+    kd_gamma: float = 0.1
+
+
 ADVERSARY_MODES = ("sign_flip", "scale_boost", "gauss", "zero", "constant",
                    "collude")
 
@@ -193,6 +219,7 @@ class ExperimentConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     fed: FedConfig = dataclasses.field(default_factory=FedConfig)
+    gan: GanConfig = dataclasses.field(default_factory=GanConfig)
     adversary: AdversaryPolicy = dataclasses.field(
         default_factory=AdversaryPolicy
     )
@@ -240,6 +267,7 @@ class ExperimentConfig:
             model=build(ModelConfig, d.get("model")),
             train=build(TrainConfig, d.get("train")),
             fed=build(FedConfig, d.get("fed")),
+            gan=build(GanConfig, d.get("gan")),
             adversary=build(AdversaryPolicy, d.get("adversary")),
             seed=d.get("seed", 0),
             run_name=d.get("run_name", "run"),

@@ -80,6 +80,8 @@ _VISION_TOP = {
     "ResNet18GN": _RESNET_TOP,
     "MobileNet": {"Conv2D_0": "conv", "BatchNorm_0": "bn",
                   "Dense_0": "head"},
+    # fc<i> and head are named alike on both sides
+    "CNNParameterised": {f"Conv2D_{k}": f"convs.{k}" for k in range(8)},
 }
 # inside a block (BasicBlock_k or DepthwiseSeparable_k, numbered across
 # the whole model as blocks.k; in the exact s2d ResNet _S2DBasicBlock_k,
@@ -102,13 +104,23 @@ _VISION_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
                 "mean": "running_mean", "var": "running_var"}
 
 
-def vision_state_dict(variables: Mapping[str, Any], arch: str
-                      ) -> dict[str, torch.Tensor]:
+def _kernel(arr: np.ndarray, lead: int) -> np.ndarray:
+    """A flax kernel after ``lead`` leading axes of rows: a conv's HWIO
+    to OIHW, a dense ``[in, out]`` to ``[out, in]``."""
+    if arr.ndim - lead == 4:
+        return np.moveaxis(arr, (-1, -2), (-4, -3))
+    return np.swapaxes(arr, -1, -2)
+
+
+def vision_state_dict(variables: Mapping[str, Any], arch: str,
+                      lead: int = 0) -> dict[str, torch.Tensor]:
     """Flax variables (``{"params": ..., "batch_stats": ...}``) of a vision
     model to the port's variables; ``arch`` is the port's class name
-    (``LogisticRegression``, ``CNNOriginalFedAvg``, ``ResNetCIFAR`` with
-    or without ``space_to_depth``, ``ResNetCIFARS2DExact``,
-    ``ResNet18GN`` or ``MobileNet``). ``BasicBlock_k`` (numbered across
+    (``LogisticRegression``, ``CNNOriginalFedAvg``, ``CNNParameterised``,
+    ``ResNetCIFAR`` with or without ``space_to_depth``,
+    ``ResNetCIFARS2DExact``, ``ResNet18GN`` or ``MobileNet``). Every leaf
+    may carry ``lead`` leading axes of rows (a stacked ``[N, ...]`` bank of
+    classifiers), which stay in front. ``BasicBlock_k`` (numbered across
     all stages) and ``DepthwiseSeparable_k`` become ``blocks.k``; in the
     exact s2d ResNet, with ``n`` blocks a stage, ``_S2DBasicBlock_k``
     becomes ``blocks.k``, ``_TransitionBlock_0`` ``blocks.n`` and
@@ -140,7 +152,7 @@ def vision_state_dict(variables: Mapping[str, Any], arch: str
                 continue
             arr = np.asarray(val)
             if key == "kernel":
-                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+                arr = _kernel(arr, lead)
             name = f"{module_name(path)}.{_VISION_LEAF[key]}"
             out[name] = torch.tensor(arr)  # a copy, on the CPU
 
@@ -186,4 +198,48 @@ def nlp_state_dict(variables: Mapping[str, Any], arch: str
             arr = np.asarray(val)
             out[f"{name}.{_LEAF[key]}"] = torch.tensor(
                 arr.T if key == "kernel" else arr)
+    return out
+
+
+def generator_state_dict(variables: Mapping[str, Any], lead: int = 0
+                         ) -> dict[str, torch.Tensor]:
+    """Flax variables of ``fedml_tpu.models.gan``'s conditional or
+    unconditional generator to the port's (``models/gan.py``):
+    ``label_emb/embedding`` -> ``label_emb.weight``; ``pyramid/l1`` ->
+    ``pyramid.l1`` (kernel transposed); ``ConvTranspose2D_k/kernel``
+    ``[kh, kw, in, out]`` -> ``pyramid.deconvs.k.weight`` ``[in, out, kh,
+    kw]``, flipped in both spatial dims (a flax transposed conv
+    correlates with its kernel unflipped, ``F.conv_transpose2d`` with it
+    flipped); ``BatchNorm_k`` scale, bias, mean and var -> ``pyramid.bns.k``
+    weight, bias, running_mean and running_var. Every leaf may carry
+    ``lead`` leading axes of rows (lanes of a cohort), kept in front."""
+    out = {}
+
+    def walk(tree, path):
+        for key, val in tree.items():
+            if isinstance(val, Mapping):
+                walk(val, path + (key,))
+                continue
+            arr = np.asarray(val)
+            scope = path[-1]
+            kind, _, k = scope.rpartition("_")
+            if scope == "label_emb":
+                name = "label_emb.weight"
+            elif scope == "l1":
+                name = f"pyramid.l1.{_LEAF[key]}"
+                if key == "kernel":
+                    arr = np.swapaxes(arr, -1, -2)
+            elif kind == "ConvTranspose2D":
+                name = f"pyramid.deconvs.{k}.{_LEAF[key]}"
+                if key == "kernel":
+                    arr = np.flip(np.moveaxis(arr, (-2, -1), (-4, -3)),
+                                  (-2, -1))
+            elif kind == "BatchNorm":
+                name = f"pyramid.bns.{k}.{_VISION_LEAF[key]}"
+            else:
+                raise KeyError(f"unknown generator scope {'/'.join(path)}")
+            out[name] = torch.tensor(np.ascontiguousarray(arr))
+
+    for collection in ("params", "batch_stats"):
+        walk(variables.get(collection, {}), ())
     return out

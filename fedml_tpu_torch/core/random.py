@@ -1,7 +1,8 @@
-"""Seeded draws: client sampling, per-epoch batch orders, and the draws of
+"""Seeded draws: client sampling, per-epoch batch orders, the draws of
 the defended round (the aggregate's noise, the quantizer's stochastic
 rounding, the adversaries' gaussians, the streamed defenses' random
-projection).
+projection) and FedGDKD's (the adversarial steps' noise and fake labels,
+the distillation set's noise).
 
 Every draw comes from a ``torch.Generator`` seeded by a seed and the
 draw's coordinates (round, client, slot, ...), so each is a function of
@@ -31,6 +32,12 @@ STREAMS = {
     "gauss": (0x41D5, "normal"),  # gauss adversaries, per client id
     "collude": (0x41D6, "normal"),  # collude's shared delta, slot 0
     "proj": (0x534B5348, "normal"),  # streamed defenses' projection, slot 0
+    # FedGDKD: each client's adversarial steps ([epochs, steps, B, nz]
+    # noise and [epochs, steps, B] labels in [0, classes)), per client id;
+    # the distillation set's noise ([batches, B, nz]), slot 0
+    "gan_z": (0x47414E5A, "normal"),
+    "gan_labels": (0x47414E4C, "randint"),
+    "synth": (0x5EED, "normal"),
 }
 
 # (stream, round, slots, {name: shape}) -> {name: [len(slots), *shape]}
@@ -52,13 +59,16 @@ def generator(seed: int, *coords: int,
 class DeviceDraws:
     """The default :data:`Draws`: for each slot, one generator on
     ``device`` seeded by ``(seeds[stream], salt, round, slot)`` fills one
-    row of a ``[len(slots), total]`` float32 buffer (standard normal or
-    uniform on [0, 1), by stream), and each leaf is a view of its
+    row of a ``[len(slots), total]`` float32 buffer (standard normal,
+    uniform on [0, 1), or for a "randint" stream whole numbers uniform on
+    ``[0, high[stream])``, by stream), and each leaf is a view of its
     columns. One kernel per slot, whatever the number of leaves."""
 
-    def __init__(self, seeds: Mapping[str, int], device: torch.device):
+    def __init__(self, seeds: Mapping[str, int], device: torch.device,
+                 high: Mapping[str, int] | None = None):
         self.seeds = dict(seeds)
         self.device = torch.device(device)
+        self.high = dict(high or {})
 
     def __call__(self, stream: str, round_idx: int, slots: Sequence[int],
                  shapes: Mapping[str, tuple]) -> dict[str, torch.Tensor]:
@@ -70,6 +80,8 @@ class DeviceDraws:
                             device=self.device)
             if kind == "normal":
                 row.normal_(generator=gen)
+            elif kind == "randint":
+                row.random_(0, self.high[stream], generator=gen)
             else:
                 row.uniform_(generator=gen)
         out, off = {}, 0

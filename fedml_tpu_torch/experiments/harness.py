@@ -1,6 +1,6 @@
 """The experiment harness: the algorithm registry and the seeded
 repetition runner, with round checkpoints and resume
-(``fedml_tpu.experiments.harness``, its FedAvg family).
+(``fedml_tpu.experiments.harness``, its FedAvg family and FedGDKD).
 
 :class:`Experiment` runs N repetitions of a config, repetition ``k`` with
 ``seed + k`` and ``data.seed + k`` under the run name
@@ -11,6 +11,10 @@ A run that finds a checkpoint there resumes after it: it logs
 ``{"resumed_from": r}`` and stamps every row it logs ``"resumed":
 true``, so when a round appears twice in ``metrics.jsonl`` (rounds run
 again after the last checkpoint) the stamped row is the one to keep.
+FedGDKD's state (its generator, the classifier bank, the last
+distillation set, its teacher and the last cohort) checkpoints the same
+way; it has no fused blocks, so ``fuse_rounds > 1`` warns and the rounds
+run one by one, as in the JAX package.
 
 The JAX package's perf monitor, profiler captures, anatomy, tracer spans
 and ``/statusz`` run state wait for the port's observability planes
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 
 import torch
 
@@ -29,11 +34,13 @@ from fedml_tpu_torch.algorithms.fedavg import (
     ServerState,
     consume_round_counters,
 )
+from fedml_tpu_torch.algorithms.gan_family import FedGDKDSim
 from fedml_tpu_torch.config import ExperimentConfig
 from fedml_tpu_torch.core import fuse as FU
 from fedml_tpu_torch.data import load_dataset
 from fedml_tpu_torch.metrics import MetricsSink
 from fedml_tpu_torch.models import create_model
+from fedml_tpu_torch.models.gan import generator_from_config
 from fedml_tpu_torch.utils.checkpoint import RoundCheckpointer, from_savable
 
 # the registry's FedAvg family: --algorithm -> the FedConfig.algorithm
@@ -45,10 +52,28 @@ ALGORITHMS = {"fedavg": "fedavg", "fedopt": "fedopt", "fedprox": "fedavg",
               "fedavg_multiclient": "fedavg"}
 
 
-def build_sim(cfg: ExperimentConfig,
-              device: str | torch.device = "cuda") -> FedAvgSim:
+# the GAN family: FedGDKD is ported; the others share its core and come
+# next, in this order
+GAN_NEXT = ("fedgan", "feddtg", "fedssgan", "feduagan")
+
+
+def build_sim(cfg: ExperimentConfig, device: str | torch.device = "cuda"
+              ) -> FedAvgSim | FedGDKDSim:
     """The simulation of ``cfg.fed.algorithm`` on ``device``."""
     algo = cfg.fed.algorithm
+    if algo == "fedgdkd":
+        # the conditional generator at the data's image size, its nz and
+        # ngf from cfg.gan
+        shape = tuple(cfg.model.input_shape)
+        gen = generator_from_config(cfg.gan, cfg.model.num_classes,
+                                    shape[0], shape[-1], device=device)
+        return FedGDKDSim(gen, create_model(cfg.model, device),
+                          load_dataset(cfg.data), cfg, device)
+    if algo in GAN_NEXT:
+        raise NotImplementedError(
+            f"algorithm={algo!r} is not ported to fedml_tpu_torch yet "
+            "(ROADMAP: Queue A item 13a, the GAN family after FedGDKD: "
+            "fedgan, feddtg, then fedssgan and feduagan)")
     if algo not in ALGORITHMS:
         raise NotImplementedError(
             f"algorithm={algo!r} is not ported to fedml_tpu_torch yet "
@@ -92,12 +117,19 @@ class Experiment:
         return summaries
 
     @staticmethod
-    def _run_sim(sim: FedAvgSim, cfg: ExperimentConfig,
-                 sink: MetricsSink) -> None:
-        """Without checkpoints the sim's own :meth:`FedAvgSim.run`; with
+    def _run_sim(sim, cfg: ExperimentConfig, sink: MetricsSink) -> None:
+        """Without checkpoints the sim's own ``run``; with
         ``checkpoint_every > 0`` the harness's loop, which restores the
         latest checkpoint of ``<run dir>/ckpt`` and saves one every
-        ``checkpoint_every`` rounds and after the last."""
+        ``checkpoint_every`` rounds and after the last. A sim without
+        ``run_block`` (FedGDKD) runs its rounds one by one under
+        ``fuse_rounds > 1``, with a warning."""
+        fused = cfg.fed.fuse_rounds > 1 and hasattr(sim, "run_block")
+        if cfg.fed.fuse_rounds > 1 and not fused:
+            warnings.warn(
+                f"fuse_rounds={cfg.fed.fuse_rounds} ignored: "
+                f"{type(sim).__name__} has no fused blocks (run_block); "
+                "running per round", stacklevel=2)
         if cfg.checkpoint_every <= 0:
             sim.run(metrics_sink=sink)
             return
@@ -108,7 +140,7 @@ class Experiment:
                                                            sim.init())
             if start_round:
                 sink.log({"resumed_from": start_round})
-            if cfg.fed.fuse_rounds > 1:
+            if fused:
                 Experiment._fused_loop(sim, cfg, sink, state, start_round,
                                        ckpt)
             else:
@@ -183,21 +215,21 @@ class Experiment:
             programs=sim.cohort_update.programs)
 
     @staticmethod
-    def _save_state(ckpt: RoundCheckpointer, sim: FedAvgSim, r: int,
-                    state: ServerState) -> None:
+    def _save_state(ckpt: RoundCheckpointer, sim, r: int, state) -> None:
         """Checkpoint round ``r``: with client-state banks (a personalized
         run's adapters, the bulk engine's error-feedback residual) the
         ``{"server": state, "bank": {name: rows}}`` composite, so every
         client's row restores bit for bit; without them the bare state.
         The stacked round's ``[C, ...]`` residual
         (``FedAvgSim.ef_residual``) is not saved, as in the JAX package: a
-        resumed stacked compressed run starts it from zero."""
-        banks = sim.bank_state()
+        resumed stacked compressed run starts it from zero. A sim without
+        banks (FedGDKD) saves its bare state."""
+        banks = sim.bank_state() if hasattr(sim, "bank_state") else {}
         ckpt.save(r, {"server": state, "bank": banks} if banks else state)
 
     @staticmethod
-    def _restore_state(ckpt: RoundCheckpointer, sim: FedAvgSim,
-                       state: ServerState) -> tuple[ServerState, int]:
+    def _restore_state(ckpt: RoundCheckpointer, sim, state
+                       ) -> tuple[ServerState, int]:
         """The restore half of :meth:`_save_state`: ``(state, next
         round)``. A composite's banks go to :meth:`FedAvgSim.
         restore_banks`; a bare checkpoint (or a composite without this
@@ -210,13 +242,18 @@ class Experiment:
         if "server" in raw:
             raw, bank = raw["server"], raw.get("bank")
         restored = from_savable(state, raw)
-        sim.restore_banks(restored, bank)
+        if hasattr(sim, "restore_banks"):
+            sim.restore_banks(restored, bank)
         return restored, nxt
 
     @staticmethod
-    def _eval_record(sim: FedAvgSim, state: ServerState) -> dict:
-        """The global evaluation, ``acc`` and ``loss`` under the
-        summary's names ``test_acc`` and ``test_loss``."""
+    def _eval_record(sim, state) -> dict:
+        """The evaluation: the global model's (``evaluate_global``), or
+        the mean over the clients' own models (FedGDKD's
+        ``evaluate_clients``), its scalars with ``acc`` and ``loss`` under
+        the summary's names ``test_acc`` and ``test_loss``."""
+        evaluate = getattr(sim, "evaluate_global", None) or \
+            sim.evaluate_clients
         rename = {"acc": "test_acc", "loss": "test_loss"}
-        return {rename.get(k, k): v
-                for k, v in sim.evaluate_global(state).items()}
+        return {rename.get(k, k): v for k, v in evaluate(state).items()
+                if isinstance(v, (int, float))}

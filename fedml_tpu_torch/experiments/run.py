@@ -1,8 +1,10 @@
 """CLI entry: ``python -m fedml_tpu_torch.experiments.run ...``.
 
 The FedAvg family of ``fedml_tpu.experiments.run`` (``--algorithm``
-fedavg, fedopt, fedprox, fednova, fedavg_robust, fedavg_multiclient),
-with its flag names: the defenses
+fedavg, fedopt, fedprox, fednova, fedavg_robust, fedavg_multiclient) and
+FedGDKD (``--algorithm fedgdkd``: its GAN settings, the ``gan`` section
+of the ``--config`` JSON, as the JAX CLI has no GAN flags), with its flag
+names: the defenses
 (``--defense`` or ``--robust_method``, ``--defense_*``,
 ``--robust_norm_clip``, ``--robust_noise_stddev``), the wire codec
 (``--compress``, ``--compress_topk_frac``), the seeded adversaries

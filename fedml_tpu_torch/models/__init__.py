@@ -8,7 +8,10 @@ parameterization; the extra ``norm`` "bn" or "gn" overrides the suffix),
 in space-to-depth layout, ``models/s2d_exact.py``), ``resnet18_gn``,
 ``mobilenet`` (extra ``width_mult``), ``rnn``/``char_lstm`` and
 ``rnn_stackoverflow``/``nwp_lstm`` (extra ``vocab_size``) and
-``transformer_lm``. The norm ``syncbn:<axis>`` raises
+``transformer_lm``, and the parameterised CNNs ``cnn_small``,
+``cnn_medium``, ``cnn_large`` and ``cnn_custom`` (extra ``convs``,
+``denses``; an extra ``dropout`` above 0 raises ``NotImplementedError``).
+The norm ``syncbn:<axis>`` raises
 ``NotImplementedError`` naming its ROADMAP item; other names raise
 ``ValueError``.
 """
@@ -25,13 +28,15 @@ from fedml_tpu_torch.models.s2d_exact import ResNetCIFARS2DExact
 from fedml_tpu_torch.models.transformer import TransformerLM
 from fedml_tpu_torch.models.vision import (
     CNNOriginalFedAvg,
+    CNNParameterised,
     LogisticRegression,
     MobileNet,
     ResNet18GN,
     ResNetCIFAR,
 )
 
-PORTED = ("lr", "cnn_fedavg", "resnet<depth>[_gn][_s2d]",
+PORTED = ("lr", "cnn_fedavg", "cnn_small", "cnn_medium", "cnn_large",
+          "cnn_custom", "resnet<depth>[_gn][_s2d]",
           "resnet<depth>_s2d_exact",
           "resnet18_gn", "mobilenet", "rnn", "char_lstm",
           "rnn_stackoverflow", "nwp_lstm", "transformer_lm")
@@ -65,6 +70,25 @@ def _resnet(name: str, cfg: ModelConfig):
     return ResNetCIFAR(depth, cfg.num_classes,
                        in_channels=cfg.input_shape[-1], norm=norm,
                        space_to_depth=s2d)
+
+
+# the fork's client CNNs: (conv widths, dense widths)
+CNN_PLANS = {
+    "cnn_small": ((16, 32), (64,)),
+    "cnn_medium": ((32, 64), (128,)),
+    "cnn_large": ((64, 128, 256), (256,)),
+}
+
+
+def _cnn(name: str, cfg: ModelConfig):
+    extra = cfg.extra_dict()
+    if name == "cnn_custom":
+        convs = tuple(extra.get("convs", (16, 32)))
+        denses = tuple(extra.get("denses", (128,)))
+    else:
+        convs, denses = CNN_PLANS[name]
+    return CNNParameterised(cfg.num_classes, convs, denses,
+                            tuple(cfg.input_shape), extra.get("dropout", 0.0))
 
 
 _TOKEN_MODELS = ("transformer", "transformer_lm", "rnn", "char_lstm",
@@ -101,6 +125,8 @@ def create_model(cfg: ModelConfig, device: str | torch.device = "cuda"
                                                        shape))
     elif name == "cnn_fedavg":
         module = weightless(lambda: CNNOriginalFedAvg(cfg.num_classes, shape))
+    elif name in CNN_PLANS or name == "cnn_custom":
+        module = weightless(lambda: _cnn(name, cfg))
     elif name.startswith("resnet"):
         module = weightless(lambda: _resnet(name, cfg))
     elif name == "mobilenet":
@@ -114,6 +140,6 @@ def create_model(cfg: ModelConfig, device: str | torch.device = "cuda"
     return FedModel(module, shape, dev)
 
 
-__all__ = ["CNNOriginalFedAvg", "CharLSTM", "FedModel", "LogisticRegression",
+__all__ = ["CNNOriginalFedAvg", "CNNParameterised", "CharLSTM", "FedModel", "LogisticRegression",
            "MobileNet", "NWPLSTM", "ResNet18GN", "ResNetCIFAR",
            "ResNetCIFARS2DExact", "TransformerLM", "create_model"]

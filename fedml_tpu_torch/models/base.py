@@ -37,20 +37,25 @@ def weightless(build: Callable[[], nn.Module]) -> nn.Module:
         return build().to("meta")
 
 
-BN_MOMENTUM = 0.9  # flax's convention: the weight of the old running value
+# flax's convention: the weight of the old running value. The vision
+# models set 0.9; the generator's BatchNorm keeps flax's default, 0.99
+BN_MOMENTUM = 0.9
+FLAX_BN_MOMENTUM = 0.99
 BN_EPS = 1e-5
 
 
 def batch_norm_update(mean: torch.Tensor, var: torch.Tensor,
-                      batch_mean: torch.Tensor, batch_var: torch.Tensor):
+                      batch_mean: torch.Tensor, batch_var: torch.Tensor,
+                      momentum: float = BN_MOMENTUM):
     """The running statistics after a batch, flax's way:
-    ``BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch``."""
-    return (BN_MOMENTUM * mean + (1 - BN_MOMENTUM) * batch_mean.detach(),
-            BN_MOMENTUM * var + (1 - BN_MOMENTUM) * batch_var.detach())
+    ``momentum * running + (1 - momentum) * batch``."""
+    return (momentum * mean + (1 - momentum) * batch_mean.detach(),
+            momentum * var + (1 - momentum) * batch_var.detach())
 
 
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               mean: torch.Tensor, var: torch.Tensor, train: bool):
+               mean: torch.Tensor, var: torch.Tensor, train: bool,
+               momentum: float = BN_MOMENTUM):
     """Flax ``nn.BatchNorm`` over the channel dim 1 of ``x``; returns
     ``(y, new_mean, new_var)``.
 
@@ -58,7 +63,7 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     float32 whatever ``x``'s type (float64 stays float64), the variance in
     the fast form E[x^2] - E[x]^2 clipped at 0 (biased), and the running
     values move as
-    ``BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch`` with that biased
+    ``momentum * running + (1 - momentum) * batch`` with that biased
     variance (torch's BatchNorm would use the unbiased one, and its
     momentum is 1 - this one). In eval mode ``mean``/``var`` normalize and
     come back unchanged. The normalization (epsilon ``BN_EPS``) runs in
@@ -70,7 +75,8 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         use_mean = xf.mean(dims)
         use_var = torch.clamp(torch.mean(xf * xf, dims) - use_mean * use_mean,
                               min=0.0)
-        new_mean, new_var = batch_norm_update(mean, var, use_mean, use_var)
+        new_mean, new_var = batch_norm_update(mean, var, use_mean, use_var,
+                                              momentum)
     else:
         use_mean, use_var, new_mean, new_var = mean, var, mean, var
     mul = torch.rsqrt(use_var + BN_EPS) * wide(scale)
@@ -83,10 +89,12 @@ class BatchNorm(nn.Module):
     and ``bias``) and its running statistics as buffers (``running_mean``
     and ``running_var``). Not ``nn.BatchNorm2d``: see :func:`batch_norm`.
     A train-mode call puts its new statistics into ``stats_out`` under the
-    module and leaves the buffers as they are."""
+    module and leaves the buffers as they are. ``momentum`` is flax's
+    (the weight of the old running value)."""
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, momentum: float = BN_MOMENTUM):
         super().__init__()
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -95,7 +103,8 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 stats_out: dict | None = None) -> torch.Tensor:
         y, mean, var = batch_norm(x, self.weight, self.bias,
-                                  self.running_mean, self.running_var, train)
+                                  self.running_mean, self.running_var, train,
+                                  self.momentum)
         if train:
             stats_out[self] = (mean, var)
         return y
@@ -179,7 +188,8 @@ ADAPTER_LEAVES = ("lora_a", "lora_b")
 def _init_tensor(mod: nn.Module, leaf: str, shape, gen: torch.Generator):
     """Flax's default initializers: Dense and Conv kernels and an LSTM's
     input kernels lecun-normal (fan_in = in features, or kh * kw * in
-    channels per group for a conv), an LSTM's recurrent kernels orthogonal,
+    channels per group for a conv; a transposed conv's ``[in, out, kh,
+    kw]`` weight takes kh * kw * in), an LSTM's recurrent kernels orthogonal,
     embeddings normal with std 1/sqrt(features), LayerNorm, BatchNorm and
     GroupNorm scale ones, every bias zeros, BatchNorm running mean zeros
     and variance ones; a LoRA ``lora_a`` ``[rank, in]`` lecun-normal
@@ -196,6 +206,8 @@ def _init_tensor(mod: nn.Module, leaf: str, shape, gen: torch.Generator):
                                           generator=gen)
     if leaf == "weight_hh":
         return _orthogonal_blocks(shape, gen)
+    if isinstance(mod, nn.ConvTranspose2d):
+        return _lecun_normal(shape, shape[0] * math.prod(shape[2:]), gen)
     if isinstance(mod, (nn.Linear, nn.Conv2d)) or leaf == "weight_ih":
         return _lecun_normal(shape, math.prod(shape[1:]), gen)
     raise TypeError(f"no initializer for {type(mod).__name__}.{leaf}")
@@ -241,14 +253,15 @@ class FedModel:
                     drawn[name] = _init_tensor(mod, leaf, shape, generator)
         return {k: drawn[k].to(self.device) for k in leaves}
 
-    def apply_train(self, variables: Params, x: torch.Tensor):
-        """Forward in train mode; returns (logits, variables with the new
+    def apply_train(self, variables: Params, *inputs: torch.Tensor):
+        """Forward of ``inputs`` (the model's input, or a generator's noise
+        and labels) in train mode; returns (output, variables with the new
         batch statistics). A model without statistics gets its variables
         back unchanged."""
         if not self.stat_names:
-            return functional_call(self.module, variables, (x,)), variables
+            return functional_call(self.module, variables, inputs), variables
         stats = {}
-        logits = functional_call(self.module, variables, (x,),
+        logits = functional_call(self.module, variables, inputs,
                                  {"train": True, "stats_out": stats})
         new = dict(variables)
         for mod, (mean, var) in stats.items():
@@ -257,7 +270,8 @@ class FedModel:
             new[f"{name}.running_var"] = var
         return logits, new
 
-    def apply_eval(self, variables: Params, x: torch.Tensor) -> torch.Tensor:
+    def apply_eval(self, variables: Params, *inputs: torch.Tensor
+                   ) -> torch.Tensor:
         """Forward in eval mode: BatchNorm normalizes with the running
         statistics."""
-        return functional_call(self.module, variables, (x,))
+        return functional_call(self.module, variables, inputs)

@@ -1,6 +1,6 @@
-"""Vision models: logistic regression, the FedAvg-paper CNN, the CIFAR
-ResNets with BatchNorm or GroupNorm, ResNet-18 with GroupNorm and
-MobileNet (V1).
+"""Vision models: logistic regression, the FedAvg-paper CNN, the fork's
+parameterised CNNs, the CIFAR ResNets with BatchNorm or GroupNorm,
+ResNet-18 with GroupNorm and MobileNet (V1).
 
 Same architectures as ``fedml_tpu.models.vision`` at ``cohort=1``, the
 CIFAR ResNets with and without ``space_to_depth``. Inputs are NHWC, as
@@ -121,6 +121,47 @@ class CNNOriginalFedAvg(nn.Module):
         # the dense layers read the reference's (H, W, C) flatten order
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         return self.head(F.relu(self.fc1(x)))
+
+
+class CNNParameterised(nn.Module):
+    """The configurable conv stack of the fork's heterogeneous clients
+    (``cnn_small``, ``cnn_medium``, ``cnn_large``, ``cnn_custom``): per
+    width in ``conv_channels`` a 3x3 SAME conv with bias, ReLU and a VALID
+    2x2 max-pool; the (H, W, C) flatten; per width in ``dense_sizes`` a
+    dense layer ``fc<i>`` with ReLU; the dense ``head``. The convs are
+    ``convs.k``, flax's ``Conv2D_k``."""
+
+    def __init__(self, num_classes: int = 10,
+                 conv_channels: tuple[int, ...] = (32, 64),
+                 dense_sizes: tuple[int, ...] = (128,),
+                 input_shape: tuple[int, ...] = (28, 28, 1),
+                 dropout: float = 0.0):
+        super().__init__()
+        if dropout > 0:
+            raise NotImplementedError(
+                f"CNNParameterised dropout={dropout} is not ported to "
+                "fedml_tpu_torch yet (ROADMAP: Queue A item 13b, dropout "
+                "with a mask-replay hook)")
+        h, w, cin = input_shape
+        self.convs = nn.ModuleList()
+        for ch in conv_channels:
+            self.convs.append(Conv2d(cin, ch, 3))
+            cin, h, w = ch, h // 2, w // 2
+        width = h * w * cin
+        self.n_dense = len(dense_sizes)
+        for i, d in enumerate(dense_sizes):
+            setattr(self, f"fc{i + 1}", nn.Linear(width, d))
+            width = d
+        self.head = nn.Linear(width, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = nchw(x)
+        for conv in self.convs:
+            x = F.max_pool2d(F.relu(conv(x)), 2, 2)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        for i in range(self.n_dense):
+            x = F.relu(getattr(self, f"fc{i + 1}")(x))
+        return self.head(x)
 
 
 class BasicBlock(nn.Module):

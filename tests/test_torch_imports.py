@@ -67,7 +67,9 @@ assert {"fedml_tpu_torch.core.robust", "fedml_tpu_torch.core.adversary",
         "fedml_tpu_torch.models.s2d_exact", "fedml_tpu_torch.peft",
         "fedml_tpu_torch.peft.lora", "fedml_tpu_torch.peft.partition",
         "fedml_tpu_torch.peft.personal",
-        "fedml_tpu_torch.data.natural"} <= set(names), names
+        "fedml_tpu_torch.data.natural", "fedml_tpu_torch.models.gan",
+        "fedml_tpu_torch.algorithms.kd", "fedml_tpu_torch.algorithms.gan_core",
+        "fedml_tpu_torch.algorithms.gan_family"} <= set(names), names
 from fedml_tpu_torch.config import ModelConfig
 from fedml_tpu_torch.models import create_model
 model = create_model(ModelConfig(name="transformer_lm", num_classes=37,
@@ -94,6 +96,15 @@ for name, shape in (("resnet8_gn", (16, 16, 3)), ("char_lstm", (12,)),
     variables = model.init(torch.Generator().manual_seed(0))
     x = torch.zeros((2,) + shape, dtype=model.input_dtype)
     assert model.apply_train(variables, x)[0].shape[-1] in (10, 90)
+from fedml_tpu_torch.config import GanConfig
+from fedml_tpu_torch.models.gan import generator_from_config
+gen = generator_from_config(GanConfig(nz=8, ngf=4), 10, 28, 1, device="cpu")
+gvars = gen.init(torch.Generator().manual_seed(0))
+imgs = gen.apply_eval(gvars, torch.zeros(2, 8), gen.balanced_labels(2))
+model = create_model(ModelConfig(name="cnn_medium", num_classes=10,
+                                 input_shape=(28, 28, 1)), device="cpu")
+variables = model.init(torch.Generator().manual_seed(0))
+assert model.apply_eval(variables, imgs).shape == (2, 10)
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "fedml_tpu")))
@@ -149,3 +160,34 @@ def test_harness_needs_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
         Experiment(cfg).run()
     assert list(tmp_path.iterdir()) == []  # nothing written
     assert build_sim(cfg, "cpu").device.type == "cpu"
+
+
+def test_fedgdkd_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    from fedml_tpu_torch.experiments.harness import build_sim
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ExperimentConfig(
+        data=DataConfig(dataset="fake_mnist", num_clients=4),
+        model=ModelConfig(name="cnn_small", num_classes=10,
+                          input_shape=(28, 28, 1)),
+        fed=FedConfig(algorithm="fedgdkd"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_sim(cfg)
+    assert build_sim(cfg, "cpu").device.type == "cpu"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gen_optimizer", ["adam", "sgd"])
+def test_fedgdkd_rounds_on_the_card_match_the_cpu(gen_optimizer):
+    """chip_smoke.py phase 13 (c): two FedGDKD rounds at the CPU parity
+    test's tiny configuration on the card (graph replays) and on the CPU
+    (eager), from the same variables and draws; the check raises unless
+    every leaf is within its band, or within the CPU's own spread."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = chip_smoke.fedgdkd_card_vs_cpu("cuda", gen_optimizer)
+    assert report["drift_corrected"] > 0, report
