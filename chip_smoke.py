@@ -153,15 +153,15 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    final checkpoint equal to an uninterrupted run's, bit for bit or within
    (c)'s spread. The flash counters, set to 0 before the phase, must read
    0 after it.
-11. A "kernels" JSON line, printed after phase 13, with one entry per
+11. A "kernels" JSON line, printed after phase 14, with one entry per
    kernel instance the paths run (flash_attention, the float32 body at
    head dim 32; flash_attention_d16, its head-dim-16 instance; and
    flash_attention_mma, the bf16/fp16 body), each with its launches on
    the transformer path, on the LoRA path, on the ResNet-56 path, on each
    family, in the defended rounds, in the bulk phase, in phase 10 and on
-   the FedGDKD path (none of them but the transformer and LoRA paths runs
-   a hand-written kernel), the card's name and power limit, and last the
-   result line
+   the FedGDKD path and on the rest of the GAN family (none of them but
+   the transformer and LoRA paths runs a hand-written kernel), the card's
+   name and power limit, and last the result line
    {"ok": true, "device": {...}}.
 12. Federated LoRA fine-tuning at the shape of bench.py's --lora-bench
    stage (synthetic_stackoverflow_nwp, 64 clients, vocab 2000 + 4;
@@ -206,7 +206,31 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    every leaf within atol 1e-5, rtol 1e-4, or else the first step within
    1e-3 and the rounds within SPREAD_FACTOR times the CPU's own spread;
    (d) the phase's seconds. The flash counters, set to 0 before the
-   phase, must read 0 after it. The "kernels" line comes after it.
+   phase, must read 0 after it.
+14. The rest of the GAN family, FedGAN, FedDTG, FedSSGAN and FedUAGAN,
+   at phase 13's data configuration (fake_mnist, 6,000 samples, 10
+   clients, hetero 0.1, all sampled, batch 32, SGD lr 0.03, 5 epochs,
+   cohort_groups 5, float32; the generator at GanConfig's defaults, the
+   ACGAN discriminator at its defaults (features 32/64/128, dropout 0.25;
+   FedSSGAN's without the validity head), FedDTG's classifier
+   cnn_medium), each record a JSON line with the card's name and power
+   limit: (a) for each, 3 rounds (finite losses; the groups, their steps
+   and each graph's replays), one more under set_sync_debug_mode("error")
+   with one replay per group-step (and per distillation step for
+   FedDTG), the clients' accuracies in [0, 1] (FedDTG), the image grid
+   (FedGAN, FedUAGAN) or the confidence-filtered synthetic set
+   (FedSSGAN), then <algo>_rounds_per_sec_10c_mnist_<disc> over 4 more
+   rounds (a smoke figure); (b) torch.cuda.max_memory_allocated over a
+   FedGAN round beside a FedGDKD round's
+   (peak_round_hbm_mb_10c_mnist_fedgan): at most GAN_MASK_HEADROOM_MB
+   more; (c) for each, two rounds at the CPU parity test's configuration
+   (tests/test_torch_gan_family.py) on the card and on the CPU from the
+   same variables, draws and dropout masks (TF32 off, cuDNN
+   deterministic): every leaf within atol 1e-5, rtol 1e-4, or else a round
+   of one step a client within 1e-3 and the rounds within SPREAD_FACTOR
+   times the CPU's own spread; (d) the phase's seconds. The flash
+   counters, set to 0 before the phase, must read 0 after it. The
+   "kernels" line comes after it.
 """
 
 from __future__ import annotations
@@ -2935,6 +2959,332 @@ def fedgdkd_phase(card: str) -> int:
     return launches
 
 
+# phase 14: the rest of the GAN family at the --fedgdkd data configuration
+GAN_FAMILY = ("fedgan", "feddtg", "fedssgan", "feduagan")
+GAN_FAMILY_ROUNDS = 3
+GAN_FAMILY_RATE_ROUNDS = 4
+# the discriminator each algorithm runs, for its rate's name
+GAN_FAMILY_DISC = {"fedgan": "acgan", "feddtg": "acgan_cnn_medium",
+                   "fedssgan": "acgan_nohead", "feduagan": "acgan"}
+# a FedGAN round's peak may exceed a FedGDKD round's by this much at most
+# (its dropout masks, drawn a group at a time, about 0.4 GB a group)
+GAN_MASK_HEADROOM_MB = 3000.0
+# the CPU parity test's discriminator (tests/test_torch_gan_family.py)
+TINY_FEATURES = (8, 16)
+TINY_GEN_LR = {"fedssgan": 1e-5}
+
+
+def gan_family_sim(algo: str, cfg, n_train: int, device: str = "cuda",
+                   n_test: int = 1000, features=(32, 64, 128), **hooks):
+    """``algo``'s sim as the harness builds it (``experiments/harness.py``
+    ``_build_gan``): the conditional generator of ``cfg.gan``, the ACGAN
+    discriminator at ``features`` with dropout 0.25 (without its validity
+    head for FedSSGAN), FedDTG's classifier from ``cfg.model``."""
+    from fedml_tpu_torch.algorithms.gan_family import FedDTGSim, FedGANSim
+    from fedml_tpu_torch.algorithms.sgan import FedSSGANSim, FedUAGANSim
+    from fedml_tpu_torch.data.loaders import make_fake_image_dataset
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.models.gan import (
+        acgan_discriminator,
+        generator_from_config,
+    )
+
+    data = make_fake_image_dataset("mnist", cfg.data, n_train=n_train,
+                                   n_test=n_test)
+    shape = tuple(cfg.model.input_shape)
+    k = cfg.model.num_classes
+    gen = generator_from_config(cfg.gan, k, shape[0], shape[-1],
+                                device=device)
+    disc = acgan_discriminator(k, shape, features,
+                               validity_head=algo != "fedssgan",
+                               device=device)
+    if algo == "fedgan":
+        return FedGANSim(gen, disc, data, cfg, device, **hooks)
+    if algo == "feddtg":
+        return FedDTGSim(gen, disc, create_model(cfg.model, device), data,
+                         cfg, device, **hooks)
+    if algo == "fedssgan":
+        return FedSSGANSim(gen, disc, data, cfg, device, **hooks)
+    hooks.pop("sampler", None)
+    return FedUAGANSim(gen, disc, data, cfg, device, **hooks)
+
+
+def gan_family_graphs(sim) -> dict:
+    """The sim's graphs by phase: the local phase's, and FedDTG's
+    distillation's."""
+    local = (getattr(sim, "disc_update", None)
+             or getattr(sim, "dtg_update", None) or sim.gan_update)
+    graphs = {"local": local.graph}
+    if hasattr(sim, "kd_update"):
+        graphs["kd"] = sim.kd_update.graph
+    return graphs
+
+
+def gan_family_report(algo: str, sim, before=None) -> dict:
+    """The last round's groups and each graph's replays since ``before``;
+    raises unless every phase ran as graph replays."""
+    graphs = gan_family_graphs(sim)
+    replays = {k: g.replays - (before or {}).get(k, 0)
+               for k, g in graphs.items()}
+    epochs = 1 if algo == "feduagan" else sim.cfg.train.epochs
+    report = {"algorithm": algo,
+              "groups": [{"clients": n, "steps_per_epoch": st}
+                         for n, st in sim.last_groups],
+              "replays": replays,
+              "group_steps_last_round": epochs * sum(
+                  st for _, st in sim.last_groups)}
+    print(json.dumps({"gan_family_cohort": report}), flush=True)
+    if any(g.graph is None for g in graphs.values()) or min(
+            replays.values()) <= 0:
+        raise RuntimeError(f"{algo} did not run as graph replays: {report}")
+    return report
+
+
+def gan_family_rounds(algo: str, sim, state, rounds: int):
+    losses, times = [], []
+    for _ in range(rounds):
+        state, m, dt = timed_round(sim, state)
+        losses.append({k: float(v) for k, v in m.items()})
+        times.append(dt)
+    if not all(math.isfinite(v) for row in losses for v in row.values()):
+        raise RuntimeError(f"non-finite {algo} loss: {losses}")
+    return state, losses, times
+
+
+def gan_family_bench(algo: str, card: str) -> None:
+    """(a): 3 rounds, one more under set_sync_debug_mode("error") with one
+    replay per group-step (and per distillation step), then the round
+    rate over GAN_FAMILY_RATE_ROUNDS more."""
+    import dataclasses
+
+    cfg = fedgdkd_config()
+    cfg = dataclasses.replace(cfg, fed=dataclasses.replace(
+        cfg.fed, algorithm=algo))
+    sim = gan_family_sim(algo, cfg, 6000)
+    state, losses, times = gan_family_rounds(algo, sim, sim.init(),
+                                             GAN_FAMILY_ROUNDS)
+    cohort = gan_family_report(algo, sim)
+    before = {k: g.replays for k, g in gan_family_graphs(sim).items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = sim.run_round(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    synced = {"losses": {k: float(v) for k, v in m.items()},
+              "cohort": gan_family_report(algo, sim, before)}
+    want = {"local": synced["cohort"]["group_steps_last_round"]}
+    if "kd" in synced["cohort"]["replays"]:
+        want["kd"] = sim.cfg.gan.kd_epochs * sim.synth_size // sim.batch_size
+    if synced["cohort"]["replays"] != want:
+        raise RuntimeError(f"{algo}: replays are not one per step: "
+                           f"{synced} against {want}")
+    record = {"per_round": losses, "round_seconds": times,
+              "round_under_sync_debug_error": synced, "cohort": cohort,
+              "card": card}
+    if hasattr(sim, "evaluate_clients"):
+        ev = sim.evaluate_clients(state)
+        if not all(0.0 <= a <= 1.0 for a in ev["per_client_acc"]):
+            raise RuntimeError(f"client accuracies outside [0, 1]: {ev}")
+        record.update(test_acc=ev["test_acc"], test_loss=ev["test_loss"])
+    if hasattr(sim, "sample_images"):
+        imgs = sim.sample_images(state, 16)
+        if not (imgs.shape == (16, 28, 28, 1)
+                and bool(torch.all(imgs.abs() <= 1.0))):
+            raise RuntimeError(f"{algo}: bad image grid {imgs.shape}")
+    if hasattr(sim, "generate_synthetic_dataset"):
+        x, pseudo, keep = sim.generate_synthetic_dataset(state, 64)
+        record["synthetic_kept"] = int(keep.sum())
+        if x.shape != (64, 28, 28, 1) or not bool(torch.all(
+                (pseudo >= 0) & (pseudo < 10))):
+            raise RuntimeError(f"{algo}: bad synthetic set")
+    state, _, rate_times = gan_family_rounds(algo, sim, state,
+                                             GAN_FAMILY_RATE_ROUNDS)
+    print(json.dumps({f"{algo}_10c": record}), flush=True)
+    record_line(card, metric=f"{algo}_rounds_per_sec_10c_mnist_"
+                             f"{GAN_FAMILY_DISC[algo]}",
+                value=GAN_FAMILY_RATE_ROUNDS / sum(rate_times),
+                unit="rounds/s", round_seconds=rate_times,
+                note=f"smoke figure: host clock around each of "
+                     f"{GAN_FAMILY_RATE_ROUNDS} rounds after "
+                     f"{GAN_FAMILY_ROUNDS + 1}, each ending in a "
+                     "synchronize")
+
+
+def tiny_gan_config(algo: str):
+    """The CPU parity test's configuration (tests/test_torch_gan_family.py
+    tiny_cfg): 4 clients, hetero 0.3, 2 a round, cnn_small, nz 16, ngf 8,
+    batch 8, a set of 16, one KD epoch."""
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        GanConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+
+    return ExperimentConfig(
+        data=DataConfig(dataset="fake_mnist", num_clients=4,
+                        partition_method="hetero", partition_alpha=0.3,
+                        batch_size=8, seed=0),
+        model=ModelConfig(name="cnn_small", num_classes=10,
+                          input_shape=(28, 28, 1)),
+        train=TrainConfig(lr=0.05, epochs=1),
+        fed=FedConfig(algorithm=algo, num_rounds=2, clients_per_round=2),
+        gan=GanConfig(nz=16, ngf=8, distillation_size=16, kd_epochs=1,
+                      gen_lr=TINY_GEN_LR.get(algo, 1e-3)),
+        seed=1)
+
+
+# the fields of a GAN-family state that hold model variables
+MODEL_FIELDS = ("gen_vars", "disc_vars", "disc_stack", "cls_stack")
+
+
+def move_state(state, device, perturb: float = 0.0):
+    """A GAN-family state on ``device``, the float tensors of its models
+    (MODEL_FIELDS) scaled by 1 + ``perturb`` x a seeded standard normal
+    draw."""
+    from fedml_tpu_torch.core import tree as T
+
+    gen = torch.Generator().manual_seed(0)
+
+    def one(v, scale):
+        if scale and v.is_floating_point():
+            v = v * (1 + perturb * torch.randn(v.shape, generator=gen))
+        return v.to(device)
+
+    out = {}
+    for name, f in state._asdict().items():
+        scale = perturb and name in MODEL_FIELDS
+        out[name] = (T.tree_map(lambda v: one(v, scale), f)
+                     if isinstance(f, dict)
+                     else one(f, scale) if torch.is_tensor(f) else f)
+    return type(state)(**out)
+
+
+def gan_family_card_vs_cpu(algo: str, device: str = "cuda") -> dict:
+    """(c): two rounds at the CPU parity test's configuration on
+    ``device`` and on the CPU, float32 with TF32 off and cuDNN
+    deterministic, from the same variables and the same draws, dropout
+    masks included (all made on the CPU). Every leaf of the state within
+    GAN_BAND; where one is not, a round of one adversarial step a client
+    (``steps_per_epoch`` 1) within GAN_FIRST_STEP and the two rounds
+    within SPREAD_FACTOR times the CPU's own spread under a PERTURB
+    relative change of the starting variables."""
+    from fedml_tpu_torch.core import random as R
+
+    cfg = tiny_gan_config(algo)
+    cpu_draws = R.DeviceDraws(
+        {"gan_z": 1, "gan_labels": 1, "synth": 1, "dropout": 1}, "cpu",
+        high={"gan_labels": 10}, p={"dropout": 0.75})
+
+    def sim_on(dev):
+        return gan_family_sim(algo, cfg, 96, dev, n_test=32,
+                              features=TINY_FEATURES, draws=lambda *a: {
+                                  k: v.to(dev)
+                                  for k, v in cpu_draws(*a).items()})
+
+    deterministic = torch.backends.cudnn.deterministic
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        t0 = time.perf_counter()
+        cpu, card = sim_on("cpu"), sim_on(device)
+        start = cpu.init()
+        want = rounds_of(cpu, start)
+        got = rounds_of(card, move_state(start, device))
+        errs = [gan_state_err(g, w) for g, w in zip(got, want)]
+        report = {"algorithm": algo,
+                  "rounds": [{"max_abs_err": e, "band_use": u}
+                             for e, u in errs], **GAN_BAND}
+        if max(u for _, u in errs) > 1.0:
+            one = [sim_on(d) for d in ("cpu", device)]
+            for sim in one:
+                sim.steps_per_epoch = 1
+            first = gan_state_err(
+                rounds_of(one[1], move_state(start, device), 1)[0],
+                rounds_of(one[0], start, 1)[0])[0]
+            perturbed = rounds_of(cpu, move_state(start, "cpu", PERTURB))
+            row = {"first_step_max_abs_err": first,
+                   "card_vs_cpu": max(e for e, _ in errs),
+                   "cpu_spread": max(gan_state_err(p, w)[0]
+                                     for p, w in zip(perturbed, want)),
+                   "spread_factor": SPREAD_FACTOR}
+            report.update(row)
+            if (first > GAN_FIRST_STEP or row["card_vs_cpu"]
+                    > SPREAD_FACTOR * row["cpu_spread"]):
+                raise RuntimeError(f"{algo} card vs CPU outside the band "
+                                   f"and the spread: {report}")
+        report["seconds"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = benchmark
+    return report
+
+
+def gan_peak_mb(sim) -> float:
+    """``torch.cuda.max_memory_allocated`` over one round in MB, after a
+    warm-up round (the captures)."""
+    state, _ = sim.run_round(sim.init())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, m = sim.run_round(state)
+    torch.cuda.synchronize()
+    if not all(math.isfinite(float(v)) for v in m.values()):
+        raise RuntimeError(f"memory round: {m}")
+    return torch.cuda.max_memory_allocated() / 1e6
+
+
+def gan_family_memory(card: str) -> None:
+    """(b): a FedGAN round's peak beside a FedGDKD round's at the same
+    configuration; FedGAN's may exceed it by GAN_MASK_HEADROOM_MB at
+    most."""
+    import dataclasses
+
+    peaks = {}
+    for algo in ("fedgdkd", "fedgan"):
+        free_card()
+        cfg = fedgdkd_config()
+        cfg = dataclasses.replace(cfg, fed=dataclasses.replace(
+            cfg.fed, algorithm=algo))
+        sim = (fedgdkd_sim(cfg, 6000) if algo == "fedgdkd"
+               else gan_family_sim(algo, cfg, 6000))
+        peaks[algo] = gan_peak_mb(sim)
+        del sim
+    record_line(card, metric="peak_round_hbm_mb_10c_mnist_fedgan",
+                value=peaks["fedgan"], fedgdkd=peaks["fedgdkd"],
+                unit="MB", analytic=False,
+                note="torch.cuda.max_memory_allocated over one round after "
+                     "a warm-up round")
+    if peaks["fedgan"] > peaks["fedgdkd"] + GAN_MASK_HEADROOM_MB:
+        raise RuntimeError(f"FedGAN's round peaks too high: {peaks}")
+
+
+def gan_family_phase(card: str) -> int:
+    """Phase 14: (a)-(d). Returns the flash kernels' launches over it
+    (0: the GAN family has no attention)."""
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+
+    t0 = time.perf_counter()
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    for algo in GAN_FAMILY:
+        gan_family_bench(algo, card)
+        free_card()
+    gan_family_memory(card)
+    free_card()
+    for algo in GAN_FAMILY:
+        print(json.dumps({"gan_family_card_vs_cpu":
+                          gan_family_card_vs_cpu(algo)}), flush=True)
+    launches = flash_attention.launches + flash_attention.mma_launches
+    if launches != 0:
+        raise RuntimeError(f"phase 14 launched flash attention {launches} "
+                           "times")
+    record_line(card, metric="phase14_s", value=time.perf_counter() - t0)
+    return launches
+
+
 def kernel_entry(name, source, launches, by_path, rows, row,
                  note=None) -> dict:
     """One entry of the "kernels" line: the timed ``row``'s numbers, the
@@ -2986,6 +3336,9 @@ def main() -> int:
     free_card()
     # 13. FedGDKD (no hand kernel)
     paths["fedgdkd"] = fedgdkd_phase(card)
+    free_card()
+    # 14. FedGAN, FedDTG, FedSSGAN and FedUAGAN (no hand kernel)
+    paths["gan_family"] = gan_family_phase(card)
 
     # report: the float32 entry's times are at the transformer path's
     # shape, the D = 16 entry's at the LoRA path's, the tensor-core entry's

@@ -1,5 +1,5 @@
-"""Federated algorithms: the FedAvg and FedGDKD simulations and their
-building blocks."""
+"""Federated algorithms: the FedAvg simulation, the GAN family's (FedGAN,
+FedGDKD, FedDTG, FedSSGAN, FedUAGAN) and their building blocks."""
 
 from fedml_tpu_torch.algorithms.base import (
     build_evaluator,
@@ -7,12 +7,22 @@ from fedml_tpu_torch.algorithms.base import (
     make_task,
 )
 from fedml_tpu_torch.algorithms.fedavg import FedAvgSim, ServerState
-from fedml_tpu_torch.algorithms.gan_family import FedGDKDSim, FedGDKDState
+from fedml_tpu_torch.algorithms.gan_family import (
+    FedDTGSim,
+    FedGANSim,
+    FedGDKDSim,
+    FedGDKDState,
+)
+from fedml_tpu_torch.algorithms.sgan import FedSSGANSim, FedUAGANSim
 
 __all__ = [
     "FedAvgSim",
+    "FedDTGSim",
+    "FedGANSim",
     "FedGDKDSim",
     "FedGDKDState",
+    "FedSSGANSim",
+    "FedUAGANSim",
     "ServerState",
     "build_evaluator",
     "build_local_update",

@@ -8,6 +8,7 @@ later step is one replay.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Sequence
 
 import torch
@@ -55,8 +56,14 @@ class GraphedStep:
     graph's life.
 
     The first run captures: ``WARMUP_STEPS`` eager calls on a side
-    stream, then the capture, into a private memory pool. A capture or a
-    replay that fails raises; nothing falls back to running eagerly.
+    stream, then the capture, into a private memory pool. Python's cyclic
+    garbage collector is run before the capture and kept off during it:
+    a dead cycle that holds another graph (a dropped simulation) would
+    otherwise be freed at any allocation, and a graph destroyed while a
+    capture is under way invalidates the capture (``torch.cuda.graph``
+    collects on entry only under ``torch.compiler.config.
+    force_cudagraph_gc``). A capture or a replay that fails raises;
+    nothing falls back to running eagerly.
     """
 
     def __init__(self, fn: Callable):
@@ -100,6 +107,13 @@ class GraphedStep:
                 self._body()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._body()
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self._body()
+        finally:
+            if collecting:
+                gc.enable()
         self.graph = graph

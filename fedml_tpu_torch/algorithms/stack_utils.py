@@ -77,7 +77,8 @@ def resolve_cohort_groups(requested: int, cohort: int,
 
 
 def size_grouped_lanes(vcall: Callable, lane_args: tuple, counts,
-                       requested: int, auto_group_size: int = 2):
+                       requested: int, auto_group_size: int = 2,
+                       host=None):
     """Run ``vcall`` over the lanes in size-sorted sub-groups.
 
     ``lane_args`` are trees of tensors with a leading lane axis, all on
@@ -86,15 +87,18 @@ def size_grouped_lanes(vcall: Callable, lane_args: tuple, counts,
     here against the lane count, so the split always divides the lanes.
     The lanes are sorted by count, descending (a stable sort: equal counts
     keep their order), and ``vcall(*group_args, group_counts)`` runs once
-    per equal group, with the group's host counts last. Every output of
-    ``vcall`` must be lane-stacked; the outputs are concatenated and come
-    back in the lanes' input order. Sorting and grouping change the
-    schedule only: a lane's result depends on its own arguments."""
+    per equal group, with the group's host counts last; with ``host`` (a
+    host array a lane, such as the lanes' client ids) the group's rows of
+    it follow the counts. Every output of ``vcall`` must be lane-stacked;
+    the outputs are concatenated and come back in the lanes' input order.
+    Sorting and grouping change the schedule only: a lane's result
+    depends on its own arguments."""
     counts = np.asarray(counts)
     c = counts.shape[0]
     groups = resolve_cohort_groups(requested, c, auto_group_size)
+    extra = () if host is None else (np.asarray(host),)
     if groups == 1:
-        return vcall(*lane_args, counts)
+        return vcall(*lane_args, counts, *extra)
     sub = c // groups
     order = np.argsort(-counts, kind="stable")
     device = T.tree_leaves(lane_args)[0].device
@@ -103,7 +107,7 @@ def size_grouped_lanes(vcall: Callable, lane_args: tuple, counts,
     ordered = T.tree_map(lambda a: a.index_select(0, perm), lane_args)
     outs = [
         vcall(*T.tree_map(lambda a: a[g * sub:(g + 1) * sub], ordered),
-              counts[order[g * sub:(g + 1) * sub]])
+              *(h[order[g * sub:(g + 1) * sub]] for h in (counts, *extra)))
         for g in range(groups)
     ]
     cat = T.tree_map(lambda *parts: torch.cat(parts), *outs)

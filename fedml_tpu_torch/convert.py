@@ -82,6 +82,10 @@ _VISION_TOP = {
                   "Dense_0": "head"},
     # fc<i> and head are named alike on both sides
     "CNNParameterised": {f"Conv2D_{k}": f"convs.{k}" for k in range(8)},
+    # cls_hidden, cls_out, disc_hidden and disc_out are named alike
+    "ACGANDiscriminator": {**{f"Conv2D_{k}": f"convs.{k}" for k in range(8)},
+                           **{f"BatchNorm_{k}": f"bns.{k}"
+                              for k in range(8)}},
 }
 # inside a block (BasicBlock_k or DepthwiseSeparable_k, numbered across
 # the whole model as blocks.k; in the exact s2d ResNet _S2DBasicBlock_k,
@@ -243,3 +247,13 @@ def generator_state_dict(variables: Mapping[str, Any], lead: int = 0
     for collection in ("params", "batch_stats"):
         walk(variables.get(collection, {}), ())
     return out
+
+
+def acgan_state_dict(variables: Mapping[str, Any], lead: int = 0
+                     ) -> dict[str, torch.Tensor]:
+    """Flax variables of ``fedml_tpu.models.gan.ACGANDiscriminator``, with
+    or without the validity head, to the port's (``models/gan.py``):
+    ``Conv2D_k`` -> ``convs.k`` (HWIO to OIHW), ``BatchNorm_k`` ->
+    ``bns.k``, the dense heads by their names (kernels transposed).
+    ``lead`` leading axes of rows (a ``[N, ...]`` bank) stay in front."""
+    return vision_state_dict(variables, "ACGANDiscriminator", lead)

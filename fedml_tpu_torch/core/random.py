@@ -1,8 +1,9 @@
 """Seeded draws: client sampling, per-epoch batch orders, the draws of
 the defended round (the aggregate's noise, the quantizer's stochastic
 rounding, the adversaries' gaussians, the streamed defenses' random
-projection) and FedGDKD's (the adversarial steps' noise and fake labels,
-the distillation set's noise).
+projection), the GAN family's (the adversarial steps' noise and fake
+labels, the distillation set's noise) and the dropout masks of its
+discriminators.
 
 Every draw comes from a ``torch.Generator`` seeded by a seed and the
 draw's coordinates (round, client, slot, ...), so each is a function of
@@ -38,6 +39,9 @@ STREAMS = {
     "gan_z": (0x47414E5A, "normal"),
     "gan_labels": (0x47414E4C, "randint"),
     "synth": (0x5EED, "normal"),
+    # the GAN family's discriminator dropout: bool keep masks, per client
+    # id, a group's at a time ([epochs, steps, calls, B, H, W, C] a site)
+    "dropout": (0x44524F50, "bernoulli"),
 }
 
 # (stream, round, slots, {name: shape}) -> {name: [len(slots), *shape]}
@@ -62,17 +66,27 @@ class DeviceDraws:
     row of a ``[len(slots), total]`` float32 buffer (standard normal,
     uniform on [0, 1), or for a "randint" stream whole numbers uniform on
     ``[0, high[stream])``, by stream), and each leaf is a view of its
-    columns. One kernel per slot, whatever the number of leaves."""
+    columns. One kernel per slot, whatever the number of leaves.
+
+    A "bernoulli" stream (the dropout masks) gives bool leaves, True with
+    probability ``p[stream]``: each slot's generator draws each leaf one
+    leading index at a time, uniform on [0, 1) compared with ``p``, so
+    the float32 staging is one such slice, never the whole draw (a
+    group's masks at full width are hundreds of millions of values)."""
 
     def __init__(self, seeds: Mapping[str, int], device: torch.device,
-                 high: Mapping[str, int] | None = None):
+                 high: Mapping[str, int] | None = None,
+                 p: Mapping[str, float] | None = None):
         self.seeds = dict(seeds)
         self.device = torch.device(device)
         self.high = dict(high or {})
+        self.p = dict(p or {})
 
     def __call__(self, stream: str, round_idx: int, slots: Sequence[int],
                  shapes: Mapping[str, tuple]) -> dict[str, torch.Tensor]:
         salt, kind = STREAMS[stream]
+        if kind == "bernoulli":
+            return self._bernoulli(stream, salt, round_idx, slots, shapes)
         sizes = [int(np.prod(s)) for s in shapes.values()]
         buf = torch.empty((len(slots), sum(sizes)), device=self.device)
         for row, slot in zip(buf, slots):
@@ -88,6 +102,20 @@ class DeviceDraws:
         for (name, shape), n in zip(shapes.items(), sizes):
             out[name] = buf[:, off:off + n].reshape(len(slots), *shape)
             off += n
+        return out
+
+    def _bernoulli(self, stream, salt, round_idx, slots, shapes):
+        out = {name: torch.empty((len(slots), *shape), dtype=torch.bool,
+                                 device=self.device)
+               for name, shape in shapes.items()}
+        for row, slot in enumerate(slots):
+            gen = generator(self.seeds[stream], salt, round_idx, int(slot),
+                            device=self.device)
+            for name, shape in shapes.items():
+                for i in range(shape[0]):
+                    u = torch.rand(shape[1:], generator=gen,
+                                   device=self.device)
+                    torch.lt(u, self.p[stream], out=out[name][row, i])
         return out
 
 

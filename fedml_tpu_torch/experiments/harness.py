@@ -1,6 +1,7 @@
 """The experiment harness: the algorithm registry and the seeded
 repetition runner, with round checkpoints and resume
-(``fedml_tpu.experiments.harness``, its FedAvg family and FedGDKD).
+(``fedml_tpu.experiments.harness``, its FedAvg family and the GAN
+family: FedGAN, FedGDKD, FedDTG, FedSSGAN and FedUAGAN).
 
 :class:`Experiment` runs N repetitions of a config, repetition ``k`` with
 ``seed + k`` and ``data.seed + k`` under the run name
@@ -11,10 +12,13 @@ A run that finds a checkpoint there resumes after it: it logs
 ``{"resumed_from": r}`` and stamps every row it logs ``"resumed":
 true``, so when a round appears twice in ``metrics.jsonl`` (rounds run
 again after the last checkpoint) the stamped row is the one to keep.
-FedGDKD's state (its generator, the classifier bank, the last
-distillation set, its teacher and the last cohort) checkpoints the same
-way; it has no fused blocks, so ``fuse_rounds > 1`` warns and the rounds
-run one by one, as in the JAX package.
+The GAN family's states (generators, discriminators, classifier and
+discriminator banks, FedGDKD's last distillation set and cohort,
+UA-GAN's generator optimizer) checkpoint the same way; they have no
+fused blocks, so ``fuse_rounds > 1`` warns and the rounds run one by
+one, as in the JAX package. A sim without ``run`` (all of the GAN family
+but FedGDKD) goes through the harness's round loop, and one without an
+evaluator (FedGAN, FedSSGAN, FedUAGAN) logs no evaluation.
 
 The JAX package's perf monitor, profiler captures, anatomy, tracer spans
 and ``/statusz`` run state wait for the port's observability planes
@@ -34,13 +38,21 @@ from fedml_tpu_torch.algorithms.fedavg import (
     ServerState,
     consume_round_counters,
 )
-from fedml_tpu_torch.algorithms.gan_family import FedGDKDSim
+from fedml_tpu_torch.algorithms.gan_family import (
+    FedDTGSim,
+    FedGANSim,
+    FedGDKDSim,
+)
+from fedml_tpu_torch.algorithms.sgan import FedSSGANSim, FedUAGANSim
 from fedml_tpu_torch.config import ExperimentConfig
 from fedml_tpu_torch.core import fuse as FU
 from fedml_tpu_torch.data import load_dataset
 from fedml_tpu_torch.metrics import MetricsSink
 from fedml_tpu_torch.models import create_model
-from fedml_tpu_torch.models.gan import generator_from_config
+from fedml_tpu_torch.models.gan import (
+    acgan_discriminator,
+    generator_from_config,
+)
 from fedml_tpu_torch.utils.checkpoint import RoundCheckpointer, from_savable
 
 # the registry's FedAvg family: --algorithm -> the FedConfig.algorithm
@@ -52,28 +64,42 @@ ALGORITHMS = {"fedavg": "fedavg", "fedopt": "fedopt", "fedprox": "fedavg",
               "fedavg_multiclient": "fedavg"}
 
 
-# the GAN family: FedGDKD is ported; the others share its core and come
-# next, in this order
-GAN_NEXT = ("fedgan", "feddtg", "fedssgan", "feduagan")
+# the GAN family (fedml_tpu.experiments.harness _build_gan)
+GAN_FAMILY = ("fedgan", "fedgdkd", "feddtg", "fedssgan", "feduagan")
 
 
-def build_sim(cfg: ExperimentConfig, device: str | torch.device = "cuda"
-              ) -> FedAvgSim | FedGDKDSim:
+def _build_gan(cfg: ExperimentConfig, device):
+    """The GAN family's sims as the JAX harness builds them: the
+    conditional generator at the data's image size (its nz and ngf from
+    ``cfg.gan``); FedGDKD's and FedDTG's classifiers from ``cfg.model``;
+    the ACGAN discriminator at its defaults (features 32/64/128, dropout
+    0.25), without its validity head for FedSSGAN."""
+    algo = cfg.fed.algorithm
+    shape = tuple(cfg.model.input_shape)
+    k = cfg.model.num_classes
+    gen = generator_from_config(cfg.gan, k, shape[0], shape[-1],
+                                device=device)
+    data = load_dataset(cfg.data)
+    if algo == "fedgdkd":
+        return FedGDKDSim(gen, create_model(cfg.model, device), data, cfg,
+                          device)
+    disc = acgan_discriminator(k, shape, validity_head=algo != "fedssgan",
+                               device=device)
+    if algo == "fedgan":
+        return FedGANSim(gen, disc, data, cfg, device)
+    if algo == "feddtg":
+        return FedDTGSim(gen, disc, create_model(cfg.model, device), data,
+                         cfg, device)
+    if algo == "fedssgan":
+        return FedSSGANSim(gen, disc, data, cfg, device)
+    return FedUAGANSim(gen, disc, data, cfg, device)
+
+
+def build_sim(cfg: ExperimentConfig, device: str | torch.device = "cuda"):
     """The simulation of ``cfg.fed.algorithm`` on ``device``."""
     algo = cfg.fed.algorithm
-    if algo == "fedgdkd":
-        # the conditional generator at the data's image size, its nz and
-        # ngf from cfg.gan
-        shape = tuple(cfg.model.input_shape)
-        gen = generator_from_config(cfg.gan, cfg.model.num_classes,
-                                    shape[0], shape[-1], device=device)
-        return FedGDKDSim(gen, create_model(cfg.model, device),
-                          load_dataset(cfg.data), cfg, device)
-    if algo in GAN_NEXT:
-        raise NotImplementedError(
-            f"algorithm={algo!r} is not ported to fedml_tpu_torch yet "
-            "(ROADMAP: Queue A item 13a, the GAN family after FedGDKD: "
-            "fedgan, feddtg, then fedssgan and feduagan)")
+    if algo in GAN_FAMILY:
+        return _build_gan(cfg, device)
     if algo not in ALGORITHMS:
         raise NotImplementedError(
             f"algorithm={algo!r} is not ported to fedml_tpu_torch yet "
@@ -118,12 +144,12 @@ class Experiment:
 
     @staticmethod
     def _run_sim(sim, cfg: ExperimentConfig, sink: MetricsSink) -> None:
-        """Without checkpoints the sim's own ``run``; with
-        ``checkpoint_every > 0`` the harness's loop, which restores the
-        latest checkpoint of ``<run dir>/ckpt`` and saves one every
-        ``checkpoint_every`` rounds and after the last. A sim without
-        ``run_block`` (FedGDKD) runs its rounds one by one under
-        ``fuse_rounds > 1``, with a warning."""
+        """Without checkpoints the sim's own ``run`` where it has one;
+        otherwise the harness's loop, which with ``checkpoint_every > 0``
+        restores the latest checkpoint of ``<run dir>/ckpt`` and saves one
+        every ``checkpoint_every`` rounds and after the last. A sim
+        without ``run_block`` (the GAN family) runs its rounds one by one
+        under ``fuse_rounds > 1``, with a warning."""
         fused = cfg.fed.fuse_rounds > 1 and hasattr(sim, "run_block")
         if cfg.fed.fuse_rounds > 1 and not fused:
             warnings.warn(
@@ -131,7 +157,10 @@ class Experiment:
                 f"{type(sim).__name__} has no fused blocks (run_block); "
                 "running per round", stacklevel=2)
         if cfg.checkpoint_every <= 0:
-            sim.run(metrics_sink=sink)
+            if hasattr(sim, "run"):
+                sim.run(metrics_sink=sink)
+            else:
+                Experiment._round_loop(sim, cfg, sink, sim.init(), 0, None)
             return
         ckpt = RoundCheckpointer(os.path.join(os.path.dirname(sink.path),
                                               "ckpt"))
@@ -178,7 +207,7 @@ class Experiment:
             if Experiment._is_eval(cfg, r):
                 record.update(Experiment._eval_record(sim, state))
             sink.log(record)
-            if Experiment._is_ckpt(cfg, r):
+            if ckpt is not None and Experiment._is_ckpt(cfg, r):
                 Experiment._save_state(ckpt, sim, r, state)
 
     @staticmethod
@@ -249,11 +278,14 @@ class Experiment:
     @staticmethod
     def _eval_record(sim, state) -> dict:
         """The evaluation: the global model's (``evaluate_global``), or
-        the mean over the clients' own models (FedGDKD's
+        the mean over the clients' own models (FedGDKD's and FedDTG's
         ``evaluate_clients``), its scalars with ``acc`` and ``loss`` under
-        the summary's names ``test_acc`` and ``test_loss``."""
-        evaluate = getattr(sim, "evaluate_global", None) or \
-            sim.evaluate_clients
+        the summary's names ``test_acc`` and ``test_loss``; nothing for a
+        sim without an evaluator."""
+        evaluate = (getattr(sim, "evaluate_global", None)
+                    or getattr(sim, "evaluate_clients", None))
+        if evaluate is None:
+            return {}
         rename = {"acc": "test_acc", "loss": "test_loss"}
         return {rename.get(k, k): v for k, v in evaluate(state).items()
                 if isinstance(v, (int, float))}

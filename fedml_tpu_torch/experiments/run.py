@@ -2,9 +2,10 @@
 
 The FedAvg family of ``fedml_tpu.experiments.run`` (``--algorithm``
 fedavg, fedopt, fedprox, fednova, fedavg_robust, fedavg_multiclient) and
-FedGDKD (``--algorithm fedgdkd``: its GAN settings, the ``gan`` section
-of the ``--config`` JSON, as the JAX CLI has no GAN flags), with its flag
-names: the defenses
+the GAN family (``--algorithm`` fedgan, fedgdkd, feddtg, fedssgan,
+feduagan: their GAN settings, the ``gan`` section of the ``--config``
+JSON, as the JAX CLI has no GAN flags), with its flag names: the
+defenses
 (``--defense`` or ``--robust_method``, ``--defense_*``,
 ``--robust_norm_clip``, ``--robust_noise_stddev``), the wire codec
 (``--compress``, ``--compress_topk_frac``), the seeded adversaries
@@ -55,7 +56,10 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
     )
     p.add_argument("--config", type=str, default=None,
                    help="JSON file with the full ExperimentConfig")
-    p.add_argument("--algorithm", type=str, default=None)
+    p.add_argument("--algorithm", type=str, default=None,
+                   help="fedavg, fedopt, fedprox, fednova, fedavg_robust, "
+                        "fedavg_multiclient, or the GAN family: fedgan, "
+                        "fedgdkd, feddtg, fedssgan, feduagan")
     p.add_argument("--dataset", type=str, default=None)
     p.add_argument("--model", type=str, default=None)
     p.add_argument("--num_classes", type=int, default=None)

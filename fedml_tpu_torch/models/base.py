@@ -253,16 +253,20 @@ class FedModel:
                     drawn[name] = _init_tensor(mod, leaf, shape, generator)
         return {k: drawn[k].to(self.device) for k in leaves}
 
-    def apply_train(self, variables: Params, *inputs: torch.Tensor):
+    def apply_train(self, variables: Params, *inputs: torch.Tensor,
+                    **kwargs):
         """Forward of ``inputs`` (the model's input, or a generator's noise
         and labels) in train mode; returns (output, variables with the new
         batch statistics). A model without statistics gets its variables
-        back unchanged."""
+        back unchanged. ``kwargs`` go to the module's forward (the ACGAN
+        discriminator's ``validity``)."""
         if not self.stat_names:
-            return functional_call(self.module, variables, inputs), variables
+            return functional_call(self.module, variables, inputs,
+                                   kwargs), variables
         stats = {}
         logits = functional_call(self.module, variables, inputs,
-                                 {"train": True, "stats_out": stats})
+                                 {**kwargs, "train": True,
+                                  "stats_out": stats})
         new = dict(variables)
         for mod, (mean, var) in stats.items():
             name = self._bn_names[mod]
@@ -270,8 +274,8 @@ class FedModel:
             new[f"{name}.running_var"] = var
         return logits, new
 
-    def apply_eval(self, variables: Params, *inputs: torch.Tensor
-                   ) -> torch.Tensor:
+    def apply_eval(self, variables: Params, *inputs: torch.Tensor,
+                   **kwargs) -> torch.Tensor:
         """Forward in eval mode: BatchNorm normalizes with the running
-        statistics."""
-        return functional_call(self.module, variables, inputs)
+        statistics (and dropout keeps every activation)."""
+        return functional_call(self.module, variables, inputs, kwargs)

@@ -1,5 +1,5 @@
-"""The GAN family's generators: the conditional and the unconditional
-DCGAN image generator (``fedml_tpu.models.gan``).
+"""The GAN family's models (``fedml_tpu.models.gan``): the conditional and
+the unconditional DCGAN image generator, and the ACGAN discriminator.
 
 A generator is a label embedding multiplied elementwise into the noise
 (the conditional one), a dense projection ``l1`` to ``ff * init**2``
@@ -13,6 +13,12 @@ A flax transposed convolution (``ConvTranspose2D``) is a fractionally
 strided correlation with its kernel ``[kh, kw, in, out]`` unflipped; the
 port stores the same weights as ``F.conv_transpose2d``'s ``[in, out, kh,
 kw]``, flipped in both spatial dims (``convert.generator_state_dict``).
+
+The ACGAN discriminator (:class:`ACGANDiscriminator`) is the port's first
+model with dropout. Its masks are inputs of the forward pass, drawn
+outside it (the simulation's ``"dropout"`` draws), so a train-mode
+forward is a function of its inputs and no random op runs inside a
+captured graph.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from fedml_tpu_torch.models.base import (
     Params,
     weightless,
 )
-from fedml_tpu_torch.models.vision import nchw
+from fedml_tpu_torch.models.vision import Conv2d, nchw
 
 
 def plan_upsampling(img_size: int, min_init: int = 4) -> tuple[int, int]:
@@ -136,6 +142,96 @@ class ImageGenerator(nn.Module):
     def forward(self, z, train: bool = False,
                 stats_out: dict | None = None) -> torch.Tensor:
         return self.pyramid(z, train, stats_out)
+
+
+def dropout(x: torch.Tensor, mask: torch.Tensor, rate: float
+            ) -> torch.Tensor:
+    """Flax ``nn.Dropout`` with its mask given: ``mask`` (bool, NHWC, the
+    shape of ``x`` in NHWC order) keeps an activation of the logical NCHW
+    ``x``, scaled by ``1 / (1 - rate)``, and zeroes the rest. The mask is
+    viewed as ``x`` is laid out (:func:`~fedml_tpu_torch.models.vision.
+    nchw`: channels_last on the card, contiguous NCHW on the CPU). The
+    division is by a tensor: torch's CUDA division by a Python scalar
+    multiplies by the reciprocal, which rounds otherwise than the CPU."""
+    keep = x / x.new_full((), 1.0 - rate)
+    return torch.where(nchw(mask), keep, 0.0)
+
+
+class ACGANDiscriminator(nn.Module):
+    """The ACGAN discriminator (``fedml_tpu.models.gan.ACGANDiscriminator``):
+    per width in ``features`` a 3x3 stride-2 SAME convolution without bias
+    (``convs.k``), ``leaky_relu(0.2)``, dropout at ``dropout`` and
+    BatchNorm (``bns.k``, flax's default momentum 0.99; its batch
+    statistics are those of the dropped activations); the (H, W, C)
+    flatten; the class head ``cls_hidden`` (dense 128) -> ``cls_out``
+    (dense K), no activation between them. With ``validity_head`` it also
+    has ``disc_hidden`` (dense 128) -> ``disc_out`` (dense 1), the
+    real/fake logit; without it (FedSSGAN's discriminator) those leaves do
+    not exist.
+
+    ``forward(x, masks=None, validity=False)``: ``x`` NHWC; ``masks`` one
+    bool NHWC tensor per dropout site (:meth:`mask_shapes`), needed in
+    train mode when ``dropout > 0`` and ignored in eval mode; returns the
+    class logits, or with ``validity`` (class logits, validity ``[B,
+    1]``)."""
+
+    def __init__(self, num_classes: int, features: tuple[int, ...] = (
+            32, 64, 128), dropout: float = 0.25,
+            input_shape: tuple[int, ...] = (28, 28, 1),
+            validity_head: bool = True):
+        super().__init__()
+        self.rate = float(dropout)
+        self.validity_head = validity_head
+        h, w, cin = input_shape
+        self.sites = []
+        self.convs, self.bns = nn.ModuleList(), nn.ModuleList()
+        for f in features:
+            self.convs.append(Conv2d(cin, f, 3, 2, bias=False))
+            self.bns.append(BatchNorm(f, momentum=FLAX_BN_MOMENTUM))
+            h, w, cin = -(-h // 2), -(-w // 2), f
+            self.sites.append((h, w, f))
+        width = h * w * cin
+        self.cls_hidden = nn.Linear(width, 128)
+        self.cls_out = nn.Linear(128, num_classes)
+        if validity_head:
+            self.disc_hidden = nn.Linear(width, 128)
+            self.disc_out = nn.Linear(128, 1)
+
+    def mask_shapes(self) -> dict[str, tuple[int, int, int]]:
+        """The NHWC shape of one sample's mask at each dropout site, by
+        name (``d0``, ``d1``, ...): at 28x28x1 and the default features
+        (14, 14, 32), (7, 7, 64) and (4, 4, 128), 11,456 values."""
+        if self.rate == 0.0:
+            return {}
+        return {f"d{i}": s for i, s in enumerate(self.sites)}
+
+    def forward(self, x: torch.Tensor, masks: dict | None = None,
+                validity: bool = False, train: bool = False,
+                stats_out: dict | None = None):
+        h = nchw(x)
+        for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
+            h = F.leaky_relu(conv(h), 0.2)
+            if train and self.rate > 0.0:
+                h = dropout(h, masks[f"d{i}"], self.rate)
+            h = bn(h, train, stats_out)
+        trunk = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+        cls = self.cls_out(self.cls_hidden(trunk))
+        if not validity:
+            return cls
+        return cls, self.disc_out(self.disc_hidden(trunk))
+
+
+def acgan_discriminator(num_classes: int,
+                        input_shape: tuple[int, ...] = (28, 28, 1),
+                        features: tuple[int, ...] = (32, 64, 128),
+                        dropout: float = 0.25, validity_head: bool = True,
+                        device: str | torch.device = "cuda") -> FedModel:
+    """:class:`ACGANDiscriminator` as a
+    :class:`~fedml_tpu_torch.models.base.FedModel` on ``device``."""
+    module = weightless(lambda: ACGANDiscriminator(
+        num_classes, tuple(features), dropout, tuple(input_shape),
+        validity_head))
+    return FedModel(module, tuple(input_shape), resolve_device(device))
 
 
 @dataclasses.dataclass(frozen=True)

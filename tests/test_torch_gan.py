@@ -482,23 +482,36 @@ def test_two_rounds_match_jax(world):
 
 
 def test_refusals_name_their_items():
+    """What is still refused names its ROADMAP item (cnn dropout: 13b;
+    the other algorithm families: 13); the acgan mode and the rest of the
+    GAN family (item 13a) are ported, so build_sim returns each of them
+    on the CPU."""
     cfg = tiny_cfg(tc)
     gen = generator_from_config(cfg.gan, K, 28, 1, device="cpu")
     model = create_model(cfg.model, "cpu")
-    with pytest.raises(NotImplementedError, match="13a.*FedGAN"):
-        TG.GanCohortUpdate(gen, model, cfg.train, cfg.gan, B, False,
-                           mode="acgan")
+    upd = TG.GanCohortUpdate(gen, model, cfg.train, cfg.gan, B, False,
+                             mode="acgan")
+    assert upd.mode == "acgan"
     with pytest.raises(NotImplementedError, match="13b"):
         create_model(tc.ModelConfig(name="cnn_medium", num_classes=K,
                                     input_shape=SHAPE,
                                     extra=(("dropout", 0.25),)), "cpu")
+    from fedml_tpu_torch.algorithms.gan_family import FedDTGSim, FedGANSim
+    from fedml_tpu_torch.algorithms.sgan import FedSSGANSim, FedUAGANSim
     from fedml_tpu_torch.experiments.harness import build_sim
 
-    for algo in ("fedgan", "feddtg", "fedssgan", "feduagan"):
-        bad = dataclasses.replace(cfg, fed=dataclasses.replace(
+    def with_algo(algo):
+        return dataclasses.replace(cfg, fed=dataclasses.replace(
             cfg.fed, algorithm=algo))
-        with pytest.raises(NotImplementedError, match="13a"):
-            build_sim(bad, "cpu")
+
+    with pytest.raises(NotImplementedError, match="item 13"):
+        build_sim(with_algo("fedmd"), "cpu")
+    for algo, kind in (("fedgan", FedGANSim), ("feddtg", FedDTGSim),
+                       ("fedssgan", FedSSGANSim),
+                       ("feduagan", FedUAGANSim)):
+        sim = build_sim(with_algo(algo), "cpu")
+        assert type(sim) is kind and sim.device.type == "cpu", algo
+        assert isinstance(sim.counters, dict), algo
 
 
 def test_cnn_custom_takes_its_widths():

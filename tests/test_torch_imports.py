@@ -69,7 +69,8 @@ assert {"fedml_tpu_torch.core.robust", "fedml_tpu_torch.core.adversary",
         "fedml_tpu_torch.peft.personal",
         "fedml_tpu_torch.data.natural", "fedml_tpu_torch.models.gan",
         "fedml_tpu_torch.algorithms.kd", "fedml_tpu_torch.algorithms.gan_core",
-        "fedml_tpu_torch.algorithms.gan_family"} <= set(names), names
+        "fedml_tpu_torch.algorithms.gan_family",
+        "fedml_tpu_torch.algorithms.sgan"} <= set(names), names
 from fedml_tpu_torch.config import ModelConfig
 from fedml_tpu_torch.models import create_model
 model = create_model(ModelConfig(name="transformer_lm", num_classes=37,
@@ -176,6 +177,23 @@ def test_fedgdkd_needs_cuda_unless_asked_for_cpu(monkeypatch):
     assert build_sim(cfg, "cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("algo", ["fedgan", "feddtg", "fedssgan",
+                                  "feduagan"])
+def test_gan_family_needs_cuda_unless_asked_for_cpu(monkeypatch, algo):
+    from fedml_tpu_torch.experiments.harness import build_sim
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ExperimentConfig(
+        data=DataConfig(dataset="fake_mnist", num_clients=4),
+        model=ModelConfig(name="cnn_small", num_classes=10,
+                          input_shape=(28, 28, 1)),
+        fed=FedConfig(algorithm=algo))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_sim(cfg)
+    sim = build_sim(cfg, "cpu")
+    assert sim.device.type == "cpu" and sim.gen.model.device.type == "cpu"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("gen_optimizer", ["adam", "sgd"])
 def test_fedgdkd_rounds_on_the_card_match_the_cpu(gen_optimizer):
@@ -191,3 +209,22 @@ def test_fedgdkd_rounds_on_the_card_match_the_cpu(gen_optimizer):
     torch.backends.cudnn.allow_tf32 = False
     report = chip_smoke.fedgdkd_card_vs_cpu("cuda", gen_optimizer)
     assert report["drift_corrected"] > 0, report
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["fedgan", "feddtg", "fedssgan",
+                                  "feduagan"])
+def test_gan_family_rounds_on_the_card_match_the_cpu(algo):
+    """chip_smoke.py phase 14 (c): two rounds at the CPU parity test's
+    configuration on the card (graph replays) and on the CPU (eager),
+    from the same variables, draws and dropout masks; the check raises
+    unless every leaf is within its band, or within the CPU's own
+    spread."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = chip_smoke.gan_family_card_vs_cpu(algo, "cuda")
+    assert len(report["rounds"]) == 2, report
