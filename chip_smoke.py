@@ -153,14 +153,15 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    final checkpoint equal to an uninterrupted run's, bit for bit or within
    (c)'s spread. The flash counters, set to 0 before the phase, must read
    0 after it.
-11. A "kernels" JSON line, printed after phase 14, with one entry per
+11. A "kernels" JSON line, printed after phase 15, with one entry per
    kernel instance the paths run (flash_attention, the float32 body at
    head dim 32; flash_attention_d16, its head-dim-16 instance; and
    flash_attention_mma, the bf16/fp16 body), each with its launches on
    the transformer path, on the LoRA path, on the ResNet-56 path, on each
    family, in the defended rounds, in the bulk phase, in phase 10 and on
-   the FedGDKD path and on the rest of the GAN family (none of them but
-   the transformer and LoRA paths runs a hand-written kernel), the card's
+   the FedGDKD path, on the rest of the GAN family and in phase 15 (none
+   of them but the transformer and LoRA paths runs a hand-written
+   kernel), the card's
    name and power limit, and last the result line
    {"ok": true, "device": {...}}.
 12. Federated LoRA fine-tuning at the shape of bench.py's --lora-bench
@@ -229,8 +230,29 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    deterministic): every leaf within atol 1e-5, rtol 1e-4, or else a round
    of one step a client within 1e-3 and the rounds within SPREAD_FACTOR
    times the CPU's own spread; (d) the phase's seconds. The flash
-   counters, set to 0 before the phase, must read 0 after it. The
-   "kernels" line comes after it.
+   counters, set to 0 before the phase, must read 0 after it.
+15. The observability planes (core/telemetry.py, perf.py, memscope.py,
+   slo.py, export.py, anatomy.py), each record a JSON line with the
+   card's name and power limit: (a) python -m
+   fedml_tpu_torch.experiments.run at phase 6's configuration for
+   OBS_ROUNDS rounds with --profile_rounds 2, --anatomy, --metrics_port
+   0, an SLO, --mem_headroom_warn 0.001 and --profile_on_breach, its
+   listener scraped while it runs: both capture windows hold device
+   activity (busy within the window), perf.mfu in (0, 1] against the
+   H100's bf16 peak, the memory plane read from the card (source
+   "cuda"), exactly one mem_headroom event and one breach capture, no
+   plane failed, /metrics parses and /statusz shows the round, every
+   anatomy entry conserves its wall, 4 sim_round spans, one noted
+   capture per build; it prints the breakdowns, round 1's top 5 kernels
+   read from its trace, perf.mfu and perf.dispatch_bound_rounds; (b)
+   bench.py's anatomy records (phase_share_local_c64, _c256,
+   critical_path_overhead_pct) on lr, and 3 headline rounds with every
+   plane on but the capture windows equal to 3 with every plane off, bit
+   for bit (cuDNN deterministic for this check alone); (c) FedUAGAN at
+   phase 14's configuration through the harness, 3 rounds, the first
+   captured: a breakdown, perf.rounds_per_s and no perf.mfu; (d) the
+   phase's seconds. The flash counters, set to 0 before the phase, must
+   read 0 after it. The "kernels" line comes after it.
 """
 
 from __future__ import annotations
@@ -3285,6 +3307,406 @@ def gan_family_phase(card: str) -> int:
     return launches
 
 
+# Phase 15: the observability planes on the card (core/telemetry.py,
+# perf.py, memscope.py, slo.py, export.py, anatomy.py)
+
+OBS_ROUNDS = 4  # (a): the headline through the CLI
+OBS_PROFILED = 2  # its capture windows
+OBS_SLO = "perf.round_wall_s:p99<10@60s"
+OBS_HEADROOM = 0.001  # crossed at the first sample: one breach capture
+OBS_BREACH_WINDOW_S = 0.1  # the breach capture closes after one round
+OBS_CLI_TIMEOUT_S = 300
+ANATOMY_ROUNDS = 20  # (b): bench.py anatomy_bench_records' rounds
+ANATOMY_COHORTS = (64, 256)
+INERT_ROUNDS = 3
+UAGAN_ROUNDS = 3  # (c)
+CONSERVE_TOL = 1e-9  # an anatomy entry's phases against its wall
+_SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$")
+
+
+def parse_openmetrics(text: str) -> dict:
+    """The exposition's families by type; raises on a line of no known
+    shape, a sample without its family's ``# TYPE``, or a histogram whose
+    buckets are not cumulative up to ``+Inf`` == ``_count``."""
+    types, samples = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            name, kind = line[len("# TYPE "):].split(" ")
+            types[name] = kind
+            continue
+        m = _SAMPLE.match(line)
+        if m is None:
+            raise RuntimeError(f"/metrics: bad line {line!r}")
+        name, labels, value = m.groups()
+        base = re.sub(r"_(bucket|sum|count)$", "", name)
+        if name not in types and base not in types:
+            raise RuntimeError(f"/metrics: {name} has no # TYPE")
+        samples.setdefault(name, []).append((labels or "", float(value)))
+    for name, kind in types.items():
+        if kind == "histogram":
+            counts = [v for _, v in samples[f"{name}_bucket"]]
+            last = samples[f"{name}_bucket"][-1][0]
+            if (counts != sorted(counts) or 'le="+Inf"' not in last
+                    or counts[-1] != samples[f"{name}_count"][0][1]):
+                raise RuntimeError(f"/metrics: bad histogram {name}")
+    return types
+
+
+def scrape(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=5) as r:
+        return r.read().decode()
+
+
+def watch_listener(proc, tdir: str) -> dict:
+    """Scrape the child's listener until it exits: the last good
+    ``/metrics`` (parsed), every ``/statusz`` run block and memory
+    section, the last ``/tracez``."""
+    seen = {"metrics": None, "runs": [], "memory": None, "tracez": None,
+            "listener_s": None, "first_round_s": None, "last_round_s": None}
+    port = None
+    t0 = time.monotonic()
+    deadline = t0 + OBS_CLI_TIMEOUT_S
+    while proc.poll() is None:
+        if time.monotonic() > deadline:
+            raise RuntimeError("the observability CLI run timed out")
+        time.sleep(0.05)
+        path = os.path.join(tdir, "export_rank0.json")
+        if port is None:
+            if not os.path.exists(path):
+                continue
+            try:
+                port = json.load(open(path))["port"]
+            except ValueError:  # being written
+                continue
+            seen["listener_s"] = time.monotonic() - t0
+        try:
+            seen["metrics"] = parse_openmetrics(scrape(port, "/metrics"))
+            status = json.loads(scrape(port, "/statusz"))
+            if "run" in status:
+                seen["runs"].append(status["run"])
+                seen["last_round_s"] = time.monotonic() - t0
+                if seen["first_round_s"] is None:
+                    seen["first_round_s"] = seen["last_round_s"]
+            seen["memory"] = status.get("memory") or seen["memory"]
+            seen["tracez"] = json.loads(scrape(port, "/tracez"))
+        except OSError:
+            pass  # the listener closed with the process
+    return seen
+
+
+def top_kernels(trace_path: str, n: int = 5) -> list:
+    """The ``n`` kernels with the most device time in a capture, read from
+    its Chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    by_name = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            t = by_name.setdefault(e["name"], [0.0, 0])
+            t[0] += float(e.get("dur", 0.0))
+            t[1] += 1
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [{"kernel": k[:120], "device_ms": us / 1e3, "launches": c}
+            for k, (us, c) in ranked]
+
+
+def obs_headline_cli(card: str, tmp: str, device: str = "cuda") -> None:
+    """(a): the headline through the CLI with every plane on; raises
+    unless each plane did its part on the card."""
+    import dataclasses
+
+    cfg = resnet_config()
+    cfg = dataclasses.replace(cfg, fed=dataclasses.replace(
+        cfg.fed, num_rounds=OBS_ROUNDS))
+    cfg_path = os.path.join(tmp, "headline.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    tdir = os.path.join(tmp, "telemetry")
+    argv = [sys.executable, "-m", "fedml_tpu_torch.experiments.run",
+            "--config", cfg_path, "--profile_rounds", str(OBS_PROFILED),
+            "--anatomy", "--metrics_port", "0", "--metrics_host",
+            "127.0.0.1", "--slo", OBS_SLO, "--mem_headroom_warn",
+            str(OBS_HEADROOM), "--profile_on_breach", "--profile_window_s",
+            str(OBS_BREACH_WINDOW_S), "--telemetry_dir",
+            tdir, "--out_dir", os.path.join(tmp, "runs"), "--run_name",
+            "obs", "--device", device]
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "cli.out"), "w") as out, \
+            open(os.path.join(tmp, "cli.err"), "w") as err:
+        proc = subprocess.Popen(
+            argv, stdout=out, stderr=err,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            seen = watch_listener(proc, tdir)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tail = open(os.path.join(tmp, "cli.err")).read()[-4000:]
+        raise RuntimeError(f"the observability CLI run failed "
+                           f"({proc.returncode}):\n{tail}")
+    perf = json.load(open(os.path.join(tdir, "perf_rank0.json")))
+    metrics = json.load(open(os.path.join(tdir, "metrics_rank0.json")))
+    (flight,) = [f for f in os.listdir(tdir) if f.endswith("_run_end.json")]
+    events = json.load(open(os.path.join(tdir, flight)))["events"]
+    kinds = [e["kind"] for e in events]
+    spans = [e.get("name") for e in json.load(open(
+        os.path.join(tdir, "trace_rank0.json")))["events"]]
+    profiles = os.path.join(tdir, "profiles")
+    breach = sorted(d for d in os.listdir(profiles)
+                    if any(f.endswith(".pt.trace.json") for f in
+                           os.listdir(os.path.join(profiles, d))))
+    rounds = perf["rounds"]
+    g, c, h = metrics["gauges"], metrics["counters"], metrics["histograms"]
+    mfu = g.get("perf.mfu")
+    headroom = [e for e in events if e["kind"] == "mem_headroom"]
+    entries = (seen["tracez"] or {}).get("entries", [])
+    captures = h.get("mem.compile_s.step", {}).get("count", 0)
+    builds = h.get("mem.compile_s.sim_round", {}).get("count", 0)
+    steady = os.path.join(tdir, "torch_profile", "round1",
+                          "rank0.pt.trace.json")
+    record = {
+        "breakdowns": [{k: b[k] for k in (
+            "round", "window_s", "device_busy_s", "compute_frac",
+            "collective_frac", "host_frac", "idle_frac", "n_device_ops",
+            "capture_cost_s")} for b in rounds],
+        "breach_cost_s": [{k: e.get(k) for k in ("stop_s", "write_s")}
+                          for e in events if e["kind"] ==
+                          "breach_profile_done"],
+        "top_kernels_round1": top_kernels(steady),
+        "perf.mfu": mfu, "flops_per_round": perf["flops_per_round"],
+        "perf.dispatch_bound_rounds": c.get("perf.dispatch_bound_rounds", 0),
+        "perf.rounds_per_s": g.get("perf.rounds_per_s"),
+        "round_wall_p50_s": h.get("perf.round_wall_s", {}).get("p50"),
+        "mem_high_water_mb": g.get("mem.high_water_bytes", 0) / 1e6,
+        "mem_used_frac": g.get("mem.used_frac"),
+        "captures": captures, "flight": kinds, "breach_captures": breach,
+        "statusz_rounds": sorted({r["round"] for r in seen["runs"]}),
+        "tracez_entries": len(entries), "sim_round_spans":
+            spans.count("sim_round"), "cli_s": cli_s,
+        "listener_up_s": seen["listener_s"],
+        "first_round_seen_s": seen["first_round_s"],
+        "last_round_seen_s": seen["last_round_s"], "card": card}
+    print(json.dumps({"observability_headline": record}), flush=True)
+    failures = []
+    if len(rounds) != OBS_PROFILED or not all(
+            b["device_planes"] and b["n_device_ops"] > 0
+            and b["device_busy_s"] <= b["window_s"] for b in rounds):
+        failures.append("the capture windows hold no device activity")
+    if mfu is None or not 0 < mfu <= 1:
+        failures.append(f"perf.mfu {mfu} outside (0, 1]")
+    if (len(headroom) != 1 or headroom[0]["source"] != "cuda"
+            or (seen["memory"] or {}).get("source") != "cuda"
+            or g.get("mem.source_rss") != 0.0):
+        failures.append(f"the memory plane did not read the card: "
+                        f"{headroom}, {seen['memory']}")
+    if len(breach) != 1 or kinds.count("breach_profile") != 1 \
+            or kinds.count("breach_profile_done") != 1:
+        failures.append(f"not one breach capture: {breach}")
+    bad = [k for k in kinds if k.endswith("_failed")]
+    if bad:
+        failures.append(f"a plane failed: {bad}")
+    if seen["metrics"] is None or not seen["runs"]:
+        failures.append("the listener served no /metrics or no run block")
+    if not entries or any(
+            abs(sum(e["phases"].values()) - e["wall_s"]) > CONSERVE_TOL
+            for e in entries):
+        failures.append(f"anatomy entries do not conserve: {entries}")
+    if spans.count("sim_round") != OBS_ROUNDS:
+        failures.append(f"{spans.count('sim_round')} sim_round spans")
+    if captures < 1 or captures != builds:
+        failures.append(f"{captures} captures noted for {builds} builds")
+    if failures:
+        raise RuntimeError("phase 15 (a): " + "; ".join(failures))
+
+
+def anatomy_records(card: str, device: str = "cuda") -> None:
+    """(b), bench.py anatomy_bench_records: the lr round's ``local``
+    share of the wall at cohorts 64 and 256, and the plane's cost, the
+    round rate with anatomy on against off on the same captured graphs
+    after a warm-up run (interleaved best-of-3 pairs)."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from fedml_tpu_torch.core.anatomy import ANATOMY
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.models import create_model
+
+    for i, c in enumerate(ANATOMY_COHORTS):
+        cfg = ExperimentConfig(
+            data=DataConfig(dataset="synthetic_1_1", num_clients=c,
+                            batch_size=32, seed=0),
+            model=ModelConfig(name="lr", num_classes=10, input_shape=(60,)),
+            train=TrainConfig(lr=0.1, epochs=1, cohort_fused=False),
+            fed=FedConfig(num_rounds=ANATOMY_ROUNDS, clients_per_round=c,
+                          eval_every=10**9),
+            seed=0)
+        sim = FedAvgSim(create_model(cfg.model, device),
+                        load_dataset(cfg.data), cfg, device)
+        sim.run()  # the warm-up: every capture outside the timed runs
+
+        def timed_run():
+            t0 = time.perf_counter()
+            sim.run()  # ends on the host's read of the last metrics
+            return time.perf_counter() - t0
+
+        offs, ons = [], []
+        try:
+            for _ in range(3):
+                ANATOMY.enabled = False
+                offs.append(timed_run())
+                ANATOMY.reset()
+                ANATOMY.enabled = True
+                ons.append(timed_run())
+            entries = ANATOMY.tracez()["entries"]
+        finally:
+            ANATOMY.reset()
+        local = sum(e["phases"].get("local", 0.0) for e in entries)
+        wall = sum(e["wall_s"] for e in entries)
+        record_line(card, metric=f"phase_share_local_c{c}",
+                    value=100.0 * local / wall, unit="%", cohort=c,
+                    rounds=len(entries), wall_s=wall, dominant=[
+                        e["dominant"] for e in entries][-1])
+        if i == 0:
+            off_s, on_s = min(offs), min(ons)
+            record_line(card, metric="critical_path_overhead_pct",
+                        value=100.0 * (on_s - off_s) / off_s, unit="%",
+                        cohort=c, anatomy_on_s=on_s, anatomy_off_s=off_s,
+                        acceptance_lt_pct=2.0, offs=offs, ons=ons)
+        del sim
+        free_card()
+
+
+def planes_are_inert(card: str, tmp: str, device: str = "cuda") -> None:
+    """(b): the headline's final variables with every plane on but the
+    capture windows (telemetry with its tracer in torch.profiler ranges,
+    the SLO engine, the memory monitor, anatomy) equal the run with every
+    plane off, bit for bit, under cuDNN's deterministic algorithms."""
+    import dataclasses
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.core import anatomy, telemetry
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.models import create_model
+
+    cfg = resnet_config()
+    cfg = dataclasses.replace(cfg, fed=dataclasses.replace(
+        cfg.fed, num_rounds=INERT_ROUNDS))
+    data = load_dataset(cfg.data)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        states = []
+        for on in (False, True):
+            if on:
+                telemetry.configure(telemetry_dir=os.path.join(tmp, "inert"),
+                                    torch_profiler=True, slos=(OBS_SLO,))
+                anatomy.configure(anatomy=True)
+            try:
+                sim = FedAvgSim(create_model(cfg.model, device), data, cfg,
+                                device)
+                states.append({k: v.clone() for k, v in
+                               sim.run().variables.items()})
+                ring = len(anatomy.ANATOMY.tracez()["entries"])
+            finally:
+                telemetry.shutdown()
+            del sim
+            free_card()
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+    differ = [k for k in states[0] if not torch.equal(states[0][k],
+                                                       states[1][k])]
+    print(json.dumps({"planes_inert": {
+        "rounds": INERT_ROUNDS, "leaves": len(states[0]),
+        "differing_leaves": differ, "anatomy_entries_on": ring,
+        "card": card}}), flush=True)
+    if differ or ring != INERT_ROUNDS:
+        raise RuntimeError(f"the planes changed the result: {differ}")
+
+
+def uagan_through_harness(card: str, tmp: str,
+                          device: str = "cuda") -> None:
+    """(c): FedUAGAN at phase 14's configuration through the harness's
+    round loop, its first round captured: a breakdown, the round rate and
+    no MFU (outside the FedAvg family)."""
+    import dataclasses
+
+    from fedml_tpu_torch.core import telemetry
+    from fedml_tpu_torch.experiments.harness import Experiment
+
+    cfg = fedgdkd_config()
+    cfg = dataclasses.replace(
+        cfg, fed=dataclasses.replace(cfg.fed, algorithm="feduagan",
+                                     num_rounds=UAGAN_ROUNDS,
+                                     profile_rounds=1),
+        out_dir=os.path.join(tmp, "runs"), run_name="uagan")
+    tdir = os.path.join(tmp, "uagan_telemetry")
+    telemetry.configure(telemetry_dir=tdir)
+    try:
+        (summary,) = Experiment(cfg, device=device).run()
+        gauges = telemetry.METRICS.snapshot()["gauges"]
+    finally:
+        telemetry.shutdown()
+    perf = json.load(open(os.path.join(tdir, "perf_rank0.json")))
+    (bd,) = perf["rounds"]
+    print(json.dumps({"observability_feduagan": {
+        "breakdown": {k: bd[k] for k in (
+            "window_s", "device_busy_s", "compute_frac", "host_frac",
+            "idle_frac", "n_device_ops")},
+        "perf.rounds_per_s": gauges.get("perf.rounds_per_s"),
+        "perf.mfu": gauges.get("perf.mfu"), "d_loss": summary.get("d_loss"),
+        "card": card}}), flush=True)
+    if not (bd["device_planes"] and bd["n_device_ops"] > 0
+            and "perf.rounds_per_s" in gauges and "perf.mfu" not in gauges
+            and perf["flops_per_round"] is None):
+        raise RuntimeError(f"phase 15 (c): {bd}, {sorted(gauges)}")
+
+
+def observability_phase(card: str) -> int:
+    """Phase 15: (a)-(d). Returns the flash kernels' launches over it
+    (0: neither the headline nor FedUAGAN has attention)."""
+    import tempfile
+
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+
+    t0 = time.perf_counter()
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    tmp = tempfile.mkdtemp(prefix="phase15_")
+    parts = {}
+    try:
+        for name, part in (("a", obs_headline_cli),
+                           ("b_anatomy", lambda c, _: anatomy_records(c)),
+                           ("b_inert", planes_are_inert),
+                           ("c", uagan_through_harness)):
+            t_part = time.perf_counter()
+            part(card, tmp)
+            parts[name] = time.perf_counter() - t_part
+            free_card()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = flash_attention.launches + flash_attention.mma_launches
+    if launches != 0:
+        raise RuntimeError(f"phase 15 launched flash attention {launches} "
+                           "times")
+    record_line(card, metric="phase15_s", value=time.perf_counter() - t0,
+                parts_s=parts)
+    return launches
+
+
 def kernel_entry(name, source, launches, by_path, rows, row,
                  note=None) -> dict:
     """One entry of the "kernels" line: the timed ``row``'s numbers, the
@@ -3339,6 +3761,9 @@ def main() -> int:
     free_card()
     # 14. FedGAN, FedDTG, FedSSGAN and FedUAGAN (no hand kernel)
     paths["gan_family"] = gan_family_phase(card)
+    free_card()
+    # 15. the observability planes (no hand kernel)
+    paths["observability"] = observability_phase(card)
 
     # report: the float32 entry's times are at the transformer path's
     # shape, the D = 16 entry's at the LoRA path's, the tensor-core entry's

@@ -414,10 +414,12 @@ class CohortUpdate:
     card. Without it (the CPU) the same vmapped step runs eagerly. The
     programs, one per lane count, live in :attr:`programs` (a
     :class:`~fedml_tpu_torch.core.elastic.CompiledRoundCache`), whose
-    misses count the captures."""
+    misses count the captures; ``family`` names them to the memory plane
+    (``sim_round``, or ``sim_bulk`` for the bulk engine's blocks)."""
 
     def __init__(self, model: FedModel, task: Task, cfg: TrainConfig,
-                 batch_size: int, graphed: bool, partition=None):
+                 batch_size: int, graphed: bool, partition=None,
+                 family: str = "sim_round"):
         self.batch_size = batch_size
         self.epochs = cfg.epochs
         self.stat_names = model.stat_names
@@ -425,7 +427,7 @@ class CohortUpdate:
         self.init_carry, step = build_local_step(model, task, cfg,
                                                  partition)
         self.vstep = torch.func.vmap(step, in_dims=(0, 0, 0, 0, None))
-        self.programs = CompiledRoundCache(self._program)
+        self.programs = CompiledRoundCache(self._program, family=family)
 
     def _program(self, lanes: int) -> GraphedStep | None:
         """The program for ``lanes`` lanes: a CUDA graph of the step on

@@ -32,6 +32,14 @@ Three round machineries of the JAX package come with it:
   :meth:`FedAvgSim.run` enqueues blocks of K rounds back to back and
   reads each block's metrics back once (:meth:`FedAvgSim.run_block`).
 
+The observability planes ride :meth:`FedAvgSim.run`, off by default: the
+perf pair (``core/perf.py``: capture windows, round rate, MFU), the
+anatomy plane's ``local`` and ``eval`` phases (``core/anatomy.py``), the
+memory sample at each round boundary (``core/memscope.py``) and the
+breach profiler's boundary. Its rounds are also ``sim_round`` tracer
+spans (``sim_block`` for fused blocks) and set the ``/statusz`` run
+block, which the JAX package leaves to its harness's own loop.
+
 PEFT (``FedConfig.peft="lora"``, ``fedml_tpu_torch/peft``): the model's
 targeted projections get LoRA adapters, the clients train only the
 adapters and the LM head, and every aggregation step (adversaries, the
@@ -47,6 +55,8 @@ Settings of the JAX package that this package has not ported make
 from __future__ import annotations
 
 from typing import Any, Callable, Mapping, NamedTuple
+
+import time
 
 import numpy as np
 import torch
@@ -66,12 +76,16 @@ from fedml_tpu_torch.algorithms.stack_utils import (
 )
 from fedml_tpu_torch.config import ExperimentConfig, FedConfig
 from fedml_tpu_torch.core import adversary as A
+from fedml_tpu_torch.core import anatomy as AN
 from fedml_tpu_torch.core import bulk as BK
 from fedml_tpu_torch.core import compress as C
 from fedml_tpu_torch.core import elastic as E
+from fedml_tpu_torch.core import export
 from fedml_tpu_torch.core import fuse as FU
+from fedml_tpu_torch.core import memscope as M
+from fedml_tpu_torch.core import perf as P
 from fedml_tpu_torch.core import random as R
-from fedml_tpu_torch.core import robust
+from fedml_tpu_torch.core import robust, telemetry
 from fedml_tpu_torch.core import statebank as SB
 from fedml_tpu_torch.core import streamdef as SD
 from fedml_tpu_torch.core import tree as T
@@ -103,18 +117,24 @@ def check_ported(cfg: ExperimentConfig) -> None:
 
 def consume_round_counters(train_metrics: dict, counters: dict) -> dict:
     """Pop the counter values out of a round's metrics into ``counters``
-    (``robust.nonfinite_rejected``: client results screened out, summed;
-    ``compress.residual_norm``: the error-feedback carry's norm, the last
-    round's) and return the remaining metrics as floats."""
+    and the registry (``robust.nonfinite_rejected``: client results
+    screened out, summed, with a flight event; ``compress.residual_norm``:
+    the error-feedback carry's norm, the last round's) and return the
+    remaining metrics as floats. Every round loop passes here once a
+    round, as the host reads the round's metrics: the memory plane's
+    round-boundary sample is taken here."""
     rejected = float(train_metrics.pop("nonfinite_rejected", 0.0))
     if rejected:
-        counters["robust.nonfinite_rejected"] = (
-            counters.get("robust.nonfinite_rejected", 0.0) + rejected
-        )
+        telemetry.add_count(counters, "robust.nonfinite_rejected", rejected)
+        telemetry.RECORDER.record("nonfinite_rejected", count=rejected,
+                                  path="sim")
     residual = train_metrics.pop("compress_residual_norm", None)
     if residual is not None:
-        counters["compress.residual_norm"] = float(residual)
-    return {k: float(v) for k, v in train_metrics.items()}
+        telemetry.set_gauge(counters, "compress.residual_norm",
+                            float(residual))
+    out = {k: float(v) for k, v in train_metrics.items()}
+    M.MONITOR.sample()
+    return out
 
 
 class ServerState(NamedTuple):
@@ -423,6 +443,7 @@ class FedAvgSim:
         self.cohort_update = CohortUpdate(
             model, self.task, cfg.train, self.batch_size,
             graphed=self.device.type == "cuda", partition=partition,
+            family="sim_bulk" if cfg.fed.client_block_size else "sim_round",
         )
         num_clients = self.arrays.num_clients
         cohort = min(cfg.fed.clients_per_round, num_clients)
@@ -486,6 +507,8 @@ class FedAvgSim:
              "gauss": cfg.adversary.seed, "collude": cfg.adversary.seed,
              "proj": cfg.seed}, self.device)
         self.counters: dict[str, float] = {}
+        # the memory plane samples this simulation's device
+        M.MONITOR.attach(self.device, cfg.fed.mem_headroom_warn)
 
     def _sample(self, round_idx, num_clients, clients_per_round):
         return R.sample_clients(R.generator(self.cfg.seed, round_idx),
@@ -537,12 +560,13 @@ class FedAvgSim:
         full-model-equivalent wire reduction."""
         plan = self.peft
         trainable, frozen = plan.counts(variables)
-        self.counters["peft.trainable_params"] = float(trainable)
-        self.counters["peft.frozen_params"] = float(frozen)
-        self.counters["peft.adapter_wire_mb"] = (
-            plan.adapter_wire_bytes(variables) / 1e6)
-        self.counters["peft.wire_ratio"] = PF.compound_wire_ratio(
-            plan, self.cspec, variables)
+        c = self.counters
+        telemetry.set_gauge(c, "peft.trainable_params", trainable)
+        telemetry.set_gauge(c, "peft.frozen_params", frozen)
+        telemetry.set_gauge(c, "peft.adapter_wire_mb",
+                            plan.adapter_wire_bytes(variables) / 1e6)
+        telemetry.set_gauge(c, "peft.wire_ratio", PF.compound_wire_ratio(
+            plan, self.cspec, variables))
 
     def _personalized(self) -> bool:
         return self.peft is not None and self.peft.personalized
@@ -703,8 +727,8 @@ class FedAvgSim:
         c = next(iter(stacked_vars.values())).shape[0]
         if self.ef_residual is None:
             self.ef_residual = C.zero_residual(state.variables, c)
-            self.counters["compress.ratio"] = C.wire_ratio(self.cspec,
-                                                           state.variables)
+            telemetry.set_gauge(self.counters, "compress.ratio",
+                                C.wire_ratio(self.cspec, state.variables))
         stacked, residual = self._wire(state, stacked_vars,
                                        self.ef_residual, range(c))
         if live is not None:
@@ -1111,7 +1135,8 @@ class FedAvgSim:
         wire = self._view_vars(state.variables)
         self.ef_bank = SB.ClientStateBank.zeros(
             "ef_residual", wire, self.arrays.num_clients)
-        self.counters["compress.ratio"] = C.wire_ratio(self.cspec, wire)
+        telemetry.set_gauge(self.counters, "compress.ratio",
+                            C.wire_ratio(self.cspec, wire))
         SB.note_bank(self.ef_bank, self.counters)
 
     def _ensure_adapter_bank(self, state: ServerState) -> None:
@@ -1124,7 +1149,8 @@ class FedAvgSim:
         rows = PP.init_bank(self.peft, state.variables,
                             self.arrays.num_clients)
         self.adapter_bank = SB.ClientStateBank("adapter", rows)
-        self.counters["peft.personal_bank_mb"] = PP.bank_bytes(rows) / 1e6
+        telemetry.set_gauge(self.counters, "peft.personal_bank_mb",
+                            PP.bank_bytes(rows) / 1e6)
         SB.note_bank(self.adapter_bank, self.counters)
 
     def bank_state(self) -> dict:
@@ -1160,27 +1186,61 @@ class FedAvgSim:
         m = self.evaluator(state.variables, self.arrays.x, self.arrays.y)
         return {k: float(v) for k, v in m.items()}
 
+    def _anatomy_path(self) -> str:
+        """The anatomy ring's name for the round's body."""
+        if self._bulk.enabled():
+            return "bulk"
+        if self._personalized():
+            return "personal"
+        return "stacked"
+
     def run(self, metrics_sink=None) -> ServerState:
         """The round loop: train, log the round's metrics, evaluate every
         ``eval_every`` rounds and after the last. With ``fuse_rounds >
-        1`` the loop runs in fused blocks (:meth:`_run_fused`)."""
+        1`` the loop runs in fused blocks (:meth:`_run_fused`). With
+        ``profile_rounds > 0`` the perf pair rides along
+        (``core/perf.py``), and the anatomy plane times the ``local`` and
+        ``eval`` phases; the round's wall and its ``local`` phase end when
+        the host has read the round's metrics (the round's one sync), so
+        they cover the device's work, not the enqueueing."""
         state = self.init()
         fed = self.cfg.fed
-        if self._fuse > 1:
-            return self._run_fused(state, metrics_sink)
-        for r in range(fed.num_rounds):
-            state, train_m = self.run_round(state)
-            record = {"round": r,
-                      **consume_round_counters(train_m, self.counters)}
-            if (r + 1) % fed.eval_every == 0 or r == fed.num_rounds - 1:
-                test_m = self.evaluate_global(state)
-                record.update({"test_acc": test_m["acc"],
-                               "test_loss": test_m["loss"]})
-            if metrics_sink is not None:
-                metrics_sink.log(record)
+        rp = P.RoundPerf(self)
+        try:
+            if self._fuse > 1:
+                return self._run_fused(state, metrics_sink, rp.profiler,
+                                       rp.monitor)
+            anat = AN.ANATOMY.enabled
+            path = self._anatomy_path()
+            for r in range(fed.num_rounds):
+                export.set_round(r, self.cfg)
+                if anat:
+                    AN.ANATOMY.begin_round(r, path=path)
+                with rp.round(r), telemetry.maybe_span("sim_round", round=r):
+                    state, train_m = self.run_round(state)
+                    t_disp = time.perf_counter() if anat else 0.0
+                    record = {"round": r, **consume_round_counters(
+                        train_m, self.counters)}
+                    if anat:
+                        AN.ANATOMY.phase("local",
+                                         time.perf_counter() - t_disp)
+                if (r + 1) % fed.eval_every == 0 or r == fed.num_rounds - 1:
+                    t_ev = time.perf_counter() if anat else 0.0
+                    test_m = self.evaluate_global(state)
+                    if anat:
+                        AN.ANATOMY.phase("eval", time.perf_counter() - t_ev)
+                    record.update({"test_acc": test_m["acc"],
+                                   "test_loss": test_m["loss"]})
+                if metrics_sink is not None:
+                    metrics_sink.log(record)
+                if anat:
+                    AN.ANATOMY.end_round()
+        finally:
+            rp.close()
         return state
 
-    def _run_fused(self, state: ServerState, metrics_sink) -> ServerState:
+    def _run_fused(self, state: ServerState, metrics_sink, profiler=None,
+                   monitor=None) -> ServerState:
         """The round loop in blocks of up to ``fuse_rounds`` rounds
         (``core/fuse.py`` ``drive``, shared with the harness): block k + 1
         is enqueued before block k's metrics come back, and the blocks
@@ -1204,9 +1264,15 @@ class FedAvgSim:
                 metrics_sink.log(record)
 
         def boundary_hook(r_last, last):
+            export.set_round(r_last, self.cfg)
             if (r_last + 1) % fed.eval_every == 0 or (
                     r_last == fed.num_rounds - 1):
+                anat = AN.ANATOMY.enabled
+                t_ev = time.perf_counter() if anat else 0.0
                 test_m = self.evaluate_global(box[0])
+                if anat:
+                    # the block's entry closed at its flush
+                    AN.ANATOMY.amend_last("eval", time.perf_counter() - t_ev)
                 last.update({"test_acc": test_m["acc"],
                              "test_loss": test_m["loss"]})
             log(last)
@@ -1215,7 +1281,9 @@ class FedAvgSim:
             run_block, FU.plan_blocks(0, fed.num_rounds, self._fuse,
                                       fed.eval_every),
             make_records=make_records, log=log, boundary_hook=boundary_hook,
-            programs=self.cohort_update.programs)
+            programs=self.cohort_update.programs, profiler=profiler,
+            monitor=monitor, span=lambda start, rounds: telemetry.maybe_span(
+                "sim_block", start=start, rounds=rounds))
         return box[0]
 
 

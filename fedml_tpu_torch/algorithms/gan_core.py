@@ -134,11 +134,12 @@ def dynamic_trip_count(n_k: int, batch_size: int, max_steps: int) -> int:
     return min(-(-int(n_k) // batch_size), max_steps)
 
 
-def graph_programs(graphed: bool, fn) -> CompiledRoundCache:
+def graph_programs(graphed: bool, fn, family: str) -> CompiledRoundCache:
     """One program per lane count: a CUDA graph of ``fn`` on the card (a
-    graph takes its shapes from its first run), None on the CPU."""
+    graph takes its shapes from its first run), None on the CPU; its builds
+    are the memory plane's programs of ``family``."""
     return CompiledRoundCache(
-        lambda lanes: GraphedStep(fn) if graphed else None)
+        lambda lanes: GraphedStep(fn) if graphed else None, family=family)
 
 
 def run_steps(programs: CompiledRoundCache, lanes: int, step: Callable,
@@ -242,7 +243,7 @@ class GanCohortUpdate:
         self.g_grad = torch.func.grad_and_value(self._g_loss, has_aux=True)
         self.d_grad = torch.func.grad_and_value(self._d_loss, has_aux=True)
         self.vstep = torch.func.vmap(self._lane_step)
-        self.programs = graph_programs(graphed, self._graph_step)
+        self.programs = graph_programs(graphed, self._graph_step, "gan_step")
 
     @property
     def graph(self) -> GraphedStep | None:
@@ -423,7 +424,7 @@ class KDUpdate:
         self.grad = torch.func.grad_and_value(self._loss, has_aux=True)
         self.vstep = torch.func.vmap(self._lane_step,
                                      in_dims=(0, None, None, 0))
-        self.programs = graph_programs(graphed, self._graph_step)
+        self.programs = graph_programs(graphed, self._graph_step, "kd_step")
 
     @property
     def graph(self) -> GraphedStep | None:

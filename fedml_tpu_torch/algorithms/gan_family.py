@@ -60,6 +60,8 @@ from fedml_tpu_torch.algorithms.stack_utils import (
     vmap_init,
 )
 from fedml_tpu_torch.config import ExperimentConfig
+from fedml_tpu_torch.core import memscope as M
+from fedml_tpu_torch.core import perf as P
 from fedml_tpu_torch.core import random as R
 from fedml_tpu_torch.core import tree as T
 from fedml_tpu_torch.core.device import resolve_device, to_device
@@ -113,6 +115,8 @@ class GanSim:
                 raise ValueError(f"the {name} is on {m.device}, the "
                                  f"simulation on {self.device}")
         self.gen, self.cfg = gen, cfg
+        # the memory plane samples this simulation's device
+        M.MONITOR.attach(self.device, cfg.fed.mem_headroom_warn)
         self.task = make_task(data.task)
         self.arrays, self.batch_size = arrays_and_batch(data, cfg.data,
                                                         self.device)
@@ -412,18 +416,28 @@ class FedGDKDSim(GanSim):
 
     def run(self, metrics_sink=None) -> FedGDKDState:
         """The round loop: train, log the round's losses, evaluate the
-        clients every ``eval_every`` rounds and after the last."""
+        clients every ``eval_every`` rounds and after the last. With
+        ``profile_rounds > 0`` the perf pair rides along
+        (``core/perf.py``: capture windows and the round rate, no MFU),
+        each round's window and wall ending once the host has read its
+        losses."""
         state = self.init()
         fed = self.cfg.fed
-        for r in range(fed.num_rounds):
-            state, m = self.run_round(state)
-            record = {"round": r, **{k: float(v) for k, v in m.items()}}
-            if (r + 1) % fed.eval_every == 0 or r == fed.num_rounds - 1:
-                ev = self.evaluate_clients(state)
-                record.update({"test_acc": ev["test_acc"],
-                               "test_loss": ev["test_loss"]})
-            if metrics_sink is not None:
-                metrics_sink.log(record)
+        rp = P.RoundPerf(self)
+        try:
+            for r in range(fed.num_rounds):
+                with rp.round(r):
+                    state, m = self.run_round(state)
+                    record = {"round": r,
+                              **{k: float(v) for k, v in m.items()}}
+                if (r + 1) % fed.eval_every == 0 or r == fed.num_rounds - 1:
+                    ev = self.evaluate_clients(state)
+                    record.update({"test_acc": ev["test_acc"],
+                                   "test_loss": ev["test_loss"]})
+                if metrics_sink is not None:
+                    metrics_sink.log(record)
+        finally:
+            rp.close()
         return state
 
 
@@ -497,7 +511,8 @@ class DTGCohortUpdate:
         self.d_grad = torch.func.grad_and_value(self._d_loss, has_aux=True)
         self.c_grad = torch.func.grad_and_value(self._c_loss, has_aux=True)
         self.vstep = torch.func.vmap(self._lane_step)
-        self.programs = G.graph_programs(graphed, self._graph_step)
+        self.programs = G.graph_programs(graphed, self._graph_step,
+                                           "dtg_step")
 
     @property
     def graph(self):

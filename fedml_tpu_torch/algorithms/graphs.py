@@ -4,15 +4,23 @@ The host cost of an eager local step is thousands of kernel launches
 (ResNet-56: about 4,600), each a few microseconds of device work. A CUDA
 graph launches them all at once: the step is captured once, and each
 later step is one replay.
+
+Each capture is a program of the memory plane (``core/memscope.py``,
+family ``step``): its static buffers' bytes, the carry's (written in
+place: output and alias), the growth of the reserved memory across the
+capture, and the capture's wall time, warm-up included.
 """
 
 from __future__ import annotations
 
 import gc
+import hashlib
+import time
 from typing import Callable, Sequence
 
 import torch
 
+from fedml_tpu_torch.core import memscope, telemetry
 from fedml_tpu_torch.core import tree as T
 
 # eager calls on a side stream before the capture: cuDNN and cuBLAS pick
@@ -96,6 +104,9 @@ class GraphedStep:
                    self.fn(self.carry, self.consts, self.fixed, self.inputs))
 
     def _capture(self, carry, consts, fixed, inputs) -> None:
+        noted = telemetry.METRICS.enabled
+        if noted:
+            t0 = time.perf_counter()
         self._signature = _shapes((carry, consts, inputs))
         self.carry, self.consts, self.inputs = (
             T.tree_map(torch.clone, t) for t in (carry, consts, inputs))
@@ -110,6 +121,7 @@ class GraphedStep:
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
+        reserved = torch.cuda.memory_reserved() if noted else 0
         try:
             with torch.cuda.graph(graph):
                 self._body()
@@ -117,3 +129,18 @@ class GraphedStep:
             if collecting:
                 gc.enable()
         self.graph = graph
+        if noted:
+            self._note(t0, torch.cuda.memory_reserved() - reserved)
+
+    def _note(self, t0: float, pool_bytes: int) -> None:
+        """The capture as a program: keyed by its lane count and a digest
+        of its shape signature."""
+        leaves = T.tree_leaves(self.carry)
+        lanes = int(leaves[0].shape[0]) if leaves and leaves[0].dim() else 1
+        digest = hashlib.sha1(repr(self._signature).encode()).hexdigest()[:8]
+        carry_bytes = memscope.tree_bytes(self.carry)
+        memscope.note_program(
+            "step", (lanes, digest), compile_s=time.perf_counter() - t0,
+            argument_bytes=memscope.tree_bytes((self.consts, self.inputs)),
+            output_bytes=carry_bytes, alias_bytes=carry_bytes,
+            temp_bytes=pool_bytes)

@@ -133,7 +133,8 @@ class UADiscUpdate:
         self.grad = torch.func.grad_and_value(self._loss, has_aux=True)
         self.vstep = torch.func.vmap(self._lane_step,
                                      in_dims=(0, 0, 0, 0, None, None, 0))
-        self.programs = G.graph_programs(graphed, self._graph_step)
+        self.programs = G.graph_programs(graphed, self._graph_step,
+                                           "ua_disc_step")
 
     @property
     def graph(self):

@@ -122,6 +122,27 @@ class FedConfig:
     # keep each client's adapters in a private per-client bank: only the
     # LM head aggregates (fedml_tpu_torch/peft/personal.py)
     peft_personalize: bool = False
+    # the observability planes (core/perf.py, memscope.py, slo.py,
+    # anatomy.py), all off by default, where they cost one attribute
+    # check a round and change no result:
+    # torch.profiler windows around the first K rounds, each parsed into
+    # a device-time breakdown, and the live perf.* gauges (round rate,
+    # MFU, the dispatch-bound detector) for the whole run; 0 = off
+    profile_rounds: int = 0
+    # the used share of device memory at which the memory monitor leaves
+    # its one mem_headroom flight event
+    mem_headroom_warn: float = 0.9
+    # declarative SLOs ("perf.round_wall_s:p99<2.0@60s"), evaluated on
+    # the metrics time series' cadence; empty = no engine
+    slos: tuple[str, ...] = ()
+    # per-phase attribution of each round's wall time (perf.phase.*, the
+    # /tracez ring)
+    anatomy: bool = False
+    # a one-shot torch.profiler window on an SLO breach transition or the
+    # mem_headroom crossing, under <telemetry_dir>/profiles/
+    profile_on_breach: bool = False
+    profile_window_s: float = 5.0  # its length (> 0)
+    profile_max_captures: int = 3  # the run's cap (>= 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,9 +277,10 @@ class ExperimentConfig:
                     v = tuple(v)
                 elif k == "ranks" and isinstance(v, Sequence):
                     v = tuple(int(r) for r in v)
-                elif k == "lora_targets" and isinstance(v, Sequence) \
+                elif k in ("lora_targets", "slos") \
+                        and isinstance(v, Sequence) \
                         and not isinstance(v, str):
-                    v = tuple(v)
+                    v = tuple(str(s) for s in v)
                 kw[k] = v
             return cls(**kw)
 

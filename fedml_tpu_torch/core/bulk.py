@@ -43,6 +43,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from fedml_tpu_torch.core import telemetry
 from fedml_tpu_torch.core import tree as T
 from fedml_tpu_torch.core.elastic import bucket_for
 
@@ -152,8 +153,9 @@ def note_round(counters: dict, block_size: int, n_blocks: int,
                padded_slots: int, rounds: int = 1) -> None:
     """The bulk engine's per-round accounting, under the JAX package's
     names: ``bulk.block_size``, ``bulk.blocks_per_round`` and
-    ``bulk.padded_slots`` (gauges) and ``bulk.rounds`` (a count)."""
-    counters["bulk.block_size"] = float(block_size)
-    counters["bulk.blocks_per_round"] = float(n_blocks)
-    counters["bulk.padded_slots"] = float(padded_slots)
-    counters["bulk.rounds"] = counters.get("bulk.rounds", 0.0) + rounds
+    ``bulk.padded_slots`` (gauges) and ``bulk.rounds`` (a count), in
+    ``counters`` and the registry."""
+    telemetry.set_gauge(counters, "bulk.block_size", block_size)
+    telemetry.set_gauge(counters, "bulk.blocks_per_round", n_blocks)
+    telemetry.set_gauge(counters, "bulk.padded_slots", padded_slots)
+    telemetry.add_count(counters, "bulk.rounds", float(rounds))

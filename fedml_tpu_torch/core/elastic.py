@@ -17,7 +17,9 @@ compiler: here a program is a local step of one lane count
 CUDA graph on the card and run eagerly on the CPU, and
 :class:`CompiledRoundCache` holds them. A round that built no new program
 (on the card: replayed the graph it had) counts a hit, one that built one
-(on the card: captured) a miss, under the JAX package's names.
+(on the card: captured) a miss, under the JAX package's names, and each
+build is a program of the memory plane (``core/memscope.py``
+``note_program``: its build time).
 
 The live count and the mask are on the host (the JAX package traces
 them), so nothing here reads the device.
@@ -25,11 +27,13 @@ them), so nothing here reads the device.
 
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 from typing import Callable, Hashable
 
 import torch
 
+from fedml_tpu_torch.core import memscope, telemetry
 from fedml_tpu_torch.core import tree as T
 from fedml_tpu_torch.core.device import to_device
 
@@ -94,12 +98,14 @@ class CompiledRoundCache:
     the program for ``key``, building it with ``build(key)`` on a miss;
     past ``max_entries`` the least recently used is dropped (a dropped
     CUDA graph frees its memory pool). ``stats`` counts hits, misses and
-    evictions."""
+    evictions. A build is noted as a program of ``family`` (the memory
+    plane's ``mem.compile_s.<family>``)."""
 
     def __init__(self, build: Callable[[Hashable], object],
-                 max_entries: int = 8):
+                 max_entries: int = 8, family: str = "program"):
         self._build = build
         self.max_entries = max_entries
+        self.family = family
         self._cache: OrderedDict = OrderedDict()
         self.stats = {"hits": 0, "misses": 0, "evictions": 0}
         self.last = None  # the program the last call returned
@@ -109,7 +115,10 @@ class CompiledRoundCache:
             self._cache.move_to_end(key)
             self.stats["hits"] += 1
         else:
+            t0 = time.perf_counter()
             self._cache[key] = self._build(key)
+            memscope.note_program(self.family, key,
+                                  compile_s=time.perf_counter() - t0)
             self.stats["misses"] += 1
             if len(self._cache) > self.max_entries:
                 self._cache.popitem(last=False)
@@ -123,13 +132,17 @@ class CompiledRoundCache:
 
 def mirror_jit_cache(cache: CompiledRoundCache, call: Callable,
                      counters: dict):
-    """Run ``call()`` (one round) and count it in ``counters`` as
-    ``elastic.compile_cache_misses`` if it built a program in ``cache``,
-    else as ``elastic.compile_cache_hits``."""
-    before = cache.stats["misses"]
+    """Run ``call()`` (one round) and count it, in ``counters`` and the
+    registry, as ``elastic.compile_cache_misses`` if it built a program in
+    ``cache``, else as ``elastic.compile_cache_hits``; the programs it
+    evicted count ``elastic.compile_cache_evictions`` in the registry."""
+    before = dict(cache.stats)
     out = call()
     name = ("elastic.compile_cache_misses"
-            if cache.stats["misses"] > before
+            if cache.stats["misses"] > before["misses"]
             else "elastic.compile_cache_hits")
-    counters[name] = counters.get(name, 0) + 1
+    telemetry.add_count(counters, name)
+    evicted = cache.stats["evictions"] - before["evictions"]
+    if evicted:
+        telemetry.METRICS.inc("elastic.compile_cache_evictions", evicted)
     return out

@@ -21,19 +21,22 @@ replay (``algorithms/graphs.py``).
   copies them once, without blocking, into pinned host memory and records
   a CUDA event; ``flush`` waits on that event, the block's only sync;
 - :func:`drive` is the loop, shared by ``FedAvgSim._run_fused`` and the
-  harness's ``Experiment._fused_loop`` so the two cannot drift.
-
-The JAX package's ``drive`` also feeds the perf monitor, the anatomy
-plane, profiler captures and tracer spans; those wait for the port's
-observability planes (ROADMAP Queue A item 11).
+  harness's ``Experiment._fused_loop`` so the two cannot drift. It feeds
+  the observability planes as the JAX package's does: the perf monitor
+  (a block's wall over its rounds), a profiler window around a whole
+  block (the pipeline drained before it), the anatomy plane's entry per
+  block, a tracer span per block, and the breach profiler's boundary.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Iterable, Iterator, NamedTuple
 
 import torch
+
+from fedml_tpu_torch.core import anatomy as AN
 
 
 def plan_blocks(start: int, total: int, fuse: int, eval_every: int,
@@ -133,7 +136,8 @@ def drive(run_block: Callable[[int], dict],
           make_records: Callable[[int, list[dict]], list[dict]],
           log: Callable[[dict], None],
           boundary_hook: Callable[[int, dict], None],
-          programs=None) -> list[Flushed]:
+          programs=None, profiler=None, monitor=None,
+          span: Callable[[int, int], Any] | None = None) -> list[Flushed]:
     """The fused round loop.
 
     - ``run_block(length)`` enqueues one block and returns its stacked
@@ -148,16 +152,33 @@ def drive(run_block: Callable[[int], dict],
     - ``programs`` (a :class:`~fedml_tpu_torch.core.elastic.
       CompiledRoundCache`) marks a block ``compiled`` when it built a
       program there (a CUDA graph capture, the port's analog of a fresh
-      trace).
+      trace);
+    - ``profiler`` and ``monitor`` (``core/perf.py``'s pair, or None): a
+      block the profiler wants is captured whole, and each block's wall,
+      over its rounds, feeds the monitor (a ``compiled`` block stays out
+      of the round-latency surface, as a warm-up round does);
+    - ``span(start, length)`` wraps each enqueueing in a context manager
+      (tracer spans).
 
     Block k + 1 is enqueued before block k's metrics are fetched; the
-    pipeline drains at boundaries. Returns every block, flushed, in
+    pipeline drains at boundaries and around a profiled block. Each
+    flushed block is one anatomy entry: ``local`` is the flush's wait,
+    the enqueueing and the rows' conversion fall in ``host_gap``, and the
+    boundary's evaluation amends it. Returns every block, flushed, in
     order (its wall times and ``compiled`` flags)."""
     pipeline = BlockPipeline()
     done: list[Flushed] = []
 
     def emit(flushed: Flushed, hold_last: bool = False):
         done.append(flushed)
+        if monitor is not None:
+            monitor.note_block(flushed.wall_s, flushed.length,
+                               compiled=flushed.compiled)
+        if AN.ANATOMY.enabled:
+            AN.ANATOMY.begin_round(flushed.start, path="fused",
+                                   rounds=flushed.length)
+            AN.ANATOMY.phase("local", flushed.get_wait_s)
+            AN.ANATOMY.end_round(wall_s=flushed.wall_s)
         records = make_records(flushed.start, flushed.rows)
         last = records.pop() if hold_last else None
         for rec in records:
@@ -168,15 +189,28 @@ def drive(run_block: Callable[[int], dict],
         return programs.stats["misses"] if programs is not None else 0
 
     for bstart, blen, boundary in blocks:
+        capturing = profiler is not None and profiler.wants_capture
+        if capturing:
+            # the window holds exactly this block's work
+            prev = pipeline.flush()
+            if prev is not None:
+                emit(prev)
+            profiler.start_round(bstart)
         before = misses()
         t0 = time.perf_counter()
-        metrics = run_block(blen)
+        with (span(bstart, blen) if span is not None
+              else contextlib.nullcontext()):
+            metrics = run_block(blen)
         prev = pipeline.push(bstart, blen, metrics, t0, misses() > before)
         if prev is not None:
             emit(prev)
-        if boundary:
-            boundary_hook(bstart + blen - 1,
-                          emit(pipeline.flush(), hold_last=True))
+        if boundary or capturing:
+            last = emit(pipeline.flush(), hold_last=boundary)
+            if capturing:
+                profiler.end_round(bstart, rounds=blen)
+            AN.poll_breach(profiler)
+            if boundary:
+                boundary_hook(bstart + blen - 1, last)
     final = pipeline.flush()
     if final is not None:
         emit(final)

@@ -32,6 +32,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from fedml_tpu_torch.core import telemetry
 from fedml_tpu_torch.core import tree as T
 from fedml_tpu_torch.core.device import to_device
 
@@ -157,14 +158,17 @@ def pad_ids(ids, n_slots: int, sentinel: int) -> np.ndarray:
 
 
 def note_bank(bank: ClientStateBank, counters: dict) -> None:
-    """The bank's footprint into ``counters``, at its creation."""
-    counters["bank.rows"] = float(bank.num_rows)
-    counters["bank.row_bytes"] = float(bank.row_bytes())
-    counters["bank.resident_mb"] = bank.resident_bytes() / 1e6
+    """The bank's footprint into ``counters`` and the registry's gauges,
+    at its creation."""
+    telemetry.set_gauge(counters, "bank.rows", bank.num_rows)
+    telemetry.set_gauge(counters, "bank.row_bytes", bank.row_bytes())
+    telemetry.set_gauge(counters, "bank.resident_mb",
+                        bank.resident_bytes() / 1e6)
 
 
 def note_round_io(counters: dict, gathers: int, scatters: int) -> None:
-    """A round's gathers and scatters (one per block and bank and pass)."""
+    """A round's gathers and scatters (one per block and bank and pass),
+    counted in ``counters`` and the registry."""
     for name, n in (("bank.gathers", gathers), ("bank.scatters", scatters)):
         if n:
-            counters[name] = counters.get(name, 0) + n
+            telemetry.add_count(counters, name, n)

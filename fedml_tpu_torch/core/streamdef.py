@@ -40,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-from fedml_tpu_torch.core import robust
+from fedml_tpu_torch.core import robust, telemetry
 from fedml_tpu_torch.core import tree as T
 
 Tree = dict[str, torch.Tensor]
@@ -293,9 +293,11 @@ def sketch_mb(method: str, flat_dim: int, n_slots: int) -> float:
 
 def note_defense(counters: dict, method: str, flat_dim: int,
                  n_slots: int) -> None:
-    """The sketch's gauges, under the JAX package's names."""
-    counters["defense.sketch_bins"] = float(
-        HIST_BINS if method in QUANTILE_METHODS else 0)
-    counters["defense.sketch_proj_dim"] = float(
-        PROJ_DIM if method in PROJECTION_METHODS else 0)
-    counters["defense.sketch_mb"] = sketch_mb(method, flat_dim, n_slots)
+    """The sketch's gauges, under the JAX package's names, in
+    ``counters`` and the registry."""
+    telemetry.set_gauge(counters, "defense.sketch_bins",
+                        HIST_BINS if method in QUANTILE_METHODS else 0)
+    telemetry.set_gauge(counters, "defense.sketch_proj_dim",
+                        PROJ_DIM if method in PROJECTION_METHODS else 0)
+    telemetry.set_gauge(counters, "defense.sketch_mb",
+                        sketch_mb(method, flat_dim, n_slots))

@@ -20,9 +20,13 @@ one, as in the JAX package. A sim without ``run`` (all of the GAN family
 but FedGDKD) goes through the harness's round loop, and one without an
 evaluator (FedGAN, FedSSGAN, FedUAGAN) logs no evaluation.
 
-The JAX package's perf monitor, profiler captures, anatomy, tracer spans
-and ``/statusz`` run state wait for the port's observability planes
-(ROADMAP Queue A item 11).
+The observability planes ride the loops as in the JAX package: a sim's
+own ``run`` is one ``sim_run`` tracer span; the harness's round loop
+builds the perf pair (``core/perf.py``: capture windows, round rate; MFU
+for the FedAvg family only), sets the ``/statusz`` run block, wraps each
+round in a ``sim_round`` span and notes its wall after the host has read
+its metrics; the fused loop does the same by block (``sim_block``
+spans, ``core/fuse.py`` ``drive``).
 """
 
 from __future__ import annotations
@@ -45,7 +49,10 @@ from fedml_tpu_torch.algorithms.gan_family import (
 )
 from fedml_tpu_torch.algorithms.sgan import FedSSGANSim, FedUAGANSim
 from fedml_tpu_torch.config import ExperimentConfig
+from fedml_tpu_torch.core import export
 from fedml_tpu_torch.core import fuse as FU
+from fedml_tpu_torch.core import perf as P
+from fedml_tpu_torch.core import telemetry
 from fedml_tpu_torch.data import load_dataset
 from fedml_tpu_torch.metrics import MetricsSink
 from fedml_tpu_torch.models import create_model
@@ -158,7 +165,9 @@ class Experiment:
                 "running per round", stacklevel=2)
         if cfg.checkpoint_every <= 0:
             if hasattr(sim, "run"):
-                sim.run(metrics_sink=sink)
+                # a sim's own loop: one span over the whole run
+                with telemetry.maybe_span("sim_run", sim=type(sim).__name__):
+                    sim.run(metrics_sink=sink)
             else:
                 Experiment._round_loop(sim, cfg, sink, sim.init(), 0, None)
             return
@@ -201,14 +210,25 @@ class Experiment:
 
     @staticmethod
     def _round_loop(sim, cfg, sink, state, start_round, ckpt) -> None:
-        for r in range(start_round, cfg.fed.num_rounds):
-            state, m = sim.run_round(state)
-            record = Experiment._record(r, start_round, m, sim.counters)
-            if Experiment._is_eval(cfg, r):
-                record.update(Experiment._eval_record(sim, state))
-            sink.log(record)
-            if ckpt is not None and Experiment._is_ckpt(cfg, r):
-                Experiment._save_state(ckpt, sim, r, state)
+        """The per-round loop, with the perf pair (inert unless
+        ``profile_rounds > 0``): a round's capture window and wall end
+        after the host has read its metrics (``_record``), so they cover
+        the device's work."""
+        rp = P.RoundPerf(sim)
+        try:
+            for r in range(start_round, cfg.fed.num_rounds):
+                export.set_round(r, cfg)
+                with rp.round(r), telemetry.maybe_span("sim_round", round=r):
+                    state, m = sim.run_round(state)
+                    record = Experiment._record(r, start_round, m,
+                                                sim.counters)
+                if Experiment._is_eval(cfg, r):
+                    record.update(Experiment._eval_record(sim, state))
+                sink.log(record)
+                if ckpt is not None and Experiment._is_ckpt(cfg, r):
+                    Experiment._save_state(ckpt, sim, r, state)
+        finally:
+            rp.close()
 
     @staticmethod
     def _fused_loop(sim, cfg, sink, state, start_round, ckpt) -> None:
@@ -216,6 +236,16 @@ class Experiment:
         ``FedAvgSim._run_fused``): the blocks end on every evaluation and
         checkpoint round, so both see the state the per-round loop
         would."""
+        rp = P.RoundPerf(sim)
+        try:
+            Experiment._drive_blocks(sim, cfg, sink, state, start_round,
+                                     ckpt, rp.profiler, rp.monitor)
+        finally:
+            rp.close()
+
+    @staticmethod
+    def _drive_blocks(sim, cfg, sink, state, start_round, ckpt, profiler,
+                      monitor) -> None:
         box = [state]
 
         def run_block(length):
@@ -228,6 +258,7 @@ class Experiment:
                     for i, row in enumerate(rows)]
 
         def boundary_hook(r_last, last):
+            export.set_round(r_last, cfg)
             if Experiment._is_eval(cfg, r_last):
                 last.update(Experiment._eval_record(sim, box[0]))
             sink.log(last)
@@ -241,7 +272,9 @@ class Experiment:
                                       cfg.checkpoint_every),
             make_records=make_records, log=sink.log,
             boundary_hook=boundary_hook,
-            programs=sim.cohort_update.programs)
+            programs=sim.cohort_update.programs, profiler=profiler,
+            monitor=monitor, span=lambda start, rounds: telemetry.maybe_span(
+                "sim_block", start=start, rounds=rounds))
 
     @staticmethod
     def _save_state(ckpt: RoundCheckpointer, sim, r: int, state) -> None:

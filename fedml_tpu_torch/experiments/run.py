@@ -14,10 +14,17 @@ elastic buckets (``--elastic``), fused blocks (``--fuse_rounds``), LoRA
 fine-tuning (``--peft lora``, ``--lora_rank``, ``--lora_alpha``,
 ``--lora_targets``, ``--peft_personalize``) and the harness's flags
 (``--repetitions``, ``--run_name``, ``--out_dir``,
-``--checkpoint_every``). Config precedence: ``--config`` JSON (the full
-:class:`ExperimentConfig` shape, the same file the JAX package reads)
-overridden by explicit flags. Client momentum and weight decay come in
-through ``--config``, and so does FedProx's ``prox_mu``. The run goes
+``--checkpoint_every``) and the observability planes' (``--telemetry_dir``,
+``--trace``, ``--trace_torch``, ``--profile_rounds``, ``--metrics_interval``,
+``--mem_headroom_warn``, ``--metrics_port``, ``--metrics_host``, ``--slo``,
+``--anatomy``, ``--profile_on_breach``, ``--profile_window_s``,
+``--profile_max_captures``; any of them switches telemetry on for the
+process, its artifacts under ``--telemetry_dir`` or
+``<out_dir>/<run_name>/telemetry``). Config precedence: ``--config``
+JSON (the full :class:`ExperimentConfig` shape, the same file the JAX
+package reads) overridden by explicit flags. Client momentum and
+weight decay come in through ``--config``, and so does FedProx's
+``prox_mu``. The run goes
 through :class:`~fedml_tpu_torch.experiments.harness.Experiment` on
 ``--device`` (default ``cuda``, which raises without a card), writes
 ``<out_dir>/<run_name>_rep<k>/`` and prints each repetition's summary as
@@ -34,6 +41,7 @@ import json
 import sys
 
 from fedml_tpu_torch.config import ADVERSARY_MODES, ExperimentConfig
+from fedml_tpu_torch.core import anatomy, telemetry
 from fedml_tpu_torch.core.bulk import BulkSpec, check_bulk_compat
 from fedml_tpu_torch.core.compress import METHODS, CompressionSpec
 from fedml_tpu_torch.core.device import resolve_device
@@ -41,6 +49,7 @@ from fedml_tpu_torch.core.robust import (
     DefensePipeline,
     check_fednova_compat,
 )
+from fedml_tpu_torch.core.slo import parse_specs
 from fedml_tpu_torch.peft import (
     LORA_TARGETS,
     LoRASpec,
@@ -185,6 +194,104 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda; 'cpu' only "
                         "when asked)")
+    # -- the observability planes (core/telemetry.py, perf.py,
+    # memscope.py, export.py, slo.py, anatomy.py) ------------------------
+    p.add_argument("--telemetry_dir", type=str, default=None,
+                   help="enable the telemetry plane and write THIS "
+                        "rank's artifacts here: trace_rank<r>.json span "
+                        "dump, metrics_rank<r>.json snapshot, "
+                        "flight_rank<r>_*.json crash rings")
+    p.add_argument("--trace", action="store_true",
+                   help="enable span tracing + metrics without naming a "
+                        "directory (dumps to <out_dir>/<run>/telemetry; "
+                        "implied by --telemetry_dir)")
+    p.add_argument("--trace_torch", action="store_true",
+                   help="additionally wrap tracer spans in "
+                        "torch.profiler.record_function so device "
+                        "timelines line up with host spans in a "
+                        "torch.profiler capture")
+    p.add_argument("--profile_rounds", type=int, default=None,
+                   help="capture a torch.profiler window around each of "
+                        "the first K rounds and parse it into a "
+                        "per-round device-time breakdown (compute/"
+                        "collective/host/idle) under "
+                        "<telemetry_dir>/torch_profile/, plus live "
+                        "perf.* gauges (round rate, MFU, dispatch-"
+                        "bound detector) for the whole run; composes "
+                        "with --trace_torch (span annotations land "
+                        "inside the captures). Implies telemetry.")
+    p.add_argument("--metrics_interval", type=float, default=None,
+                   help="seconds between periodic metrics snapshots "
+                        "appended to metrics_rank<r>.jsonl in the "
+                        "telemetry dir (round-latency SLO time "
+                        "series: histograms carry p50/p95/p99); "
+                        "implies telemetry")
+    p.add_argument("--mem_headroom_warn", type=float, default=None,
+                   help="used fraction of device memory at which "
+                        "the memory monitor leaves its one "
+                        "mem_headroom flight-recorder event (default "
+                        "0.9). The monitor itself rides the telemetry "
+                        "plane: mem.bytes_in_use/mem.peak_bytes gauges "
+                        "at round boundaries from torch.cuda.memory_stats "
+                        "(the process's RSS for a run on the CPU), "
+                        "per-program mem.program.* accounting at every "
+                        "CUDA graph capture")
+    p.add_argument("--metrics_port", type=int, default=None,
+                   help="serve THIS rank's live metrics over HTTP: "
+                        "/metrics (OpenMetrics text a stock Prometheus "
+                        "scrape parses, with real histogram buckets), "
+                        "/statusz (JSON run introspection: round, "
+                        "memory, SLO verdicts), /healthz — all on one "
+                        "stdlib listener. 0 binds an ephemeral port "
+                        "(read it back from export_rank<r>.json in "
+                        "the telemetry dir); unset (default) opens no "
+                        "socket. Implies telemetry")
+    p.add_argument("--metrics_host", type=str, default="0.0.0.0",
+                   help="interface the metrics listener binds "
+                        "(default 0.0.0.0 so a remote Prometheus can "
+                        "scrape; the endpoints are unauthenticated "
+                        "and /statusz exposes run introspection — on "
+                        "a shared network bind 127.0.0.1)")
+    p.add_argument("--slo", action="append", default=None,
+                   metavar="SPEC",
+                   help="declarative SLO (repeatable), e.g. "
+                        "'perf.round_wall_s:p99<2.0@60s': metric, "
+                        "statistic (p50/p95/p99/mean/max/min over the "
+                        "window, 'value' for gauges, 'rate' for "
+                        "counters), healthy relation, threshold, "
+                        "window. Evaluated on the metrics time-series "
+                        "cadence; exports slo.ok/slo.breach_seconds/"
+                        "slo.burn_rate gauges, records ONE flight "
+                        "event per breach transition, and writes "
+                        "slo_rank<r>.json verdicts at shutdown. "
+                        "Implies telemetry")
+    p.add_argument("--anatomy", action="store_true",
+                   help="enable the round-anatomy plane: per-phase "
+                        "wall-time attribution (perf.phase.* "
+                        "histograms + dominant-phase gauge) timed at "
+                        "the sync points each round path already has, "
+                        "and a last-N-rounds /tracez ring on the "
+                        "--metrics_port listener. Off (default) costs "
+                        "one attribute check per round and keeps "
+                        "results byte-identical. Implies telemetry")
+    p.add_argument("--profile_on_breach", action="store_true",
+                   help="arm a one-shot torch.profiler deep-profile "
+                        "window fired on an SLO breach TRANSITION or "
+                        "the mem_headroom crossing, written under "
+                        "<telemetry_dir>/profiles/ with a flight "
+                        "event linking breach -> artifact path. "
+                        "Requires an armed breach source (--slo or "
+                        "--mem_headroom_warn). The window opens and "
+                        "closes at round boundaries, after the "
+                        "--profile_rounds windows. Implies telemetry")
+    p.add_argument("--profile_window_s", type=float, default=None,
+                   help="breach-profile capture window in seconds "
+                        "(> 0; default 5)")
+    p.add_argument("--profile_max_captures", type=int, default=None,
+                   help="lifetime cap on breach-profile captures "
+                        "(>= 1; default 3) — re-armed breaches after "
+                        "the cap are counted in profile.skipped, "
+                        "never captured")
     a = p.parse_args(argv)
 
     if a.config:
@@ -246,6 +353,13 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
             lora_alpha=a.lora_alpha,
             lora_targets=tuple(a.lora_targets) if a.lora_targets else None,
             peft_personalize=True if a.peft_personalize else None,
+            profile_rounds=a.profile_rounds,
+            mem_headroom_warn=a.mem_headroom_warn,
+            slos=tuple(a.slo) if a.slo else None,
+            anatomy=True if a.anatomy else None,
+            profile_on_breach=True if a.profile_on_breach else None,
+            profile_window_s=a.profile_window_s,
+            profile_max_captures=a.profile_max_captures,
         ),
         adversary=rep(
             cfg.adversary,
@@ -274,6 +388,7 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
     except ValueError as err:
         raise SystemExit(str(err)) from err
     check_peft(cfg)
+    check_observability(cfg, a)
     if bulk.enabled():
         check_bulk_compat(cfg.fed, cfg.adversary)
         if bulk.block_size >= cfg.fed.clients_per_round:
@@ -315,13 +430,82 @@ def check_peft(cfg: ExperimentConfig) -> None:
             "'lora' label")
 
 
+def check_observability(cfg: ExperimentConfig, a) -> None:
+    """The observability planes' settings, checked at parse time against
+    the merged config, as the JAX CLI does: ``SystemExit`` for a
+    malformed ``--slo``, a port out of range, a headroom outside (0, 1],
+    a breach window or cap out of range, or ``--profile_on_breach``
+    without a breach source; a warning for breach knobs without
+    ``--profile_on_breach``."""
+    fed = cfg.fed
+    try:
+        if fed.slos:
+            parse_specs(fed.slos)
+        if a.metrics_port is not None and not 0 <= a.metrics_port < 65536:
+            raise ValueError(f"--metrics_port must be in [0, 65535] (0 = "
+                             f"ephemeral), got {a.metrics_port}")
+        if not 0.0 < fed.mem_headroom_warn <= 1.0:
+            raise ValueError(
+                f"--mem_headroom_warn is a used FRACTION of device memory "
+                f"in (0, 1], got {fed.mem_headroom_warn}")
+        if fed.profile_window_s <= 0:
+            raise ValueError(f"--profile_window_s must be > 0, got "
+                             f"{fed.profile_window_s}")
+        if fed.profile_max_captures < 1:
+            raise ValueError(f"--profile_max_captures must be >= 1, got "
+                             f"{fed.profile_max_captures}")
+        if fed.profile_on_breach and not fed.slos \
+                and a.mem_headroom_warn is None:
+            # without a breach source the armed profiler never fires
+            raise ValueError(
+                "--profile_on_breach needs an armed breach source: add "
+                "--slo spec(s) and/or an explicit --mem_headroom_warn "
+                "threshold")
+    except ValueError as err:
+        raise SystemExit(str(err)) from err
+    if (fed.profile_window_s != 5.0 or fed.profile_max_captures != 3) \
+            and not fed.profile_on_breach:
+        print("warning: --profile_window_s/--profile_max_captures are "
+              "inert without --profile_on_breach", file=sys.stderr)
+
+
+def configure_telemetry(cfg: ExperimentConfig, a, device) -> None:
+    """Switch the planes on for this process when any of their flags is
+    set: telemetry (its directory, the tracer, the time series, the
+    listener, the SLO engine), then the anatomy plane and the breach
+    profiler on ``device``."""
+    fed = cfg.fed
+    if not (a.telemetry_dir or a.trace or a.trace_torch
+            or fed.profile_rounds or a.metrics_interval
+            or a.metrics_port is not None or fed.slos or fed.anatomy
+            or fed.profile_on_breach):
+        return
+    telemetry.configure(
+        telemetry_dir=a.telemetry_dir
+        or telemetry.default_dir(cfg.out_dir, cfg.run_name),
+        rank=0, torch_profiler=a.trace_torch,
+        metrics_interval=a.metrics_interval, metrics_port=a.metrics_port,
+        metrics_host=a.metrics_host, slos=fed.slos,
+        slo_scope=cfg.run_name)
+    if fed.anatomy or fed.profile_on_breach:
+        anatomy.configure(anatomy=fed.anatomy,
+                          profile_on_breach=fed.profile_on_breach,
+                          profile_window_s=fed.profile_window_s,
+                          profile_max_captures=fed.profile_max_captures,
+                          device=device)
+
+
 def main(argv=None) -> int:
     from fedml_tpu_torch.experiments.harness import Experiment
 
     cfg, a = parse_args(argv)
     device = resolve_device(a.device)  # no card: raise before any file
+    configure_telemetry(cfg, a, device)
     for summary in Experiment(cfg, a.repetitions, device).run():
         print(json.dumps(summary, default=float))
+    # the run's flight ring (mem_headroom, breach profiles, the
+    # dispatch-bound detector, ...) as flight_rank<r>_<n>_run_end.json
+    telemetry.flight_dump("run_end")
     return 0
 
 

@@ -1,6 +1,9 @@
 """Metrics sink: a step log and a latest-value summary, as JSONL + dict.
 
-``close()`` writes the summary as ``summary.json`` next to the JSONL.
+``close()`` writes the summary as ``summary.json`` next to the JSONL;
+while the telemetry registry is on, the summary carries its histograms
+(count, sum, min, max and the p50/p95/p99 estimates) under
+``telemetry_histograms``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -9,6 +12,8 @@ import json
 import os
 import time
 from typing import Any
+
+from fedml_tpu_torch.core import telemetry
 
 
 def _json_default(v):
@@ -42,11 +47,20 @@ class MetricsSink:
 
     def close(self) -> None:
         if self.path:
+            summary = dict(self.summary)
+            if telemetry.METRICS.enabled:
+                hists = telemetry.METRICS.snapshot()["histograms"]
+                if hists:
+                    keep = ("count", "sum", "min", "max", "p50", "p95",
+                            "p99")
+                    summary["telemetry_histograms"] = {
+                        name: {k: h[k] for k in keep if k in h}
+                        for name, h in hists.items()}
             spath = os.path.join(
                 os.path.dirname(self.path) or ".", "summary.json"
             )
             with open(spath, "w") as f:
-                json.dump(self.summary, f, indent=2, default=_json_default)
+                json.dump(summary, f, indent=2, default=_json_default)
         if self._fh:
             self._fh.close()
             self._fh = None

@@ -25,7 +25,8 @@ SOURCES = sorted((ROOT / "fedml_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_round.py",
     ROOT / "scripts" / "resnet_parity_spread.py",
     ROOT / "scripts" / "time_torch_flash.py",
-    ROOT / "scripts" / "cohort_band_loop.py"]
+    ROOT / "scripts" / "cohort_band_loop.py",
+    ROOT / "scripts" / "observability_smoke.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -70,7 +71,11 @@ assert {"fedml_tpu_torch.core.robust", "fedml_tpu_torch.core.adversary",
         "fedml_tpu_torch.data.natural", "fedml_tpu_torch.models.gan",
         "fedml_tpu_torch.algorithms.kd", "fedml_tpu_torch.algorithms.gan_core",
         "fedml_tpu_torch.algorithms.gan_family",
-        "fedml_tpu_torch.algorithms.sgan"} <= set(names), names
+        "fedml_tpu_torch.algorithms.sgan", "fedml_tpu_torch.core.tracing",
+        "fedml_tpu_torch.core.telemetry", "fedml_tpu_torch.core.perf",
+        "fedml_tpu_torch.core.memscope", "fedml_tpu_torch.core.slo",
+        "fedml_tpu_torch.core.export",
+        "fedml_tpu_torch.core.anatomy"} <= set(names), names
 from fedml_tpu_torch.config import ModelConfig
 from fedml_tpu_torch.models import create_model
 model = create_model(ModelConfig(name="transformer_lm", num_classes=37,
