@@ -153,15 +153,15 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    final checkpoint equal to an uninterrupted run's, bit for bit or within
    (c)'s spread. The flash counters, set to 0 before the phase, must read
    0 after it.
-11. A "kernels" JSON line, printed after phase 15, with one entry per
+11. A "kernels" JSON line, printed after phase 16, with one entry per
    kernel instance the paths run (flash_attention, the float32 body at
    head dim 32; flash_attention_d16, its head-dim-16 instance; and
    flash_attention_mma, the bf16/fp16 body), each with its launches on
    the transformer path, on the LoRA path, on the ResNet-56 path, on each
    family, in the defended rounds, in the bulk phase, in phase 10 and on
-   the FedGDKD path, on the rest of the GAN family and in phase 15 (none
-   of them but the transformer and LoRA paths runs a hand-written
-   kernel), the card's
+   the FedGDKD path, on the rest of the GAN family, in phase 15 and on
+   the distillation path of phase 16 (none of them but the transformer
+   and LoRA paths runs a hand-written kernel), the card's
    name and power limit, and last the result line
    {"ok": true, "device": {...}}.
 12. Federated LoRA fine-tuning at the shape of bench.py's --lora-bench
@@ -252,7 +252,29 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    phase 14's configuration through the harness, 3 rounds, the first
    captured: a breakdown, perf.rounds_per_s and no perf.mfu; (d) the
    phase's seconds. The flash counters, set to 0 before the phase, must
-   read 0 after it. The "kernels" line comes after it.
+   read 0 after it.
+16. The distillation family and the dropout classifier
+   (algorithms/distill.py, models/vision.py CNNDropOut), each record a
+   JSON line with the card's name and power limit: (a) FedAvg over cnn
+   (CNN_DropOut, its keep masks drawn a group at a time) at FAMILY_SPECS
+   femnist_cnn's shape, 3 rounds, then one more under
+   torch.cuda.set_sync_debug_mode("error") with one graph replay per
+   group-step; (b) FedMD, FD+FAug and FedArjun at phase 13's data
+   configuration with cnn (10 classes) and GanConfig's defaults: init
+   (FedMD's pretraining), 3 rounds with finite metrics and the clients'
+   test loss finite, every phase's graph replays counted against its
+   group-steps, one round under sync debug, client accuracies in [0, 1],
+   FD's teacher flags after round 1 on for every label another client
+   saw, the round rate over DISTILL_RATE_ROUNDS more; a round of a cohort
+   of 5 leaves FedMD's and FD's unsampled clients bit for bit; (c) FedAvg
+   over cnn and each algorithm at the CPU test's configuration
+   (tests/test_torch_distill.py) on the card and on the CPU from the same
+   variables, draws and masks (TF32 off, cuDNN deterministic), two rounds
+   (FedMD: its pretraining and two rounds) within atol 1e-5, rtol 1e-4,
+   or else a round of one step a client within 1e-3 and the rounds
+   within SPREAD_FACTOR times the CPU's own spread; (d) the phase's
+   seconds. The flash counters, set to 0 before the phase, must read 0
+   after it. The "kernels" line comes after it.
 """
 
 from __future__ import annotations
@@ -3158,8 +3180,10 @@ def tiny_gan_config(algo: str):
         seed=1)
 
 
-# the fields of a GAN-family state that hold model variables
-MODEL_FIELDS = ("gen_vars", "disc_vars", "disc_stack", "cls_stack")
+# the fields of a GAN-family, distillation or FedAvg state that hold
+# model variables
+MODEL_FIELDS = ("gen_vars", "disc_vars", "disc_stack", "cls_stack",
+                "model_stack", "adapter_vars", "local_stack", "variables")
 
 
 def move_state(state, device, perturb: float = 0.0):
@@ -3707,6 +3731,354 @@ def observability_phase(card: str) -> int:
     return launches
 
 
+# Phase 16: the distillation family (algorithms/distill.py) and the
+# dropout classifier (models/vision.py CNNDropOut)
+DISTILL = ("fedmd", "fd_faug", "fedarjun")
+DISTILL_ROUNDS = 3
+DISTILL_RATE_ROUNDS = 4
+DISTILL_SUBSET = 5  # (b)'s cohort that leaves clients unsampled
+TINY_DISTILL = dict(public_size=32, kd_epochs=1, digest_epochs=1,
+                    revisit_epochs=1, pretrain_epochs_public=1,
+                    pretrain_epochs_private=1)
+
+
+def distill_sim(algo: str, cfg, n_train: int, device: str = "cuda",
+                n_test: int = 1000, **hooks):
+    """``algo``'s sim as the harness builds it (``experiments/harness.py``
+    ``_build_distill``; "fedavg": FedAvgSim) on fake_mnist data."""
+    import dataclasses
+
+    from fedml_tpu_torch.algorithms import distill as D
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.data.loaders import make_fake_image_dataset
+    from fedml_tpu_torch.models import create_model
+
+    data = make_fake_image_dataset("mnist", cfg.data, n_train=n_train,
+                                   n_test=n_test)
+    model = create_model(cfg.model, device)
+    if algo == "fedavg":
+        return FedAvgSim(model, data, cfg, device, **hooks)
+    if algo == "fedmd":
+        return D.FedMDSim(model, data, cfg, device, **hooks)
+    if algo == "fd_faug":
+        return D.FDSim(model, data, cfg, device, **hooks)
+    local = create_model(dataclasses.replace(cfg.model, name="lr"), device)
+    return D.FedArjunSim(model, local, data, cfg, device, **hooks)
+
+
+def distill_config(algo: str, cpr: int = 10):
+    """Phase 13's data configuration (fedgdkd_config) with cnn at 10
+    classes and GanConfig's defaults (public 1,024, kd_lambda 1.0,
+    kd_gamma 0.1, kd_epochs 5, T 4)."""
+    import dataclasses
+
+    cfg = fedgdkd_config(cpr=cpr)
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, name="cnn"),
+        fed=dataclasses.replace(cfg.fed, algorithm=algo))
+
+
+def distill_replays(sim) -> int:
+    """The graph replays over every update of ``sim`` and every lane
+    count (a graph per lane count)."""
+    return sum(g.replays for u in vars(sim).values()
+               if hasattr(u, "programs") for g in u.programs.values()
+               if g is not None)
+
+
+def cnn_fedavg_bench(card: str) -> None:
+    """(a): FedAvg over cnn at femnist_cnn's shape: 3 rounds, one more
+    under set_sync_debug_mode("error"), one replay per group-step."""
+    import dataclasses
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.models import create_model
+
+    cfg, data = family_setup("femnist_cnn")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                             name="cnn"))
+    sim = FedAvgSim(create_model(cfg.model), data, cfg)
+    if not sim.model.has_dropout:
+        raise RuntimeError("cnn has no dropout")
+    state = sim.init()
+    losses, times = [], []
+    for _ in range(DISTILL_ROUNDS):
+        state, m, dt = timed_round(sim, state)
+        losses.append(float(m["train_loss"]))
+        times.append(dt)
+    cohort = cohort_report(sim)
+    before = sim.cohort_update.graph.replays
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = sim.run_round(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    synced = cohort_report(sim, before)
+    final = sim.evaluate_global(state)
+    losses.append(float(m["train_loss"]))
+    print(json.dumps({"fedavg_cnn_femnist": {
+        "clients": cfg.data.num_clients, "parameters": sum(
+            v.numel() for v in state.variables.values()),
+        "mask_values_per_sample": sum(
+            math.prod(s) for s in sim.model.mask_sites.values()),
+        "train_loss": losses, "round_seconds": times, "cohort": cohort,
+        "round_under_sync_debug_error": synced,
+        "test_loss": final["loss"], "test_acc": final["acc"],
+        "card": card}}), flush=True)
+    if not all(math.isfinite(x) for x in losses + [final["loss"]]):
+        raise RuntimeError(f"FedAvg over cnn: non-finite loss {losses}")
+    if synced["graph_replays"] != synced["group_steps_last_round"]:
+        raise RuntimeError(f"replays are not one per group-step: {synced}")
+
+
+def distill_round(sim, state):
+    """One timed round; returns the state, the metrics as floats, its
+    seconds, and its replays against its group-steps."""
+    before = distill_replays(sim)
+    state, m, dt = timed_round(sim, state)
+    return (state, {k: float(v) for k, v in m.items()}, dt,
+            {"replays": distill_replays(sim) - before,
+             "group_steps": sum(sim.last_steps.values()),
+             "by_phase": dict(sim.last_steps)})
+
+
+def teachers_expected(sim) -> torch.Tensor:
+    """FD's flags after a round of every client: client i's flag for
+    label l is on where some other client holds a sample of l."""
+    a = sim.arrays
+    labels = a.y.index_select(0, a.idx.flatten()).view(a.idx.shape)
+    seen = torch.zeros(a.num_clients, a.num_classes, dtype=torch.bool,
+                       device=a.y.device)
+    for c in range(a.num_clients):
+        seen[c, labels[c][a.mask[c] > 0].long()] = True
+    others = seen.sum(0)[None] - seen.long()
+    return others > 0
+
+
+def distill_bench(algo: str, card: str) -> None:
+    """(b) for one algorithm."""
+    sim = distill_sim(algo, distill_config(algo), 6000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = sim.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    record = {"algorithm": algo, "init_s": init_s,
+              "init_replays": distill_replays(sim),
+              "init_group_steps": dict(sim.last_steps) if algo == "fedmd"
+              else {}, "rounds": [], "card": card}
+    if algo == "fedmd" and record["init_replays"] != sum(
+            sim.last_steps.values()):
+        raise RuntimeError(f"pretraining replays: {record}")
+    for r in range(DISTILL_ROUNDS):
+        state, m, dt, rep = distill_round(sim, state)
+        record["rounds"].append({"metrics": m, "seconds": dt, **rep,
+                                 "groups": sim.last_groups})
+        if rep["replays"] != rep["group_steps"] or rep["replays"] <= 0:
+            raise RuntimeError(f"{algo}: replays are not one per "
+                               f"group-step: {rep}")
+        if algo == "fd_faug" and r == 0:
+            want = teachers_expected(sim)
+            if not torch.equal(state.has_teacher, want):
+                raise RuntimeError("FD's teacher flags after round 1 are "
+                                   "not the labels other clients saw")
+    before = distill_replays(sim)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = sim.run_round(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    record["round_under_sync_debug_error"] = {
+        "metrics": {k: float(v) for k, v in m.items()},
+        "replays": distill_replays(sim) - before,
+        "group_steps": sum(sim.last_steps.values())}
+    if (record["round_under_sync_debug_error"]["replays"]
+            != record["round_under_sync_debug_error"]["group_steps"]):
+        raise RuntimeError(f"{algo}: replays under sync debug: {record}")
+    ev = sim.evaluate_clients(state)
+    record.update(test_acc=ev["test_acc"], test_loss=ev["test_loss"])
+    values = [v for row in record["rounds"] for v in row["metrics"].values()]
+    if not all(math.isfinite(v) for v in values + [ev["test_loss"]]):
+        raise RuntimeError(f"{algo}: non-finite loss: {record}")
+    if not all(0.0 <= a <= 1.0 for a in ev["per_client_acc"]):
+        raise RuntimeError(f"client accuracies outside [0, 1]: {ev}")
+    rate = []
+    for _ in range(DISTILL_RATE_ROUNDS):
+        state, _, dt, _ = distill_round(sim, state)
+        rate.append(dt)
+    print(json.dumps({f"{algo}_10c": record}), flush=True)
+    record_line(card, metric=f"{algo}_rounds_per_sec_10c_mnist_cnn",
+                value=DISTILL_RATE_ROUNDS / sum(rate), unit="rounds/s",
+                round_seconds=rate,
+                note=f"smoke figure: host clock around each of "
+                     f"{DISTILL_RATE_ROUNDS} rounds after "
+                     f"{DISTILL_ROUNDS + 1}, each ending in a synchronize")
+    del sim
+    if algo != "fedarjun":
+        free_card()
+        unsampled_check(algo, card)
+
+
+def unsampled_check(algo: str, card: str) -> None:
+    """(b): a round of a cohort of DISTILL_SUBSET (FedMD without its
+    pretraining) leaves the unsampled clients' models (and FD's teachers
+    and flags) bit for bit."""
+    import numpy as np
+
+    cfg = distill_config(algo, cpr=DISTILL_SUBSET)
+    sim = distill_sim(algo, cfg, 6000)
+    start = sim.init(pretrain=False) if algo == "fedmd" else sim.init()
+    state, _ = sim.run_round(start)
+    idle = torch.from_numpy(np.setdiff1d(
+        np.arange(cfg.data.num_clients), sim._cohort(0))).cuda()
+    moved = []
+    for name in ("model_stack", "teacher", "has_teacher"):
+        if not hasattr(start, name):
+            continue
+        old, new = getattr(start, name), getattr(state, name)
+        pairs = (old.items() if isinstance(old, dict)
+                 else [(name, old)])
+        for k, v in pairs:
+            n = new[k] if isinstance(new, dict) else new
+            if not torch.equal(n.index_select(0, idle),
+                               v.index_select(0, idle)):
+                moved.append(k)
+    print(json.dumps({f"{algo}_unsampled": {
+        "idle_clients": idle.tolist(), "changed": moved, "card": card}}),
+        flush=True)
+    if moved:
+        raise RuntimeError(f"{algo} changed unsampled clients: {moved}")
+
+
+def tiny_distill_config(algo: str):
+    """The CPU test's configuration (tests/test_torch_distill.py
+    tiny_cfg): 4 clients, hetero 0.3, 2 a round, cnn, batch 8, lr 0.05,
+    public 32, one KD epoch; FD at kd_gamma 0.3, FedArjun at kd_lambda
+    0.5."""
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        GanConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+
+    gan = {"fd_faug": {"kd_gamma": 0.3},
+           "fedarjun": {"kd_lambda": 0.5}}.get(algo, {})
+    return ExperimentConfig(
+        data=DataConfig(dataset="fake_mnist", num_clients=4,
+                        partition_method="hetero", partition_alpha=0.3,
+                        batch_size=8, seed=0),
+        model=ModelConfig(name="cnn", num_classes=10,
+                          input_shape=(28, 28, 1)),
+        train=TrainConfig(lr=0.05, epochs=1),
+        fed=FedConfig(algorithm=algo, num_rounds=2, clients_per_round=2),
+        gan=GanConfig(**TINY_DISTILL, **gan), seed=0)
+
+
+def distill_states(sim, algo: str, start, n: int = 2) -> list:
+    """FedMD: the pretrained state and ``n`` rounds after it; the others:
+    ``n`` rounds."""
+    if algo != "fedmd":
+        return rounds_of(sim, start, n)
+    state = start._replace(model_stack=sim.pretrain(start.model_stack))
+    return [state] + rounds_of(sim, state, n)
+
+
+def distill_card_vs_cpu(algo: str, device: str = "cuda") -> dict:
+    """(c) for one algorithm (or "fedavg", over cnn): the states on the
+    card against the CPU's within GAN_BAND, else a round of one step a
+    client within GAN_FIRST_STEP and the states within SPREAD_FACTOR times
+    the CPU's own spread under a PERTURB relative change of the start."""
+    from fedml_tpu_torch.algorithms.distill import DistillSim
+    from fedml_tpu_torch.core import random as R
+
+    cfg = tiny_distill_config(algo)
+    keep = {"d0": 0.75, "d1": 0.5}
+    cpu_draws = R.DeviceDraws({s: 0 for s in DistillSim.STREAMS}, "cpu",
+                              p={s: keep for s in DistillSim.STREAMS})
+
+    def sim_on(dev):
+        return distill_sim(algo, cfg, 96, dev, n_test=32, draws=lambda *a: {
+            k: v.to(dev) for k, v in cpu_draws(*a).items()})
+
+    deterministic = torch.backends.cudnn.deterministic
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        t0 = time.perf_counter()
+        cpu, card = sim_on("cpu"), sim_on(device)
+        start = cpu.init(pretrain=False) if algo == "fedmd" else cpu.init()
+        want = distill_states(cpu, algo, start)
+        got = distill_states(card, algo, move_state(start, device))
+        errs = [gan_state_err(g, w) for g, w in zip(got, want)]
+        report = {"algorithm": algo,
+                  "states": [{"max_abs_err": e, "band_use": u}
+                             for e, u in errs], **GAN_BAND}
+        if max(u for _, u in errs) > 1.0:
+            one = [sim_on(d) for d in ("cpu", device)]
+            for sim in one:  # one step a client an epoch
+                if isinstance(sim, DistillSim):
+                    sim.steps_per_epoch = 1
+                else:
+                    sim.max_n = sim.batch_size
+            first = gan_state_err(
+                distill_states(one[1], algo, move_state(start, device),
+                               1)[-1],
+                distill_states(one[0], algo, start, 1)[-1])[0]
+            perturbed = distill_states(cpu, algo,
+                                       move_state(start, "cpu", PERTURB))
+            row = {"first_step_max_abs_err": first,
+                   "card_vs_cpu": max(e for e, _ in errs),
+                   "cpu_spread": max(gan_state_err(p, w)[0]
+                                     for p, w in zip(perturbed, want)),
+                   "spread_factor": SPREAD_FACTOR}
+            report.update(row)
+            if (first > GAN_FIRST_STEP or row["card_vs_cpu"]
+                    > SPREAD_FACTOR * row["cpu_spread"]):
+                raise RuntimeError(f"{algo} card vs CPU outside the band "
+                                   f"and the spread: {report}")
+        report["seconds"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = benchmark
+    return report
+
+
+def distillation_phase(card: str) -> int:
+    """Phase 16: (a)-(d). Returns the flash kernels' launches over it
+    (0: neither CNN_DropOut nor lr has attention)."""
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+
+    t0 = time.perf_counter()
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    parts = {}
+    t_part = time.perf_counter()
+    cnn_fedavg_bench(card)
+    parts["a"] = time.perf_counter() - t_part
+    free_card()
+    for algo in DISTILL:
+        t_part = time.perf_counter()
+        distill_bench(algo, card)
+        parts[f"b_{algo}"] = time.perf_counter() - t_part
+        free_card()
+    t_part = time.perf_counter()
+    for algo in ("fedavg",) + DISTILL:
+        print(json.dumps({"distill_card_vs_cpu": distill_card_vs_cpu(algo),
+                          "device": card}), flush=True)
+    parts["c"] = time.perf_counter() - t_part
+    launches = flash_attention.launches + flash_attention.mma_launches
+    if launches != 0:
+        raise RuntimeError(f"phase 16 launched flash attention {launches} "
+                           "times")
+    record_line(card, metric="phase16_s", value=time.perf_counter() - t0,
+                parts_s=parts)
+    return launches
+
+
 def kernel_entry(name, source, launches, by_path, rows, row,
                  note=None) -> dict:
     """One entry of the "kernels" line: the timed ``row``'s numbers, the
@@ -3764,6 +4136,10 @@ def main() -> int:
     free_card()
     # 15. the observability planes (no hand kernel)
     paths["observability"] = observability_phase(card)
+    free_card()
+    # 16. the distillation family and the dropout classifier (no hand
+    # kernel)
+    paths["distillation"] = distillation_phase(card)
 
     # report: the float32 entry's times are at the transformer path's
     # shape, the D = 16 entry's at the LoRA path's, the tensor-core entry's

@@ -235,11 +235,15 @@ def build_local_step(model: FedModel, task: Task, cfg: TrainConfig,
       client starts a round from: ``params`` and ``stats`` (the global
       model's), the optimizer's fresh state ``opt`` and zero metric
       ``sums``; with ``lanes``, stacked for that many clients on a leading
-      axis. ``starts`` (``{name: [lanes, ...]}``) gives some parameters a
+      axis. ``starts`` (``{name: [lanes, ...]}``) gives some variables a
       start of each lane's own in place of the global one (a personalized
-      client's private adapters).
-    - ``step(carry, x_b, y_b, w_b, global_params) -> carry``: one
-      minibatch ``x_b``/``y_b`` with loss weights ``w_b``.
+      client's private adapters; every variable of a client that keeps its
+      own model, as the distillation family's clients do).
+    - ``step(carry, x_b, y_b, w_b, global_params, masks=None) ->
+      carry``: one minibatch ``x_b``/``y_b`` with loss weights ``w_b``;
+      a model with dropout takes the step's keep masks ``masks``
+      (``{site: [B, *site_shape]}`` bool; the JAX package draws them from
+      ``fold_in(epoch key, step)``).
       The gradient comes from ``torch.func.grad_and_value``, so the step
       composes with ``torch.func.vmap``. It is gated: where the batch's
       weight total is 0 the parameters, the statistics and the optimizer
@@ -268,7 +272,8 @@ def build_local_step(model: FedModel, task: Task, cfg: TrainConfig,
     dtype = compute_dtype(cfg)
     stat_names = model.stat_names
 
-    def loss_fn(params, stats, x_b, y_b, w_b, global_params, anchor):
+    def loss_fn(params, stats, x_b, y_b, w_b, global_params, anchor,
+                masks):
         """Weighted-sum loss over the batch's weight total, so masked
         samples add nothing; plus the FedProx term. Returns the loss and,
         as aux, the metric sums and the new batch statistics."""
@@ -281,7 +286,7 @@ def build_local_step(model: FedModel, task: Task, cfg: TrainConfig,
             # token inputs stay integer
             x_c = x_b.to(dtype) if torch.is_floating_point(x_b) else x_b
         logits, new_vars = model.apply_train({**compute_params, **stats},
-                                             x_c)
+                                             x_c, masks=masks)
         sums = task.metric_sums(T.wide(logits), y_b, w_b)
         loss = sums["loss_sum"] / torch.clamp(sums["w_sum"], min=1.0)
         if cfg.prox_mu > 0:
@@ -306,19 +311,20 @@ def build_local_step(model: FedModel, task: Task, cfg: TrainConfig,
         shape = () if lanes is None else (lanes,)
         device = next(iter(params.values())).device
         carry = {"params": params,
-                 "stats": {k: start(global_vars[k]) for k in stat_names},
+                 "stats": {k: starts[k].detach().clone() if k in starts
+                           else start(global_vars[k]) for k in stat_names},
                  "opt": opt.init(params, shape),
                  "sums": zero_sums(device, shape)}
         if cfg.prox_mu > 0 and starts:
             carry["anchor"] = {k: v.detach().clone()
-                               for k, v in starts.items()}
+                               for k, v in starts.items() if k in params}
         return carry
 
-    def step(carry, x_b, y_b, w_b, global_params):
+    def step(carry, x_b, y_b, w_b, global_params, masks=None):
         params = carry["params"]
         grads, (_, (sums, stats)) = grad_fn(
             params, carry["stats"], x_b, y_b, w_b, global_params,
-            carry.get("anchor", {}))
+            carry.get("anchor", {}), masks)
         updates, opt_state = opt.update(grads, carry["opt"], params)
         new = {"params": apply_updates(params, updates), "stats": stats,
                "opt": opt_state}
@@ -343,16 +349,20 @@ def _finish(carry: dict, global_vars: Params) -> Params:
 def build_local_update(model: FedModel, task: Task, cfg: TrainConfig,
                        batch_size: int, max_n: int, partition=None):
     """Build ``local_update(global_vars, idx_row, mask_row, x, y, orders,
-    steps=None) -> (variables, n_k, metric sums)`` for one client:
+    steps=None, masks=None) -> (variables, n_k, metric sums)`` for one
+    client:
     ``cfg.epochs`` passes of :func:`build_local_step`'s gated step over
     the client's padded data, epoch ``e`` in the batch order ``orders[e]``
     (a ``[max_n]`` index tensor with the real samples first, from
     :func:`fedml_tpu_torch.core.random.padded_perm` or replayed from the
     JAX package). ``steps`` is the host's count of steps per epoch; by
     default every batch of ``max_n`` is stepped, the trailing all-padding
-    ones as gated no-ops, as the JAX package's scan does. With
-    ``partition`` the client trains, and returns, only the trainable
-    parameters (and the statistics); see :func:`build_local_step`."""
+    ones as gated no-ops, as the JAX package's scan does. A model with
+    dropout takes ``masks`` (``{site: [epochs, S, B, *site_shape]}``,
+    ``S`` at least the steps run), step ``s`` of epoch ``e`` reading
+    ``[e, s]``. With ``partition`` the client trains, and returns, only
+    the trainable parameters (and the statistics); see
+    :func:`build_local_step`."""
     if max_n % batch_size:
         raise ValueError(f"max_n {max_n} is not a multiple of the batch "
                          f"size {batch_size}")
@@ -361,20 +371,27 @@ def build_local_update(model: FedModel, task: Task, cfg: TrainConfig,
     stat_names = model.stat_names
 
     def local_update(global_vars, idx_row, mask_row, x, y, orders,
-                     steps: int | None = None):
+                     steps: int | None = None, masks: dict | None = None):
         global_params = {k: v for k, v in global_vars.items()
                          if k not in stat_names}
         carry = init_carry(global_vars)
-        for order in orders[:cfg.epochs]:
+        for e, order in enumerate(orders[:cfg.epochs]):
             for s in range(steps_per_epoch if steps is None else steps):
                 take = order[s * batch_size:(s + 1) * batch_size]
                 b_idx = idx_row[take].long()
                 carry = step(carry, x[b_idx], y[b_idx], mask_row[take],
-                             global_params)
+                             global_params,
+                             {k: v[e, s] for k, v in (masks or {}).items()})
         return _finish(carry, global_vars), torch.sum(mask_row), \
             carry["sums"]
 
     return local_update
+
+
+def step_masks(masks: dict | None, e: int, s: int) -> dict:
+    """Epoch ``e``, step ``s`` of a group's masks (``{site: [G, epochs,
+    steps, ...]}``): ``{site: [G, ...]}``, ``{}`` for none."""
+    return {k: v[:, e, s] for k, v in (masks or {}).items()}
 
 
 def lane_batches(idx_rows, mask_rows, orders, epochs: int, steps: int,
@@ -393,8 +410,8 @@ def lane_batches(idx_rows, mask_rows, orders, epochs: int, steps: int,
 
 class CohortUpdate:
     """``cohort_update(global_vars, idx_rows, mask_rows, x, y, orders,
-    steps, starts=None) -> (stacked variables, n_k, metric sums)``: the
-    local update of
+    steps, starts=None, masks=None) -> (stacked variables, n_k, metric
+    sums)``: the local update of
     :func:`build_local_update` for G clients at once, its step
     ``torch.func.vmap``-ped over lanes stacked on a leading axis, with the
     global variables and ``x``/``y`` shared by every lane (the JAX
@@ -406,7 +423,12 @@ class CohortUpdate:
     parameters are stacked per lane (the carry, the optimizer state and
     the result); the frozen ones are read from the one global copy, and
     ``starts`` (``{name: [G, ...]}``) gives lanes their own start for some
-    trainable parameters (a personalized cohort's private adapters).
+    variables (a personalized cohort's private adapters, or every variable
+    of clients that keep their own models). A model with dropout takes
+    ``masks`` (``{site: [G, epochs, S, B, *site_shape]}`` bool, ``S`` at
+    least ``steps``), copied into the graph's static inputs with each
+    step's batch, as :class:`~fedml_tpu_torch.algorithms.gan_core.
+    GanCohortUpdate`'s are.
 
     With ``graphed`` (the card) each step is one replay of a CUDA graph
     (:class:`~fedml_tpu_torch.algorithms.graphs.GraphedStep`), captured
@@ -426,7 +448,7 @@ class CohortUpdate:
         self.graphed = graphed
         self.init_carry, step = build_local_step(model, task, cfg,
                                                  partition)
-        self.vstep = torch.func.vmap(step, in_dims=(0, 0, 0, 0, None))
+        self.vstep = torch.func.vmap(step, in_dims=(0, 0, 0, 0, None, 0))
         self.programs = CompiledRoundCache(self._program, family=family)
 
     def _program(self, lanes: int) -> GraphedStep | None:
@@ -436,7 +458,7 @@ class CohortUpdate:
         if not self.graphed:
             return None
         return GraphedStep(lambda carry, gp, xy, batch: self.step(
-            carry, *xy, *batch, gp))
+            carry, *xy, *batch[:2], gp, batch[2]))
 
     @property
     def graph(self) -> GraphedStep | None:
@@ -444,16 +466,23 @@ class CohortUpdate:
         and before the first step)."""
         return self.programs.last
 
-    def step(self, carry, x, y, b_idx, w_b, global_params):
+    def step(self, carry, x, y, b_idx, w_b, global_params, masks=None):
         """One vmapped step of every lane: lane ``g`` takes rows
-        ``b_idx[g]`` of ``x``/``y`` with weights ``w_b[g]``."""
-        return self.vstep(carry, x[b_idx], y[b_idx], w_b, global_params)
+        ``b_idx[g]`` of ``x``/``y`` with weights ``w_b[g]`` (and keep
+        masks ``masks``, ``{site: [G, B, ...]}``)."""
+        return self.vstep(carry, x[b_idx], y[b_idx], w_b, global_params,
+                          masks or {})
 
     def __call__(self, global_vars, idx_rows, mask_rows, x, y, orders,
-                 steps: int, starts: Params | None = None):
+                 steps: int, starts: Params | None = None,
+                 masks: dict | None = None):
         lanes = idx_rows.shape[0]
-        batches = lane_batches(idx_rows, mask_rows, orders, self.epochs,
-                               steps, self.batch_size)
+        # lane_batches is epoch-major: batch i is epoch i // steps, step
+        # i % steps
+        batches = [(b_idx, w_b, step_masks(masks, i // steps, i % steps))
+                   for i, (b_idx, w_b) in enumerate(lane_batches(
+                       idx_rows, mask_rows, orders, self.epochs, steps,
+                       self.batch_size))]
         global_params = {k: v for k, v in global_vars.items()
                          if k not in self.stat_names}
         carry = self.init_carry(global_vars, lanes, starts)
@@ -463,7 +492,9 @@ class CohortUpdate:
                 carry = graph.run(carry, global_params, (x, y), batches)
             else:
                 for batch in batches:
-                    carry = self.step(carry, x, y, *batch, global_params)
+                    b_idx, w_b, keep = batch
+                    carry = self.step(carry, x, y, b_idx, w_b, global_params,
+                                      keep)
         return _finish(carry, global_vars), mask_rows.sum(1), carry["sums"]
 
 

@@ -115,6 +115,24 @@ def check_ported(cfg: ExperimentConfig) -> None:
             )
 
 
+def check_dropout_compat(model: FedModel, cfg: ExperimentConfig) -> None:
+    """A model with dropout runs the stacked round (and its fused blocks
+    and elastic buckets), whose local steps take the cohort's keep masks;
+    the bulk engine and the PEFT rounds do not carry masks yet, and raise
+    ``NotImplementedError`` naming the ROADMAP item that will."""
+    if not model.has_dropout:
+        return
+    for setting, on in (("client_block_size", cfg.fed.client_block_size),
+                        ("peft", cfg.fed.peft != "none"
+                         or cfg.fed.peft_personalize)):
+        if on:
+            raise NotImplementedError(
+                f"a model with dropout ({type(model.module).__name__}) "
+                f"under FedConfig.{setting} is not ported to "
+                "fedml_tpu_torch yet (ROADMAP: Queue A item 13c, dropout "
+                "in the bulk engine and the PEFT rounds)")
+
+
 def consume_round_counters(train_metrics: dict, counters: dict) -> dict:
     """Pop the counter values out of a round's metrics into ``counters``
     and the registry (``robust.nonfinite_rejected``: client results
@@ -396,6 +414,7 @@ class FedAvgSim:
                  draws: R.Draws | None = None,
                  slot_sampler: SlotSampler | None = None):
         check_ported(cfg)
+        check_dropout_compat(model, cfg)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, the simulation "
@@ -505,7 +524,8 @@ class FedAvgSim:
         self.draws = draws or R.DeviceDraws(
             {"noise": cfg.seed, "quant": self.cspec.seed,
              "gauss": cfg.adversary.seed, "collude": cfg.adversary.seed,
-             "proj": cfg.seed}, self.device)
+             "proj": cfg.seed, "dropout": cfg.seed}, self.device,
+            p={"dropout": model.mask_keep})
         self.counters: dict[str, float] = {}
         # the memory plane samples this simulation's device
         M.MONITOR.attach(self.device, cfg.fed.mem_headroom_warn)
@@ -641,7 +661,10 @@ class FedAvgSim:
         ``cohort_steps``). ``on`` (host bools) marks the lanes that
         train; the others (padding, dead slots, sentinel ids) get an
         all-zero mask: every step of theirs is gated, their n_k is 0 and
-        they come back as the global variables."""
+        they come back as the global variables. A model with dropout
+        takes each group's keep masks (``"dropout"`` draws by host id,
+        ``[epochs, steps, B, *site]`` a lane at the group's own steps),
+        drawn before the group's first step."""
         a = self.arrays
         epochs = self.cfg.train.epochs
         if cohort is None:
@@ -657,13 +680,21 @@ class FedAvgSim:
             for c, live in zip(ids.tolist(), on)]).long()
         self.last_groups = []
 
+        sites = self.model.mask_sites
+
         def group(ids, orders, lane_on, *rest):
+            if sites:
+                *rest, hosts = rest
             *lane_starts, counts = rest
             steps = min(-(-int(counts.max()) // self.batch_size),
                         self.max_n // self.batch_size)
             self.last_groups.append((len(counts), steps))
             mask = a.mask.index_select(0, ids) * lane_on[:, None]
             extra = {"starts": lane_starts[0]} if lane_starts else {}
+            if sites:
+                extra["masks"] = self.draws(
+                    "dropout", state.round, hosts.tolist(),
+                    R.mask_shapes(sites, (epochs, steps), self.batch_size))
             return self.cohort_update(
                 state.variables, a.idx.index_select(0, ids), mask, a.x,
                 a.y, orders, steps, **extra)
@@ -676,7 +707,8 @@ class FedAvgSim:
             lanes += (starts,)
         return size_grouped_lanes(
             group, lanes, self._host_counts[ids] * on,
-            self._cohort_groups if groups is None else groups)
+            self._cohort_groups if groups is None else groups,
+            host=ids if sites else None)
 
     def _draw(self, round_idx: int):
         """``draw(stream, slots, shapes)``: :attr:`draws` at

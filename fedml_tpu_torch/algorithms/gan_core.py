@@ -37,6 +37,7 @@ from fedml_tpu_torch.algorithms.base import (
     apply_updates,
     lane_batches,
     make_client_optimizer,
+    step_masks,
 )
 from fedml_tpu_torch.algorithms.graphs import GraphedStep
 from fedml_tpu_torch.algorithms.kd import soft_target
@@ -172,14 +173,7 @@ def lanes_of(variables: Params, lanes: int) -> Params:
 def dropout_sites(model: FedModel) -> dict:
     """The model's dropout sites (``{name: (H, W, C)}`` of one sample's
     mask), empty for a model without dropout."""
-    shapes = getattr(model.module, "mask_shapes", None)
-    return shapes() if shapes is not None else {}
-
-
-def step_masks(masks: dict | None, e: int, s: int) -> dict:
-    """Epoch ``e``, step ``s`` of a group's masks (``{site: [G, epochs,
-    steps, calls, B, H, W, C]}``): ``{site: [G, calls, B, H, W, C]}``."""
-    return {k: v[:, e, s] for k, v in (masks or {}).items()}
+    return model.mask_sites
 
 
 def call_masks(masks: dict, i: int) -> dict:

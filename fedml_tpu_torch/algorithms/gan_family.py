@@ -39,7 +39,7 @@ in float32 whatever ``compute_dtype`` says and ignores ``prox_mu``.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Sequence
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -50,8 +50,8 @@ from fedml_tpu_torch.algorithms.base import (
     build_evaluator,
     lane_batches,
     make_client_optimizer,
-    make_task,
 )
+from fedml_tpu_torch.algorithms.client_sim import ClientSim
 from fedml_tpu_torch.algorithms.stack_utils import (
     evaluate_stack,
     size_grouped_lanes,
@@ -60,12 +60,11 @@ from fedml_tpu_torch.algorithms.stack_utils import (
     vmap_init,
 )
 from fedml_tpu_torch.config import ExperimentConfig
-from fedml_tpu_torch.core import memscope as M
 from fedml_tpu_torch.core import perf as P
 from fedml_tpu_torch.core import random as R
 from fedml_tpu_torch.core import tree as T
-from fedml_tpu_torch.core.device import resolve_device, to_device
-from fedml_tpu_torch.data.federated import FederatedData, arrays_and_batch
+from fedml_tpu_torch.core.device import to_device
+from fedml_tpu_torch.data.federated import FederatedData
 from fedml_tpu_torch.models.base import FedModel, Params
 from fedml_tpu_torch.models.gan import GanModel
 
@@ -80,17 +79,15 @@ def loss_mean(total: torch.Tensor, batches: torch.Tensor) -> torch.Tensor:
     return torch.sum(total) / torch.clamp(torch.sum(batches), min=1.0)
 
 
-class GanSim:
-    """What the GAN family's simulations share, on one device.
+class GanSim(ClientSim):
+    """What the GAN family's simulations share, on one device: the hooks
+    and the cohort of :class:`~fedml_tpu_torch.algorithms.client_sim.
+    ClientSim`, the generator, the local phase and the distillation set.
 
-    ``sampler(round, num_clients, clients_per_round)`` returns the round's
-    cohort ids and ``batch_orders(round, client)`` a client's per-epoch
-    batch orders (real samples first), as in
-    :class:`~fedml_tpu_torch.algorithms.fedavg.FedAvgSim`.
-    ``draws(stream, round, slots, shapes)``
-    (:data:`fedml_tpu_torch.core.random.Draws`) makes the round's draws:
-    ``"gan_z"`` (``{"z": (epochs, S, B, nz)}``, standard normal) and
-    ``"gan_labels"`` (``{"labels": (epochs, S, B)}``, whole numbers in
+    ``batch_orders(round, client)`` gives a client's per-epoch batch
+    orders. ``draws(stream, round, slots, shapes)`` makes the round's
+    draws: ``"gan_z"`` (``{"z": (epochs, S, B, nz)}``, standard normal)
+    and ``"gan_labels"`` (``{"labels": (epochs, S, B)}``, whole numbers in
     ``[0, K)``) for each cohort member's adversarial steps, ``S`` the
     largest steps an epoch; ``"synth"`` (``{"z": (S_set / B, B, nz)}``,
     slot 0) for a distillation set; ``"dropout"`` (``{site: (epochs,
@@ -99,8 +96,9 @@ class GanSim:
     default, :class:`~fedml_tpu_torch.core.random.DeviceDraws`, draws on
     the device; the hooks let a test replay the JAX package's draws.
 
-    ``counters`` holds the run's counters; ``last_groups`` the last
-    round's groups (clients, steps an epoch)."""
+    A classifier with dropout (a dropout ``cnn_*``, ``cnn``) is not
+    carried by the family's classifier updates yet and is refused
+    (ROADMAP item 13c)."""
 
     def __init__(self, gen: GanModel, models: dict[str, FedModel],
                  data: FederatedData, cfg: ExperimentConfig,
@@ -109,66 +107,33 @@ class GanSim:
                  batch_orders: Callable | None = None,
                  draws: R.Draws | None = None,
                  dropout_model: FedModel | None = None):
-        self.device = resolve_device(device)
-        for name, m in (("generator", gen.model), *models.items()):
-            if m.device != self.device:
-                raise ValueError(f"the {name} is on {m.device}, the "
-                                 f"simulation on {self.device}")
-        self.gen, self.cfg = gen, cfg
-        # the memory plane samples this simulation's device
-        M.MONITOR.attach(self.device, cfg.fed.mem_headroom_warn)
-        self.task = make_task(data.task)
-        self.arrays, self.batch_size = arrays_and_batch(data, cfg.data,
-                                                        self.device)
-        b = self.batch_size
-        self.max_n = self.arrays.max_client_samples
-        self.steps_per_epoch = self.max_n // b
-        self.synth_size = (cfg.gan.distillation_size // b) * b or b
-        self.graphed = self.device.type == "cuda"
-        self._host_mask = self.arrays.mask.cpu()
-        self._host_counts = self.arrays.counts.cpu().numpy()
+        for name, m in models.items():
+            if m.has_dropout and m is not dropout_model:
+                raise NotImplementedError(
+                    f"a {name} with dropout is not carried by the GAN "
+                    "family's classifier updates in fedml_tpu_torch yet "
+                    "(ROADMAP: Queue A item 13c, dropout in the GAN "
+                    "family's classifiers)")
         self.sites = (G.dropout_sites(dropout_model) if dropout_model
                       is not None else {})
-        self.sampler = sampler or self._sample
-        self.batch_orders = batch_orders or self._orders
         seed = cfg.seed
-        keep = ({"dropout": 1.0 - dropout_model.module.rate}
-                if self.sites else {})
-        self.draws = draws or R.DeviceDraws(
+        super().__init__(
+            {"generator": gen.model, **models}, data, cfg, device, sampler,
+            batch_orders, draws,
             {"gan_z": seed, "gan_labels": seed, "synth": seed,
-             "dropout": seed}, self.device,
-            high={"gan_labels": max(gen.num_classes, 1)}, p=keep)
-        self.counters: dict[str, float] = {}
-        self.last_groups: list[tuple[int, int]] = []
-
-    def _sample(self, round_idx, num_clients, clients_per_round):
-        return R.sample_clients(R.generator(self.cfg.seed, round_idx),
-                                num_clients, clients_per_round)
-
-    def _orders(self, round_idx, client):
-        gen = R.generator(self.cfg.seed, round_idx, client)
-        return [R.padded_perm(gen, self._host_mask[client], self.max_n)
-                for _ in range(self.cfg.train.epochs)]
-
-    def _ids(self, host_ids: Sequence[int]) -> torch.Tensor:
-        return to_device(torch.as_tensor(np.asarray(host_ids, np.int64)),
-                         self.device)
-
-    def _cohort(self, round_idx: int) -> np.ndarray:
-        return np.asarray(torch.as_tensor(self.sampler(
-            round_idx, self.arrays.num_clients,
-            self.cfg.fed.clients_per_round)).tolist(), np.int64)
+             "dropout": seed},
+            high={"gan_labels": max(gen.num_classes, 1)},
+            p={"dropout": dropout_model.mask_keep} if self.sites else {})
+        self.gen = gen
+        self.synth_size = (cfg.gan.distillation_size // self.batch_size
+                           ) * self.batch_size or self.batch_size
 
     def _masks(self, round_idx: int, slots, prefix: tuple) -> dict | None:
         """The dropout masks of ``slots``' discriminator calls,
         ``{site: [len(slots), *prefix, B, H, W, C]}``; None without
         dropout."""
-        if not self.sites:
-            return None
-        b = self.batch_size
-        return self.draws("dropout", round_idx, [int(c) for c in slots],
-                          {k: prefix + (b,) + s
-                           for k, s in self.sites.items()})
+        return self._site_masks("dropout", round_idx, slots, self.sites,
+                                prefix)
 
     def _local_phase(self, run_group: Callable, calls: int, round_idx: int,
                      cohort: np.ndarray, ids: torch.Tensor,
@@ -208,10 +173,6 @@ class GanSim:
                     *stacked),
             self._host_counts[cohort], cfg.train.cohort_groups,
             host=cohort)
-
-    def _rows(self, ids_g: torch.Tensor):
-        a = self.arrays
-        return a.idx.index_select(0, ids_g), a.mask.index_select(0, ids_g)
 
     def _synth_set(self, gen_vars: Params, round_idx: int):
         """The distillation set of ``gen_vars`` (eval mode) from the

@@ -75,6 +75,9 @@ _RESNET_TOP = {"Conv2D_0": "conv", "BatchNorm_0": "bn", "GroupNorm_0": "bn",
 _VISION_TOP = {
     "LogisticRegression": {"Dense_0": "linear"},
     "CNNOriginalFedAvg": {"Conv2D_0": "conv1", "Conv2D_1": "conv2"},
+    # CNN_DropOut's dense layers are flax's auto-named Dense_0 and Dense_1
+    "CNNDropOut": {"Conv2D_0": "conv1", "Conv2D_1": "conv2",
+                   "Dense_0": "fc1", "Dense_1": "head"},
     "ResNetCIFAR": _RESNET_TOP,
     "ResNetCIFARS2DExact": _RESNET_TOP,
     "ResNet18GN": _RESNET_TOP,
@@ -120,7 +123,8 @@ def vision_state_dict(variables: Mapping[str, Any], arch: str,
                       lead: int = 0) -> dict[str, torch.Tensor]:
     """Flax variables (``{"params": ..., "batch_stats": ...}``) of a vision
     model to the port's variables; ``arch`` is the port's class name
-    (``LogisticRegression``, ``CNNOriginalFedAvg``, ``CNNParameterised``,
+    (``LogisticRegression``, ``CNNDropOut``, ``CNNOriginalFedAvg``,
+    ``CNNParameterised``,
     ``ResNetCIFAR`` with or without ``space_to_depth``,
     ``ResNetCIFARS2DExact``, ``ResNet18GN`` or ``MobileNet``). Every leaf
     may carry ``lead`` leading axes of rows (a stacked ``[N, ...]`` bank of

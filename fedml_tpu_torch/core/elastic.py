@@ -129,6 +129,10 @@ class CompiledRoundCache:
     def __len__(self) -> int:
         return len(self._cache)
 
+    def values(self) -> list:
+        """The programs held, least recently used first."""
+        return list(self._cache.values())
+
 
 def mirror_jit_cache(cache: CompiledRoundCache, call: Callable,
                      counters: dict):

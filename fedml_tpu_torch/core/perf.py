@@ -172,9 +172,12 @@ def step_flops(model, task, train_cfg, x_shape, x_dtype, y_shape,
     x = torch.zeros(x_shape, dtype=x_dtype, device="meta")
     y = torch.zeros(y_shape, dtype=y_dtype, device="meta")
     w = torch.ones(x_shape[:1], device="meta")
+    masks = {k: torch.ones(x_shape[:1] + tuple(s), dtype=torch.bool,
+                           device="meta")
+             for k, s in model.mask_sites.items()}
     with FlopCounterMode(display=False,
                          custom_mapping=_ConvTaps().mapping()) as counter:
-        step(init_carry(variables), x, y, w, params)
+        step(init_carry(variables), x, y, w, params, masks)
     return counter.get_total_flops()
 
 

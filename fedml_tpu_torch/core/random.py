@@ -39,9 +39,20 @@ STREAMS = {
     "gan_z": (0x47414E5A, "normal"),
     "gan_labels": (0x47414E4C, "randint"),
     "synth": (0x5EED, "normal"),
-    # the GAN family's discriminator dropout: bool keep masks, per client
-    # id, a group's at a time ([epochs, steps, calls, B, H, W, C] a site)
+    # dropout: bool keep masks, per client id, a group's at a time: the
+    # GAN family's discriminator calls ([epochs, steps, calls, B, H, W, C]
+    # a site), a classifier's local steps ([epochs, steps, B, *site])
     "dropout": (0x44524F50, "bernoulli"),
+    # the distillation family's other phases, each its own stream so no
+    # two phases of a round share masks, per client id: FedMD's digest
+    # and public pretraining ([epochs, batches, B, *site]), its private
+    # pretraining (as "dropout"; the pretraining at round 0), FedArjun's
+    # two transfers (as "dropout")
+    "dropout_public": (0x44505542, "bernoulli"),
+    "dropout_pretrain": (0x44505254, "bernoulli"),
+    "dropout_pretrain_private": (0x44505056, "bernoulli"),
+    "dropout_a2l": (0x4441324C, "bernoulli"),
+    "dropout_l2a": (0x444C3241, "bernoulli"),
 }
 
 # (stream, round, slots, {name: shape}) -> {name: [len(slots), *shape]}
@@ -69,7 +80,8 @@ class DeviceDraws:
     columns. One kernel per slot, whatever the number of leaves.
 
     A "bernoulli" stream (the dropout masks) gives bool leaves, True with
-    probability ``p[stream]``: each slot's generator draws each leaf one
+    probability ``p[stream]`` (a float, or ``{leaf: float}`` for sites
+    of different rates): each slot's generator draws each leaf one
     leading index at a time, uniform on [0, 1) compared with ``p``, so
     the float32 staging is one such slice, never the whole draw (a
     group's masks at full width are hundreds of millions of values)."""
@@ -108,15 +120,25 @@ class DeviceDraws:
         out = {name: torch.empty((len(slots), *shape), dtype=torch.bool,
                                  device=self.device)
                for name, shape in shapes.items()}
+        p = self.p[stream]
         for row, slot in enumerate(slots):
             gen = generator(self.seeds[stream], salt, round_idx, int(slot),
                             device=self.device)
             for name, shape in shapes.items():
+                keep = p[name] if isinstance(p, Mapping) else p
                 for i in range(shape[0]):
                     u = torch.rand(shape[1:], generator=gen,
                                    device=self.device)
-                    torch.lt(u, self.p[stream], out=out[name][row, i])
+                    torch.lt(u, keep, out=out[name][row, i])
         return out
+
+
+def mask_shapes(sites: Mapping[str, tuple], lead: tuple, batch: int
+                ) -> dict[str, tuple]:
+    """The ``"dropout"`` draw's shapes for a lane: ``{site: (*lead, batch,
+    *site_shape)}``, ``lead`` the steps' coordinates (a classifier's
+    ``(epochs, steps)``, a discriminator's ``(epochs, steps, calls)``)."""
+    return {k: tuple(lead) + (batch,) + tuple(s) for k, s in sites.items()}
 
 
 def sample_clients(

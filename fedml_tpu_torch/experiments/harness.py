@@ -1,7 +1,8 @@
 """The experiment harness: the algorithm registry and the seeded
 repetition runner, with round checkpoints and resume
-(``fedml_tpu.experiments.harness``, its FedAvg family and the GAN
-family: FedGAN, FedGDKD, FedDTG, FedSSGAN and FedUAGAN).
+(``fedml_tpu.experiments.harness``, its FedAvg family, the GAN family:
+FedGAN, FedGDKD, FedDTG, FedSSGAN and FedUAGAN, and the distillation
+family: FedMD, FD+FAug and FedArjun).
 
 :class:`Experiment` runs N repetitions of a config, repetition ``k`` with
 ``seed + k`` and ``data.seed + k`` under the run name
@@ -14,11 +15,13 @@ true``, so when a round appears twice in ``metrics.jsonl`` (rounds run
 again after the last checkpoint) the stamped row is the one to keep.
 The GAN family's states (generators, discriminators, classifier and
 discriminator banks, FedGDKD's last distillation set and cohort,
-UA-GAN's generator optimizer) checkpoint the same way; they have no
-fused blocks, so ``fuse_rounds > 1`` warns and the rounds run one by
-one, as in the JAX package. A sim without ``run`` (all of the GAN family
-but FedGDKD) goes through the harness's round loop, and one without an
-evaluator (FedGAN, FedSSGAN, FedUAGAN) logs no evaluation.
+UA-GAN's generator optimizer) and the distillation family's (the
+client model banks, FD's teachers, FedArjun's adapter) checkpoint the
+same way; they have no fused blocks, so ``fuse_rounds > 1`` warns and
+the rounds run one by one, as in the JAX package. A sim without ``run``
+(all of the GAN family but FedGDKD, the distillation family) goes
+through the harness's round loop, and one without an evaluator (FedGAN,
+FedSSGAN, FedUAGAN) logs no evaluation.
 
 The observability planes ride the loops as in the JAX package: a sim's
 own ``run`` is one ``sim_run`` tracer span; the harness's round loop
@@ -37,6 +40,11 @@ import warnings
 
 import torch
 
+from fedml_tpu_torch.algorithms.distill import (
+    FDSim,
+    FedArjunSim,
+    FedMDSim,
+)
 from fedml_tpu_torch.algorithms.fedavg import (
     FedAvgSim,
     ServerState,
@@ -102,11 +110,32 @@ def _build_gan(cfg: ExperimentConfig, device):
     return FedUAGANSim(gen, disc, data, cfg, device)
 
 
+# the distillation family (fedml_tpu.experiments.harness _build_distill)
+DISTILL_FAMILY = ("fedmd", "fd_faug", "fedarjun")
+
+
+def _build_distill(cfg: ExperimentConfig, device):
+    """The distillation family's sims as the JAX harness builds them, on
+    ``cfg.model``; FedArjun's private local model is ``cfg.model`` renamed
+    ``lr``. FedMD's ``init`` pretrains."""
+    algo = cfg.fed.algorithm
+    data = load_dataset(cfg.data)
+    model = create_model(cfg.model, device)
+    if algo == "fedmd":
+        return FedMDSim(model, data, cfg, device)
+    if algo == "fd_faug":
+        return FDSim(model, data, cfg, device)
+    local = create_model(dataclasses.replace(cfg.model, name="lr"), device)
+    return FedArjunSim(model, local, data, cfg, device)
+
+
 def build_sim(cfg: ExperimentConfig, device: str | torch.device = "cuda"):
     """The simulation of ``cfg.fed.algorithm`` on ``device``."""
     algo = cfg.fed.algorithm
     if algo in GAN_FAMILY:
         return _build_gan(cfg, device)
+    if algo in DISTILL_FAMILY:
+        return _build_distill(cfg, device)
     if algo not in ALGORITHMS:
         raise NotImplementedError(
             f"algorithm={algo!r} is not ported to fedml_tpu_torch yet "
@@ -311,8 +340,8 @@ class Experiment:
     @staticmethod
     def _eval_record(sim, state) -> dict:
         """The evaluation: the global model's (``evaluate_global``), or
-        the mean over the clients' own models (FedGDKD's and FedDTG's
-        ``evaluate_clients``), its scalars with ``acc`` and ``loss`` under
+        the mean over the clients' own models (``evaluate_clients``: FedGDKD,
+        FedDTG and the distillation family), its scalars with ``acc`` and ``loss`` under
         the summary's names ``test_acc`` and ``test_loss``; nothing for a
         sim without an evaluator."""
         evaluate = (getattr(sim, "evaluate_global", None)

@@ -3,8 +3,10 @@
 The FedAvg family of ``fedml_tpu.experiments.run`` (``--algorithm``
 fedavg, fedopt, fedprox, fednova, fedavg_robust, fedavg_multiclient) and
 the GAN family (``--algorithm`` fedgan, fedgdkd, feddtg, fedssgan,
-feduagan: their GAN settings, the ``gan`` section of the ``--config``
-JSON, as the JAX CLI has no GAN flags), with its flag names: the
+feduagan) and the distillation family (``--algorithm`` fedmd, fd_faug,
+fedarjun; their settings, as the GAN family's, the ``gan`` section of
+the ``--config`` JSON, as the JAX CLI has no GAN flags), with its flag
+names: the
 defenses
 (``--defense`` or ``--robust_method``, ``--defense_*``,
 ``--robust_norm_clip``, ``--robust_noise_stddev``), the wire codec
@@ -67,8 +69,9 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
                    help="JSON file with the full ExperimentConfig")
     p.add_argument("--algorithm", type=str, default=None,
                    help="fedavg, fedopt, fedprox, fednova, fedavg_robust, "
-                        "fedavg_multiclient, or the GAN family: fedgan, "
-                        "fedgdkd, feddtg, fedssgan, feduagan")
+                        "fedavg_multiclient, the GAN family: fedgan, "
+                        "fedgdkd, feddtg, fedssgan, feduagan, or the "
+                        "distillation family: fedmd, fd_faug, fedarjun")
     p.add_argument("--dataset", type=str, default=None)
     p.add_argument("--model", type=str, default=None)
     p.add_argument("--num_classes", type=int, default=None)

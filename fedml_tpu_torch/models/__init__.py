@@ -1,7 +1,8 @@
 """Model factory: ``create_model(ModelConfig)`` returns a
 :class:`~fedml_tpu_torch.models.base.FedModel`.
 
-Ported names, with the JAX package's grammar: ``lr``, ``cnn_fedavg``,
+Ported names, with the JAX package's grammar: ``lr``, ``cnn`` (the
+reference's CNN_DropOut, dropout 0.25 and 0.5), ``cnn_fedavg``,
 ``resnet<depth>[_gn][_s2d]`` (BatchNorm or GroupNorm, the "_s2d"
 parameterization; the extra ``norm`` "bn" or "gn" overrides the suffix),
 ``resnet<depth>_s2d_exact`` (the standard BatchNorm ResNet with stage 1
@@ -10,7 +11,9 @@ in space-to-depth layout, ``models/s2d_exact.py``), ``resnet18_gn``,
 ``rnn_stackoverflow``/``nwp_lstm`` (extra ``vocab_size``) and
 ``transformer_lm``, and the parameterised CNNs ``cnn_small``,
 ``cnn_medium``, ``cnn_large`` and ``cnn_custom`` (extra ``convs``,
-``denses``; an extra ``dropout`` above 0 raises ``NotImplementedError``).
+``denses`` and ``dropout``, the rate after each dense layer). A model
+with dropout takes its keep masks in train mode
+(:attr:`~fedml_tpu_torch.models.base.FedModel.has_dropout`).
 The norm ``syncbn:<axis>`` raises
 ``NotImplementedError`` naming its ROADMAP item; other names raise
 ``ValueError``.
@@ -27,6 +30,7 @@ from fedml_tpu_torch.models.nlp import NWPLSTM, CharLSTM
 from fedml_tpu_torch.models.s2d_exact import ResNetCIFARS2DExact
 from fedml_tpu_torch.models.transformer import TransformerLM
 from fedml_tpu_torch.models.vision import (
+    CNNDropOut,
     CNNOriginalFedAvg,
     CNNParameterised,
     LogisticRegression,
@@ -35,7 +39,7 @@ from fedml_tpu_torch.models.vision import (
     ResNetCIFAR,
 )
 
-PORTED = ("lr", "cnn_fedavg", "cnn_small", "cnn_medium", "cnn_large",
+PORTED = ("lr", "cnn", "cnn_fedavg", "cnn_small", "cnn_medium", "cnn_large",
           "cnn_custom", "resnet<depth>[_gn][_s2d]",
           "resnet<depth>_s2d_exact",
           "resnet18_gn", "mobilenet", "rnn", "char_lstm",
@@ -123,6 +127,8 @@ def create_model(cfg: ModelConfig, device: str | torch.device = "cuda"
     if name == "lr":
         module = weightless(lambda: LogisticRegression(cfg.num_classes,
                                                        shape))
+    elif name == "cnn":  # the reference's "cnn" is CNN_DropOut
+        module = weightless(lambda: CNNDropOut(cfg.num_classes, shape))
     elif name == "cnn_fedavg":
         module = weightless(lambda: CNNOriginalFedAvg(cfg.num_classes, shape))
     elif name in CNN_PLANS or name == "cnn_custom":
@@ -140,6 +146,6 @@ def create_model(cfg: ModelConfig, device: str | torch.device = "cuda"
     return FedModel(module, shape, dev)
 
 
-__all__ = ["CNNOriginalFedAvg", "CNNParameterised", "CharLSTM", "FedModel", "LogisticRegression",
+__all__ = ["CNNDropOut", "CNNOriginalFedAvg", "CNNParameterised", "CharLSTM", "FedModel", "LogisticRegression",
            "MobileNet", "NWPLSTM", "ResNet18GN", "ResNetCIFAR",
            "ResNetCIFARS2DExact", "TransformerLM", "create_model"]

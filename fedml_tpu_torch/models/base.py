@@ -218,7 +218,14 @@ class FedModel:
     """Functional handle on one architecture on one device.
 
     ``stat_names`` are the keys of the variables that are batch
-    statistics (every buffer of the module); the rest are parameters."""
+    statistics (every buffer of the module); the rest are parameters.
+    A module with dropout (the JAX package's ``has_dropout``) names its
+    sites: ``mask_sites`` (``{site: one sample's mask shape}``, from its
+    ``mask_shapes()``) and ``mask_keep`` (``{site: keep probability}``,
+    from its ``mask_rates()``); ``has_dropout`` is whether it has any. Its
+    train-mode forward takes one bool keep mask a site, drawn outside the
+    forward (``core/random.py``, stream ``"dropout"``), so a step is a
+    function of its inputs and a CUDA graph replays it."""
 
     module: nn.Module
     input_shape: tuple[int, ...]
@@ -226,10 +233,21 @@ class FedModel:
     # inputs may be int tokens (NLP) rather than floats
     input_dtype: torch.dtype = torch.float32
     stat_names: tuple[str, ...] = dataclasses.field(init=False)
+    # derived from the module, so out of the equality and the hash
+    mask_sites: dict = dataclasses.field(init=False, compare=False)
+    mask_keep: dict = dataclasses.field(init=False, compare=False)
+    has_dropout: bool = dataclasses.field(init=False, compare=False)
 
     def __post_init__(self):
         object.__setattr__(self, "stat_names", tuple(
             name for name, _ in self.module.named_buffers()))
+        shapes = getattr(self.module, "mask_shapes", None)
+        sites = shapes() if shapes is not None else {}
+        object.__setattr__(self, "mask_sites", sites)
+        object.__setattr__(self, "mask_keep", {
+            k: 1.0 - r for k, r in self.module.mask_rates().items()}
+            if sites else {})
+        object.__setattr__(self, "has_dropout", bool(sites))
         object.__setattr__(self, "_bn_names", {
             mod: name for name, mod in self.module.named_modules()
             if isinstance(mod, BatchNorm)})
@@ -254,13 +272,20 @@ class FedModel:
         return {k: drawn[k].to(self.device) for k in leaves}
 
     def apply_train(self, variables: Params, *inputs: torch.Tensor,
-                    **kwargs):
+                    masks: dict | None = None, **kwargs):
         """Forward of ``inputs`` (the model's input, or a generator's noise
         and labels) in train mode; returns (output, variables with the new
         batch statistics). A model without statistics gets its variables
         back unchanged. ``kwargs`` go to the module's forward (the ACGAN
-        discriminator's ``validity``)."""
+        discriminator's ``validity``). A model with dropout needs
+        ``masks`` (``{site: [B, *mask_sites[site]]}`` bool; the module's
+        forward raises without them); a model without dropout ignores
+        them."""
+        if self.has_dropout and masks is not None:
+            kwargs["masks"] = masks
         if not self.stat_names:
+            if self.has_dropout:
+                kwargs["train"] = True
             return functional_call(self.module, variables, inputs,
                                    kwargs), variables
         stats = {}

@@ -37,7 +37,12 @@ from fedml_tpu_torch.models.base import (
     Params,
     weightless,
 )
-from fedml_tpu_torch.models.vision import Conv2d, nchw
+from fedml_tpu_torch.models.vision import (
+    Conv2d,
+    dropout,
+    nchw,
+    require_masks,
+)
 
 
 def plan_upsampling(img_size: int, min_init: int = 4) -> tuple[int, int]:
@@ -144,19 +149,6 @@ class ImageGenerator(nn.Module):
         return self.pyramid(z, train, stats_out)
 
 
-def dropout(x: torch.Tensor, mask: torch.Tensor, rate: float
-            ) -> torch.Tensor:
-    """Flax ``nn.Dropout`` with its mask given: ``mask`` (bool, NHWC, the
-    shape of ``x`` in NHWC order) keeps an activation of the logical NCHW
-    ``x``, scaled by ``1 / (1 - rate)``, and zeroes the rest. The mask is
-    viewed as ``x`` is laid out (:func:`~fedml_tpu_torch.models.vision.
-    nchw`: channels_last on the card, contiguous NCHW on the CPU). The
-    division is by a tensor: torch's CUDA division by a Python scalar
-    multiplies by the reciprocal, which rounds otherwise than the CPU."""
-    keep = x / x.new_full((), 1.0 - rate)
-    return torch.where(nchw(mask), keep, 0.0)
-
-
 class ACGANDiscriminator(nn.Module):
     """The ACGAN discriminator (``fedml_tpu.models.gan.ACGANDiscriminator``):
     per width in ``features`` a 3x3 stride-2 SAME convolution without bias
@@ -205,9 +197,14 @@ class ACGANDiscriminator(nn.Module):
             return {}
         return {f"d{i}": s for i, s in enumerate(self.sites)}
 
+    def mask_rates(self) -> dict[str, float]:
+        return {k: self.rate for k in self.mask_shapes()}
+
     def forward(self, x: torch.Tensor, masks: dict | None = None,
                 validity: bool = False, train: bool = False,
                 stats_out: dict | None = None):
+        if train and self.rate > 0.0:
+            masks = require_masks(self, masks)
         h = nchw(x)
         for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
             h = F.leaky_relu(conv(h), 0.2)

@@ -1,5 +1,5 @@
-"""Vision models: logistic regression, the FedAvg-paper CNN, the fork's
-parameterised CNNs, the CIFAR ResNets with BatchNorm or GroupNorm,
+"""Vision models: logistic regression, the FedAvg-paper CNN, the
+reference's CNN_DropOut, the fork's parameterised CNNs, the CIFAR ResNets with BatchNorm or GroupNorm,
 ResNet-18 with GroupNorm and MobileNet (V1).
 
 Same architectures as ``fedml_tpu.models.vision`` at ``cohort=1``, the
@@ -58,6 +58,29 @@ def s2d_rearrange(x: torch.Tensor) -> torch.Tensor:
     b, h, w, c = x.shape
     x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, h // 2, w // 2, 4 * c)
+
+
+def require_masks(module: nn.Module, masks: dict | None) -> dict:
+    """A train-mode forward of a model with dropout draws no mask of its
+    own: without ``masks`` it raises, never keeping every activation."""
+    if masks is None:
+        raise ValueError(
+            f"{type(module).__name__} has dropout: a train-mode forward "
+            f"needs its keep masks ({sorted(module.mask_shapes())})")
+    return masks
+
+
+def dropout(x: torch.Tensor, mask: torch.Tensor, rate: float
+            ) -> torch.Tensor:
+    """Flax ``nn.Dropout`` with its mask given: ``mask`` (bool, in NHWC
+    order for a logical NCHW ``x``, else the shape of ``x``) keeps an
+    activation, scaled by ``1 / (1 - rate)``, and zeroes the rest. A
+    4-d mask is viewed as ``x`` is laid out (:func:`nchw`: channels_last
+    on the card, contiguous NCHW on the CPU). The division is by a
+    tensor: torch's CUDA division by a Python scalar multiplies by the
+    reciprocal, which rounds otherwise than the CPU."""
+    keep = x / x.new_full((), 1.0 - rate)
+    return torch.where(nchw(mask) if x.dim() == 4 else mask, keep, 0.0)
 
 
 class Conv2d(nn.Conv2d):
@@ -123,13 +146,57 @@ class CNNOriginalFedAvg(nn.Module):
         return self.head(F.relu(self.fc1(x)))
 
 
+class CNNDropOut(nn.Module):
+    """The reference's CNN_DropOut (the model name ``cnn``): two VALID 3x3
+    convs of 32 and 64 channels with ReLU (``conv1``, ``conv2``), a 2x2
+    max-pool, dropout 0.25 (site ``d0``), the (H, W, C) flatten, a dense
+    128 with ReLU (``fc1``), dropout 0.5 (site ``d1``) and the dense
+    ``head``. At 28x28x1 about 1.2M parameters, and 12 * 12 * 64 + 128 =
+    9,344 mask values a sample.
+
+    ``forward(x, masks=None, train=False)``: ``x`` NHWC; in train mode
+    ``masks`` holds one bool keep mask a site (:meth:`mask_shapes`)."""
+
+    RATES = {"d0": 0.25, "d1": 0.5}
+
+    def __init__(self, num_classes: int = 62,
+                 input_shape: tuple[int, ...] = (28, 28, 1)):
+        super().__init__()
+        h, w, cin = input_shape
+        self.conv1 = nn.Conv2d(cin, 32, 3)  # VALID
+        self.conv2 = nn.Conv2d(32, 64, 3)
+        self.pooled = ((h - 4) // 2, (w - 4) // 2, 64)
+        self.fc1 = nn.Linear(math.prod(self.pooled), 128)
+        self.head = nn.Linear(128, num_classes)
+
+    def mask_shapes(self) -> dict[str, tuple[int, ...]]:
+        return {"d0": self.pooled, "d1": (128,)}
+
+    def mask_rates(self) -> dict[str, float]:
+        return dict(self.RATES)
+
+    def forward(self, x: torch.Tensor, masks: dict | None = None,
+                train: bool = False) -> torch.Tensor:
+        x = F.relu(self.conv2(F.relu(self.conv1(nchw(x)))))
+        x = F.max_pool2d(x, 2, 2)
+        if train:
+            masks = require_masks(self, masks)
+            x = dropout(x, masks["d0"], self.RATES["d0"])
+        x = F.relu(self.fc1(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)))
+        if train:
+            x = dropout(x, masks["d1"], self.RATES["d1"])
+        return self.head(x)
+
+
 class CNNParameterised(nn.Module):
     """The configurable conv stack of the fork's heterogeneous clients
     (``cnn_small``, ``cnn_medium``, ``cnn_large``, ``cnn_custom``): per
     width in ``conv_channels`` a 3x3 SAME conv with bias, ReLU and a VALID
     2x2 max-pool; the (H, W, C) flatten; per width in ``dense_sizes`` a
-    dense layer ``fc<i>`` with ReLU; the dense ``head``. The convs are
-    ``convs.k``, flax's ``Conv2D_k``."""
+    dense layer ``fc<i>`` with ReLU and, with ``dropout`` above 0, dropout
+    at that rate (site ``d<i - 1>``); the dense ``head``. The convs are
+    ``convs.k``, flax's ``Conv2D_k``. In train mode with dropout,
+    ``forward`` takes ``masks`` as :class:`CNNDropOut` does."""
 
     def __init__(self, num_classes: int = 10,
                  conv_channels: tuple[int, ...] = (32, 64),
@@ -137,11 +204,8 @@ class CNNParameterised(nn.Module):
                  input_shape: tuple[int, ...] = (28, 28, 1),
                  dropout: float = 0.0):
         super().__init__()
-        if dropout > 0:
-            raise NotImplementedError(
-                f"CNNParameterised dropout={dropout} is not ported to "
-                "fedml_tpu_torch yet (ROADMAP: Queue A item 13b, dropout "
-                "with a mask-replay hook)")
+        self.rate = float(dropout)
+        self.dense_sizes = tuple(dense_sizes)
         h, w, cin = input_shape
         self.convs = nn.ModuleList()
         for ch in conv_channels:
@@ -154,13 +218,26 @@ class CNNParameterised(nn.Module):
             width = d
         self.head = nn.Linear(width, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def mask_shapes(self) -> dict[str, tuple[int, ...]]:
+        if self.rate == 0.0:
+            return {}
+        return {f"d{i}": (d,) for i, d in enumerate(self.dense_sizes)}
+
+    def mask_rates(self) -> dict[str, float]:
+        return {k: self.rate for k in self.mask_shapes()}
+
+    def forward(self, x: torch.Tensor, masks: dict | None = None,
+                train: bool = False) -> torch.Tensor:
+        if train and self.rate > 0.0:
+            masks = require_masks(self, masks)
         x = nchw(x)
         for conv in self.convs:
             x = F.max_pool2d(F.relu(conv(x)), 2, 2)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         for i in range(self.n_dense):
             x = F.relu(getattr(self, f"fc{i + 1}")(x))
+            if train and self.rate > 0.0:
+                x = dropout(x, masks[f"d{i}"], self.rate)
         return self.head(x)
 
 

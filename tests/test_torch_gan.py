@@ -482,30 +482,45 @@ def test_two_rounds_match_jax(world):
 
 
 def test_refusals_name_their_items():
-    """What is still refused names its ROADMAP item (cnn dropout: 13b;
-    the other algorithm families: 13); the acgan mode and the rest of the
-    GAN family (item 13a) are ported, so build_sim returns each of them
-    on the CPU."""
+    """What is still refused names its ROADMAP item: a classifier with
+    dropout in the GAN family, and a dropout model in the bulk engine or
+    a PEFT round (13c); the other algorithm families (13). The acgan mode
+    and the rest of the GAN family (item 13a) are ported, so build_sim
+    returns each of them on the CPU."""
     cfg = tiny_cfg(tc)
     gen = generator_from_config(cfg.gan, K, 28, 1, device="cpu")
     model = create_model(cfg.model, "cpu")
     upd = TG.GanCohortUpdate(gen, model, cfg.train, cfg.gan, B, False,
                              mode="acgan")
     assert upd.mode == "acgan"
-    with pytest.raises(NotImplementedError, match="13b"):
-        create_model(tc.ModelConfig(name="cnn_medium", num_classes=K,
-                                    input_shape=SHAPE,
-                                    extra=(("dropout", 0.25),)), "cpu")
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
     from fedml_tpu_torch.algorithms.gan_family import FedDTGSim, FedGANSim
     from fedml_tpu_torch.algorithms.sgan import FedSSGANSim, FedUAGANSim
     from fedml_tpu_torch.experiments.harness import build_sim
+    from fedml_tpu_torch.models.gan import acgan_discriminator
+
+    dropped = create_model(tc.ModelConfig(name="cnn_medium", num_classes=K,
+                                          input_shape=SHAPE,
+                                          extra=(("dropout", 0.25),)), "cpu")
+    assert dropped.has_dropout
+    data = make_fake_image_dataset("mnist", cfg.data, n_train=96, n_test=32)
+    with pytest.raises(NotImplementedError, match="item 13c"):
+        FedGDKDSim(gen, dropped, data, cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="item 13c"):
+        FedDTGSim(gen, acgan_discriminator(K, SHAPE, (8, 16), device="cpu"),
+                  dropped, data, cfg, "cpu")
+    for fed in (dict(client_block_size=2), dict(peft="lora")):
+        bulk = dataclasses.replace(cfg, fed=dataclasses.replace(cfg.fed,
+                                                                **fed))
+        with pytest.raises(NotImplementedError, match="item 13c"):
+            FedAvgSim(dropped, data, bulk, "cpu")
 
     def with_algo(algo):
         return dataclasses.replace(cfg, fed=dataclasses.replace(
             cfg.fed, algorithm=algo))
 
     with pytest.raises(NotImplementedError, match="item 13"):
-        build_sim(with_algo("fedmd"), "cpu")
+        build_sim(with_algo("fedgkt"), "cpu")
     for algo, kind in (("fedgan", FedGANSim), ("feddtg", FedDTGSim),
                        ("fedssgan", FedSSGANSim),
                        ("feduagan", FedUAGANSim)):
