@@ -153,14 +153,15 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    final checkpoint equal to an uninterrupted run's, bit for bit or within
    (c)'s spread. The flash counters, set to 0 before the phase, must read
    0 after it.
-11. A "kernels" JSON line, printed after phase 16, with one entry per
+11. A "kernels" JSON line, printed after phase 17, with one entry per
    kernel instance the paths run (flash_attention, the float32 body at
    head dim 32; flash_attention_d16, its head-dim-16 instance; and
    flash_attention_mma, the bf16/fp16 body), each with its launches on
    the transformer path, on the LoRA path, on the ResNet-56 path, on each
    family, in the defended rounds, in the bulk phase, in phase 10 and on
-   the FedGDKD path, on the rest of the GAN family, in phase 15 and on
-   the distillation path of phase 16 (none of them but the transformer
+   the FedGDKD path, on the rest of the GAN family, in phase 15, on
+   the distillation path of phase 16 and in phase 17 (none of them but
+   the transformer
    and LoRA paths runs a hand-written kernel), the card's
    name and power limit, and last the result line
    {"ok": true, "device": {...}}.
@@ -197,7 +198,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    replays), one more round under set_sync_debug_mode("error") (one
    replay per group-step and per distillation step), every client's
    accuracy in [0, 1], and fedgdkd_rounds_per_sec_10c_mnist_cnn_medium
-   over 6 more rounds (a smoke figure); (b) the --fedgdkd-scale stage (50
+   over 4 more rounds (a smoke figure); (b) the --fedgdkd-scale stage (50
    clients, 25 a round, 30,000 samples), 3 rounds: the drift-corrected
    new joiners counted, the classifiers of the clients a round did not
    sample equal to their previous values bit for bit, and
@@ -220,7 +221,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    with one replay per group-step (and per distillation step for
    FedDTG), the clients' accuracies in [0, 1] (FedDTG), the image grid
    (FedGAN, FedUAGAN) or the confidence-filtered synthetic set
-   (FedSSGAN), then <algo>_rounds_per_sec_10c_mnist_<disc> over 4 more
+   (FedSSGAN), then <algo>_rounds_per_sec_10c_mnist_<disc> over 2 more
    rounds (a smoke figure); (b) torch.cuda.max_memory_allocated over a
    FedGAN round beside a FedGDKD round's
    (peak_round_hbm_mb_10c_mnist_fedgan): at most GAN_MASK_HEADROOM_MB
@@ -274,7 +275,33 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    or else a round of one step a client within 1e-3 and the rounds
    within SPREAD_FACTOR times the CPU's own spread; (d) the phase's
    seconds. The flash counters, set to 0 before the phase, must read 0
-   after it. The "kernels" line comes after it.
+   after it.
+17. Heterogeneous-model FedGDKD (algorithms/hetero.py) and the dropout
+   classifiers of the GAN family and the bulk engine, each record a JSON
+   line with the card's name and power limit: (a) HeteroFedGDKD at phase
+   13's data configuration (fake_mnist, 6,000 samples, 10 clients, hetero
+   0.1, batch 32, lr 0.03, 5 epochs, GanConfig's defaults, float32) in the
+   fork's cap of four buckets (cnn_small 3, cnn_medium 3, cnn_large 2,
+   cnn 2), all sampled: 3 rounds, one more under
+   set_sync_debug_mode("error"), each with one graph replay per
+   group-step and per distillation step, every client's accuracy in
+   [0, 1], the captures by bucket, phase and lane count with their static
+   buffers, then hetero_fedgdkd_rounds_per_sec_10c_mnist_4arch over 4
+   more rounds (a smoke figure); (b) the same buckets at 50 clients
+   (15/15/10/10), 25 a round, 30,000 samples, 3 rounds: drift-corrected
+   joiners counted in more than one bucket, the classifiers of the
+   clients a round did not sample bit for bit; (c) FedGDKD and FedDTG with
+   a cnn classifier at phase 13's configuration and FedAvg over cnn in
+   blocks of 4 at femnist_cnn's shape: 3 rounds each, then one under sync
+   debug with one replay per group-step (and per distillation step); (d)
+   the hetero sim, FedGDKD and FedDTG over cnn and FedAvg over cnn in
+   blocks of 2 at the CPU tests' configurations (tests/test_torch_hetero.py,
+   tests/test_torch_dropout_gan.py) on the card and on the CPU from the
+   same variables, draws and masks (TF32 off, cuDNN deterministic): every
+   leaf within atol 1e-5, rtol 1e-4, or else a round of one step a client
+   within 1e-3 and the rounds within SPREAD_FACTOR times the CPU's own
+   spread; (e) the phase's seconds. The flash counters, set to 0 before
+   the phase, must read 0 after it. The "kernels" line comes after it.
 """
 
 from __future__ import annotations
@@ -2666,7 +2693,7 @@ def peft_phase(card: str) -> int:
 
 # phase 13: bench.py's --fedgdkd and --fedgdkd-scale stages
 FEDGDKD_ROUNDS = 3
-FEDGDKD_RATE_ROUNDS = 6
+FEDGDKD_RATE_ROUNDS = 4
 FEDGDKD_SCALE = dict(num_clients=50, cpr=25, n_train=30000)
 # the CPU parity test's band (tests/test_torch_gan.py ROUND: the JAX
 # package's own band between its fused and vmapped GAN updates)
@@ -2784,8 +2811,9 @@ def fedgdkd_bench(card: str) -> None:
     record_line(card, metric="fedgdkd_rounds_per_sec_10c_mnist_cnn_medium",
                 value=FEDGDKD_RATE_ROUNDS / sum(rate_times),
                 unit="rounds/s", round_seconds=rate_times,
-                note="smoke figure: host clock around each of 6 rounds "
-                     "after 4, each ending in a synchronize")
+                note=f"smoke figure: host clock around each of "
+                     f"{FEDGDKD_RATE_ROUNDS} rounds after 4, each ending in "
+                     "a synchronize")
 
 
 def fedgdkd_scale(card: str) -> None:
@@ -3006,7 +3034,7 @@ def fedgdkd_phase(card: str) -> int:
 # phase 14: the rest of the GAN family at the --fedgdkd data configuration
 GAN_FAMILY = ("fedgan", "feddtg", "fedssgan", "feduagan")
 GAN_FAMILY_ROUNDS = 3
-GAN_FAMILY_RATE_ROUNDS = 4
+GAN_FAMILY_RATE_ROUNDS = 2
 # the discriminator each algorithm runs, for its rate's name
 GAN_FAMILY_DISC = {"fedgan": "acgan", "feddtg": "acgan_cnn_medium",
                    "fedssgan": "acgan_nohead", "feduagan": "acgan"}
@@ -3222,7 +3250,8 @@ def gan_family_card_vs_cpu(algo: str, device: str = "cuda") -> dict:
     cfg = tiny_gan_config(algo)
     cpu_draws = R.DeviceDraws(
         {"gan_z": 1, "gan_labels": 1, "synth": 1, "dropout": 1}, "cpu",
-        high={"gan_labels": 10}, p={"dropout": 0.75})
+        high={"gan_labels": 10},
+        p={"dropout": {f"d{i}": 0.75 for i in range(len(TINY_FEATURES))}})
 
     def sim_on(dev):
         return gan_family_sim(algo, cfg, 96, dev, n_test=32,
@@ -3388,6 +3417,8 @@ def watch_listener(proc, tdir: str) -> dict:
     """Scrape the child's listener until it exits: the last good
     ``/metrics`` (parsed), every ``/statusz`` run block and memory
     section, the last ``/tracez``."""
+    import http.client
+
     seen = {"metrics": None, "runs": [], "memory": None, "tracez": None,
             "listener_s": None, "first_round_s": None, "last_round_s": None}
     port = None
@@ -3418,6 +3449,14 @@ def watch_listener(proc, tdir: str) -> dict:
             seen["tracez"] = json.loads(scrape(port, "/tracez"))
         except OSError:
             pass  # the listener closed with the process
+        except http.client.HTTPException:
+            # a response cut short (IncompleteRead): only as the listener
+            # closes with the process, which then ends
+            try:
+                proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                raise RuntimeError("a listener response was cut short "
+                                   "while the CLI run went on") from None
     return seen
 
 
@@ -4079,6 +4118,477 @@ def distillation_phase(card: str) -> int:
     return launches
 
 
+# phase 17: heterogeneous-model FedGDKD (algorithms/hetero.py) and the
+# dropout classifiers of the GAN family and the bulk engine
+
+# the fork's cap of four architectures, at bench.py build_fedgdkd_sim's
+# data configuration: (model, clients) a bucket
+HETERO_BUCKETS = (("cnn_small", 3), ("cnn_medium", 3), ("cnn_large", 2),
+                  ("cnn", 2))
+HETERO_SCALE = dict(num_clients=50, cpr=25, n_train=30000,
+                    freqs=(15, 15, 10, 10))
+HETERO_ROUNDS = 3
+HETERO_RATE_ROUNDS = 4
+DROPOUT_ROUNDS = 3  # (c)
+DROPOUT_BLOCK = 4  # (c): FedAvg over cnn in blocks of 4 (10 a round)
+# (d): the CPU tests' hetero buckets (tests/test_torch_hetero.py)
+TINY_HETERO = (("cnn_custom", 2, (("convs", (8, 16)),)), ("lr", 2, ()),
+               ("cnn", 2, ()))
+
+
+def hetero_specs(buckets=HETERO_BUCKETS, freqs=None):
+    from fedml_tpu_torch.algorithms.hetero import ClientModelSpec
+    from fedml_tpu_torch.config import ModelConfig
+
+    out = []
+    for i, (name, freq, *extra) in enumerate(buckets):
+        out.append(ClientModelSpec(ModelConfig(
+            name=name, num_classes=10, input_shape=(28, 28, 1),
+            extra=extra[0] if extra else ()),
+            freqs[i] if freqs else freq))
+    return out
+
+
+def hetero_sim(cfg, n_train: int, specs, device: str = "cuda",
+               n_test: int = 1000, **hooks):
+    from fedml_tpu_torch.algorithms.hetero import HeteroFedGDKD
+    from fedml_tpu_torch.data.loaders import make_fake_image_dataset
+    from fedml_tpu_torch.models.gan import generator_from_config
+
+    data = make_fake_image_dataset("mnist", cfg.data, n_train=n_train,
+                                   n_test=n_test)
+    gen = generator_from_config(cfg.gan, 10, 28, 1, device=device)
+    return HeteroFedGDKD(gen, specs, data, cfg, device, **hooks)
+
+
+def hetero_graphs(sim) -> dict:
+    """The sim's CUDA graphs by bucket and phase: their lane counts, their
+    replays and the bytes of their static buffers."""
+    from fedml_tpu_torch.core import memscope
+    from fedml_tpu_torch.core import tree as T
+
+    out, replays, static = {}, 0, 0
+    for b, bucket in enumerate(sim.buckets):
+        name = type(bucket.model.module).__name__
+        for phase, upd in (("adversarial", sim._gan[b]),
+                           ("kd", sim._kd[b])):
+            graphs = [g for g in upd.programs.values() if g is not None]
+            out[f"{b}:{name}:{phase}"] = sorted(
+                int(T.tree_leaves(g.carry)[0].shape[0]) for g in graphs
+                if g.graph is not None)
+            replays += sum(g.replays for g in graphs)
+            static += sum(memscope.tree_bytes((g.carry, g.consts, g.inputs))
+                          for g in graphs if g.graph is not None)
+    return {"lanes_by_graph": out, "replays": replays,
+            "captures": sum(len(v) for v in out.values()),
+            "static_buffer_mb": static / 1e6}
+
+
+def hetero_steps(sim) -> int:
+    """The last round's graph replays it should have made: each bucket's
+    adversarial group-steps, and a distillation of ``kd_epochs * S / B``
+    steps for each bucket that trained and each that drift-corrected."""
+    epochs = sim.cfg.train.epochs
+    kd = sim.cfg.gan.kd_epochs * sim.synth_size // sim.batch_size
+    adv = epochs * sum(st for groups in sim.last_groups for _, st in groups)
+    trained = sum(1 for groups in sim.last_groups if groups)
+    drifted = sum(1 for n in sim.last_drift if n)
+    return adv + kd * (trained + drifted)
+
+
+def hetero_round(sim, sync_debug: bool = False) -> dict:
+    """One round (with ``sync_debug``, under set_sync_debug_mode("error")),
+    timed on the host clock ending in a synchronize; raises unless its
+    losses are finite and it ran as one graph replay per group-step."""
+    before = hetero_graphs(sim)["replays"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if sync_debug:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        info = sim.run_round()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses = {k: float(info[k]) for k in ("g_loss", "d_loss", "kd_loss")}
+    row = {"losses": losses, "seconds": dt,
+           "drift_corrected": info["drift_corrected"],
+           "groups": sim.last_groups,
+           "replays": hetero_graphs(sim)["replays"] - before,
+           "group_steps": hetero_steps(sim)}
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise RuntimeError(f"non-finite hetero FedGDKD loss: {row}")
+    if row["replays"] != row["group_steps"]:
+        raise RuntimeError(f"hetero replays are not one per step: {row}")
+    return row
+
+
+def hetero_bench(card: str) -> None:
+    """(a): 3 rounds of the four buckets, one more under
+    set_sync_debug_mode("error"), every client's accuracy, the graphs and
+    the round rate over HETERO_RATE_ROUNDS more."""
+    cfg = fedgdkd_config()
+    reserved = torch.cuda.memory_reserved()
+    sim = hetero_sim(cfg, 6000, hetero_specs())
+    rows = [hetero_round(sim)]
+    graphs0 = hetero_graphs(sim)
+    grown = (torch.cuda.memory_reserved() - reserved) / 1e6
+    rows += [hetero_round(sim) for _ in range(HETERO_ROUNDS - 1)]
+    synced = hetero_round(sim, sync_debug=True)
+    ev = sim.evaluate_clients()
+    if (len(ev["per_client_acc"]) != cfg.data.num_clients
+            or not all(0.0 <= a <= 1.0 for a in ev["per_client_acc"])):
+        raise RuntimeError(f"client accuracies: {ev}")
+    rate = [hetero_round(sim)["seconds"] for _ in range(HETERO_RATE_ROUNDS)]
+    graphs = hetero_graphs(sim)
+    print(json.dumps({"hetero_fedgdkd_10c": {
+        "buckets": [[type(b.model.module).__name__, b.client_ids.tolist()]
+                    for b in sim.buckets],
+        "rounds": rows, "round_under_sync_debug_error": synced,
+        "graphs_after_round_0": graphs0, "graphs": graphs,
+        "reserved_growth_mb_round_0": grown,
+        "test_acc": ev["test_acc"], "test_loss": ev["test_loss"],
+        "per_client_acc": ev["per_client_acc"], "card": card}}),
+        flush=True)
+    record_line(card, metric="hetero_fedgdkd_rounds_per_sec_10c_mnist_4arch",
+                value=HETERO_RATE_ROUNDS / sum(rate), unit="rounds/s",
+                round_seconds=rate,
+                note=f"smoke figure: host clock around each of "
+                     f"{HETERO_RATE_ROUNDS} rounds after "
+                     f"{HETERO_ROUNDS + 1}, each ending in a synchronize")
+
+
+def hetero_scale(card: str) -> None:
+    """(b): 50 clients in the same four buckets (15/15/10/10), 25 a
+    round, 3 rounds: the drift-corrected joiners counted in more than one
+    bucket, the classifiers of the clients a round did not sample bit for
+    bit as they were."""
+    s = HETERO_SCALE
+    cfg = fedgdkd_config(s["num_clients"], s["cpr"])
+    sim = hetero_sim(cfg, s["n_train"], hetero_specs(freqs=s["freqs"]))
+    rows, drifted = [], [0] * len(sim.buckets)
+    for r in range(HETERO_ROUNDS):
+        before = [{k: v.clone() for k, v in b.stack.items()}
+                  for b in sim.buckets]
+        row = hetero_round(sim)
+        cohort = set(int(c) for c in sim._cohort(r))
+        for b, bucket in enumerate(sim.buckets):
+            idle = torch.tensor([i for i, c in enumerate(bucket.client_ids)
+                                 if int(c) not in cohort],
+                                dtype=torch.long).cuda()
+            moved = [k for k, v in bucket.stack.items()
+                     if not torch.equal(v[idle], before[b][k][idle])]
+            if moved:
+                raise RuntimeError(f"round {r} bucket {b} changed unsampled "
+                                   f"classifiers: {moved}")
+        drifted = [d + n for d, n in zip(drifted, row["drift_corrected"])]
+        rows.append({"round": r, **row})
+    print(json.dumps({"hetero_fedgdkd_50c_sampled25": {
+        "rounds": rows, "drift_corrected_by_bucket": drifted,
+        "graphs": hetero_graphs(sim), "card": card}}), flush=True)
+    if sum(1 for d in drifted if d) < 2:
+        raise RuntimeError(f"drift corrected in fewer than two buckets: "
+                           f"{drifted}")
+    record_line(card,
+                metric="hetero_fedgdkd_rounds_per_sec_50c_sampled25_4arch",
+                value=2 / (rows[1]["seconds"] + rows[2]["seconds"]),
+                unit="rounds/s",
+                round_seconds=[row["seconds"] for row in rows],
+                note="smoke figure: rounds 1-2 (round 0 captures the "
+                     "graphs; each new lane count captures one), host "
+                     "clock ending in a synchronize")
+
+
+def with_cnn(cfg, **fed):
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, name="cnn"),
+        fed=dataclasses.replace(cfg.fed, **fed))
+
+
+def dropout_gan_bench(card: str) -> None:
+    """(c): FedGDKD and FedDTG with a cnn classifier at phase 13's
+    configuration, and FedAvg over cnn in the bulk engine at femnist_cnn's
+    shape: 3 rounds each, then one under set_sync_debug_mode("error") with
+    one replay per group-step (and per distillation step)."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.models import create_model
+
+    record = {}
+    sim = fedgdkd_sim(with_cnn(fedgdkd_config(), algorithm="fedgdkd"), 6000)
+    state, losses, times = gan_rounds(sim, sim.init(), DROPOUT_ROUNDS)
+    before = gan_replays(sim)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = sim.run_round(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rep = gan_report(sim, before)
+    kd_steps = sim.cfg.gan.kd_epochs * sim.synth_size // sim.batch_size
+    if (rep["adversarial_replays"] != rep["group_steps_last_round"]
+            or rep["kd_replays"] != kd_steps):
+        raise RuntimeError(f"FedGDKD over cnn: replays {rep}")
+    record["fedgdkd"] = {"losses": losses, "round_seconds": times,
+                         "synced": rep, "mask_sites": sorted(sim.mask_sites)}
+    del sim, state
+    free_card()
+    sim = gan_family_sim("feddtg", with_cnn(fedgdkd_config(),
+                                            algorithm="feddtg"), 6000)
+    state, losses, times = gan_family_rounds("feddtg", sim, sim.init(),
+                                             DROPOUT_ROUNDS)
+    before = {k: g.replays for k, g in gan_family_graphs(sim).items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = sim.run_round(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rep = gan_family_report("feddtg", sim, before)
+    if (rep["replays"]["local"] != rep["group_steps_last_round"]
+            or rep["replays"]["kd"] != kd_steps):
+        raise RuntimeError(f"FedDTG over cnn: replays {rep}")
+    record["feddtg"] = {"losses": losses, "round_seconds": times,
+                        "synced": rep, "mask_sites": sorted(sim.mask_sites)}
+    del sim, state
+    free_card()
+    cfg, data = family_setup("femnist_cnn")
+    cfg = with_cnn(cfg, client_block_size=DROPOUT_BLOCK)
+    sim = FedAvgSim(create_model(cfg.model), data, cfg)
+    state = sim.init()
+    losses, times = [], []
+    for _ in range(DROPOUT_ROUNDS):
+        state, m, dt = timed_round(sim, state)
+        losses.append(float(m["train_loss"]))
+        times.append(dt)
+    before = sim.cohort_update.graph.replays
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = sim.run_round(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rep = cohort_report(sim, before)
+    losses.append(float(m["train_loss"]))
+    if (not all(math.isfinite(x) for x in losses)
+            or rep["graph_replays"] != rep["group_steps_last_round"]
+            or len(sim.last_groups) < 2):
+        raise RuntimeError(f"FedAvg over cnn in blocks: {losses} {rep}")
+    record["fedavg_bulk"] = {"train_loss": losses, "round_seconds": times,
+                             "synced": rep, "block": DROPOUT_BLOCK}
+    print(json.dumps({"dropout_classifiers": record, "card": card}),
+          flush=True)
+
+
+def hetero_tiny_config():
+    """tests/test_torch_hetero.py's configuration: 6 clients, 4 a round,
+    batch 8, lr 0.05, one epoch, nz 16, ngf 8, a set of 16, one KD
+    epoch."""
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        GanConfig,
+        TrainConfig,
+    )
+
+    return ExperimentConfig(
+        data=DataConfig(dataset="fake_mnist", num_clients=6, batch_size=8,
+                        seed=0),
+        train=TrainConfig(lr=0.05, epochs=1),
+        fed=FedConfig(num_rounds=2, clients_per_round=4),
+        gan=GanConfig(nz=16, ngf=8, distillation_size=16, kd_epochs=1),
+        seed=0)
+
+
+def hetero_state(sim) -> list:
+    """The hetero sim's variables: the generator, then each bucket's
+    stack, as one list of tensors."""
+    return [*sim.gen_vars.values(),
+            *(v for b in sim.buckets for v in b.stack.values())]
+
+
+def set_hetero_state(sim, state, device, perturb: float = 0.0) -> None:
+    """Load ``state`` (:func:`hetero_state` of a sim with the same
+    buckets) into ``sim`` on ``device``, scaled by 1 + ``perturb`` x a
+    seeded standard normal draw."""
+    gen = torch.Generator().manual_seed(0)
+    leaves = iter(state)
+
+    def one(v):
+        v = v.cpu()
+        if perturb:
+            v = v * (1 + perturb * torch.randn(v.shape, generator=gen))
+        return v.to(device)
+
+    sim.gen_vars = {k: one(next(leaves)) for k in sim.gen_vars}
+    for b in sim.buckets:
+        b.stack = {k: one(next(leaves)) for k in b.stack}
+
+
+def hetero_rounds(sim, start, n: int = 2, perturb: float = 0.0) -> list:
+    """The variables after each of ``n`` rounds of a fresh ``sim`` from
+    ``start`` (scaled as :func:`set_hetero_state` does), on the CPU."""
+    set_hetero_state(sim, start, sim.device, perturb)
+    out = []
+    for _ in range(n):
+        sim.run_round()
+        out.append([v.cpu() for v in hetero_state(sim)])
+    return out
+
+
+def hetero_card_vs_cpu(device: str = "cuda") -> dict:
+    """(d) for the hetero sim: two rounds at the CPU test's configuration
+    on ``device`` and on the CPU from the same variables and draws (the
+    CPU sim's), within GAN_BAND, or else a round of one adversarial step
+    a client within GAN_FIRST_STEP and the rounds within SPREAD_FACTOR
+    times the CPU's own spread under a PERTURB change of the start."""
+    cfg = hetero_tiny_config()
+    specs = hetero_specs(TINY_HETERO)
+
+    def sim_on(dev, cpu=None):
+        hooks = {} if cpu is None else {"draws": lambda *a: {
+            k: v.to(dev) for k, v in cpu.draws(*a).items()}}
+        return hetero_sim(cfg, 96, specs, dev, n_test=32, **hooks)
+
+    cpu = sim_on("cpu")
+    card = sim_on(device, cpu)
+    start = [v.clone() for v in hetero_state(cpu)]
+    want = hetero_rounds(cpu, start)
+    got = hetero_rounds(card, start)
+    errs = [gan_state_err(g, w) for g, w in zip(got, want)]
+    report = {"algorithm": "hetero_fedgdkd",
+              "states": [{"max_abs_err": e, "band_use": u} for e, u in errs],
+              "drift_corrected": int(card.counters[
+                  "fedgdkd.drift_corrected"]), **GAN_BAND}
+    if max(u for _, u in errs) > 1.0:
+        one = [sim_on("cpu"), None]
+        one[1] = sim_on(device, one[0])
+        for sim in one:
+            sim.steps_per_epoch = 1
+        first = gan_state_err(hetero_rounds(one[1], start, 1)[0],
+                              hetero_rounds(one[0], start, 1)[0])[0]
+        perturbed = hetero_rounds(sim_on("cpu"), start, perturb=PERTURB)
+        row = {"first_step_max_abs_err": first,
+               "card_vs_cpu": max(e for e, _ in errs),
+               "cpu_spread": max(gan_state_err(p, w)[0]
+                                 for p, w in zip(perturbed, want)),
+               "spread_factor": SPREAD_FACTOR}
+        report.update(row)
+        if (first > GAN_FIRST_STEP
+                or row["card_vs_cpu"] > SPREAD_FACTOR * row["cpu_spread"]):
+            raise RuntimeError(f"hetero card vs CPU outside the band and the "
+                               f"spread: {report}")
+    return report
+
+
+def dropout_card_vs_cpu(algo: str, device: str = "cuda") -> dict:
+    """(d) for FedGDKD and FedDTG over a cnn classifier at the CPU tests'
+    configuration (tests/test_torch_dropout_gan.py), and FedAvg over cnn
+    in blocks of 2 (3 of 4 clients a round): the states on the card
+    against the CPU's from the same variables, draws and masks, within
+    GAN_BAND, or else the fallback of phases 13-16."""
+    import dataclasses
+
+    if algo == "fedavg":
+        base = tiny_distill_config("fedavg")
+        cfg = dataclasses.replace(base, fed=dataclasses.replace(
+            base.fed, clients_per_round=3, client_block_size=2))
+    else:
+        cfg = with_cnn(tiny_gan_config(algo))
+
+    def build(dev, draws=None):
+        hooks = {} if draws is None else {"draws": draws}
+        if algo == "fedavg":
+            return distill_sim("fedavg", cfg, 96, dev, n_test=32, **hooks)
+        if algo == "fedgdkd":
+            return fedgdkd_sim(cfg, 96, dev, n_test=32, **hooks)
+        return gan_family_sim(algo, cfg, 96, dev, n_test=32,
+                              features=TINY_FEATURES, **hooks)
+
+    cpu = build("cpu")
+
+    def sim_on(dev):
+        return cpu if dev == "cpu" else build(dev, lambda *a: {
+            k: v.to(dev) for k, v in cpu.draws(*a).items()})
+
+    # FedGDKD's state keeps its last cohort on the host
+    move = moved_state if algo == "fedgdkd" else move_state
+    t0 = time.perf_counter()
+    start = cpu.init()
+    want = rounds_of(cpu, start)
+    card = sim_on(device)
+    got = rounds_of(card, move(start, device))
+    errs = [gan_state_err(g, w) for g, w in zip(got, want)]
+    report = {"algorithm": f"{algo}_cnn",
+              "states": [{"max_abs_err": e, "band_use": u}
+                         for e, u in errs], **GAN_BAND}
+    if max(u for _, u in errs) > 1.0:
+        one = [build("cpu"), None]
+        one[1] = build(device, lambda *a: {
+            k: v.to(device) for k, v in one[0].draws(*a).items()})
+        for sim in one:  # one step a client an epoch
+            if algo == "fedavg":
+                sim.max_n = sim.batch_size
+                sim._idle_orders = sim._idle_orders[:, :sim.max_n]
+            else:
+                sim.steps_per_epoch = 1
+        first = gan_state_err(rounds_of(one[1], move(start, device), 1)[0],
+                              rounds_of(one[0], start, 1)[0])[0]
+        perturbed = rounds_of(cpu, move(start, "cpu", PERTURB))
+        row = {"first_step_max_abs_err": first,
+               "card_vs_cpu": max(e for e, _ in errs),
+               "cpu_spread": max(gan_state_err(p, w)[0]
+                                 for p, w in zip(perturbed, want)),
+               "spread_factor": SPREAD_FACTOR}
+        report.update(row)
+        if (first > GAN_FIRST_STEP
+                or row["card_vs_cpu"] > SPREAD_FACTOR * row["cpu_spread"]):
+            raise RuntimeError(f"{algo} over cnn: card vs CPU outside the "
+                               f"band and the spread: {report}")
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+def hetero_phase(card: str) -> int:
+    """Phase 17: (a)-(e). Returns the flash kernels' launches over it
+    (0: no classifier of the phase has attention)."""
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+
+    t0 = time.perf_counter()
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    parts = {}
+    for name, run in (("a", hetero_bench), ("b", hetero_scale),
+                      ("c", dropout_gan_bench)):
+        t_part = time.perf_counter()
+        run(card)
+        parts[name] = time.perf_counter() - t_part
+        free_card()
+    t_part = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        print(json.dumps({"hetero_card_vs_cpu": hetero_card_vs_cpu(),
+                          "device": card}), flush=True)
+        for algo in ("fedgdkd", "feddtg", "fedavg"):
+            print(json.dumps({"dropout_card_vs_cpu":
+                              dropout_card_vs_cpu(algo), "device": card}),
+                  flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = benchmark
+    parts["d"] = time.perf_counter() - t_part
+    launches = flash_attention.launches + flash_attention.mma_launches
+    if launches != 0:
+        raise RuntimeError(f"phase 17 launched flash attention {launches} "
+                           "times")
+    record_line(card, metric="phase17_s", value=time.perf_counter() - t0,
+                parts_s=parts)
+    return launches
+
+
 def kernel_entry(name, source, launches, by_path, rows, row,
                  note=None) -> dict:
     """One entry of the "kernels" line: the timed ``row``'s numbers, the
@@ -4140,6 +4650,10 @@ def main() -> int:
     # 16. the distillation family and the dropout classifier (no hand
     # kernel)
     paths["distillation"] = distillation_phase(card)
+    free_card()
+    # 17. heterogeneous-model FedGDKD and the dropout classifiers of the
+    # GAN family and the bulk engine (no hand kernel)
+    paths["hetero"] = hetero_phase(card)
 
     # report: the float32 entry's times are at the transformer path's
     # shape, the D = 16 entry's at the LoRA path's, the tensor-core entry's

@@ -15,6 +15,7 @@ from fedml_tpu_torch.config import (
     ExperimentConfig,
     FedConfig,
     GanConfig,
+    MeshConfig,
     ModelConfig,
     TrainConfig,
 )
@@ -24,6 +25,7 @@ __all__ = [
     "ExperimentConfig",
     "FedConfig",
     "GanConfig",
+    "MeshConfig",
     "ModelConfig",
     "TrainConfig",
 ]

@@ -1,5 +1,6 @@
 """Federated algorithms: the FedAvg simulation, the GAN family's (FedGAN,
-FedGDKD, FedDTG, FedSSGAN, FedUAGAN), the distillation family's (FedMD,
+FedGDKD, FedDTG, FedSSGAN, FedUAGAN, and FedGDKD over heterogeneous
+client models), the distillation family's (FedMD,
 FD+FAug, FedArjun) and their building blocks."""
 
 from fedml_tpu_torch.algorithms.base import (
@@ -15,6 +16,7 @@ from fedml_tpu_torch.algorithms.gan_family import (
     FedGDKDSim,
     FedGDKDState,
 )
+from fedml_tpu_torch.algorithms.hetero import HeteroFedGDKD
 from fedml_tpu_torch.algorithms.sgan import FedSSGANSim, FedUAGANSim
 
 __all__ = [
@@ -28,6 +30,7 @@ __all__ = [
     "FedMDSim",
     "FedSSGANSim",
     "FedUAGANSim",
+    "HeteroFedGDKD",
     "ServerState",
     "build_evaluator",
     "build_local_update",

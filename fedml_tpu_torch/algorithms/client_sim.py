@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.algorithms.base import make_task
+from fedml_tpu_torch.algorithms.fedavg import check_ported
 from fedml_tpu_torch.config import ExperimentConfig
 from fedml_tpu_torch.core import memscope as M
 from fedml_tpu_torch.core import random as R
@@ -54,6 +55,7 @@ class ClientSim:
                  draws: R.Draws | None, streams: Mapping[str, int],
                  high: Mapping[str, int] | None = None,
                  p: Mapping[str, object] | None = None):
+        check_ported(cfg)
         self.device = resolve_device(device)
         for name, m in models.items():
             if m.device != self.device:

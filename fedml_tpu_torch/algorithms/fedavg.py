@@ -74,7 +74,7 @@ from fedml_tpu_torch.algorithms.stack_utils import (
     resolve_cohort_groups,
     size_grouped_lanes,
 )
-from fedml_tpu_torch.config import ExperimentConfig, FedConfig
+from fedml_tpu_torch.config import ExperimentConfig, FedConfig, MeshConfig
 from fedml_tpu_torch.core import adversary as A
 from fedml_tpu_torch.core import anatomy as AN
 from fedml_tpu_torch.core import bulk as BK
@@ -95,42 +95,34 @@ from fedml_tpu_torch.models.base import FedModel, Params
 from fedml_tpu_torch import peft as PF
 from fedml_tpu_torch.peft import personal as PP
 
-# (setting, its default, the ROADMAP item that ports it): every FedConfig
-# setting of the FedAvg family is ported
-_NOT_PORTED: tuple[tuple[str, object, str], ...] = ()
+# (setting, its default, the ROADMAP item that ports it): the settings a
+# config.json of the JAX package may carry that this package does not
+# run yet. A path is "section.field", or a whole section ("mesh")
+_NOT_PORTED: tuple[tuple[str, object, str], ...] = (
+    ("fed.shard_aggregation", False, "Queue A item 15, the multi-device "
+     "paths"),
+    ("fed.async_buffer_k", 0, "Queue A item 13b, core/async_agg.py"),
+    ("fed.staleness_fn", "poly", "Queue A item 13b, core/async_agg.py"),
+    ("fed.staleness_alpha", 0.5, "Queue A item 13b, core/async_agg.py"),
+    ("mesh", MeshConfig(), "Queue A item 15, the multi-device paths"),
+)
 
 
 def check_ported(cfg: ExperimentConfig) -> None:
     """Raise ``NotImplementedError`` for a setting this package does not
     port yet, naming the ROADMAP item that will; ``ValueError`` for
-    fednova with a reducing defense, as the JAX package does."""
+    fednova with a reducing defense, as the JAX package does. Every
+    simulation checks its config here."""
     robust.check_fednova_compat(cfg.fed.algorithm, cfg.fed.robust_method)
     for path, default, item in _NOT_PORTED:
-        section, field = path.split(".")
-        value = getattr(getattr(cfg, section), field)
+        value = cfg
+        for part in path.split("."):
+            value = getattr(value, part)
         if value != default:
             raise NotImplementedError(
                 f"{path}={value!r} is not ported to fedml_tpu_torch yet "
                 f"(ROADMAP: {item})"
             )
-
-
-def check_dropout_compat(model: FedModel, cfg: ExperimentConfig) -> None:
-    """A model with dropout runs the stacked round (and its fused blocks
-    and elastic buckets), whose local steps take the cohort's keep masks;
-    the bulk engine and the PEFT rounds do not carry masks yet, and raise
-    ``NotImplementedError`` naming the ROADMAP item that will."""
-    if not model.has_dropout:
-        return
-    for setting, on in (("client_block_size", cfg.fed.client_block_size),
-                        ("peft", cfg.fed.peft != "none"
-                         or cfg.fed.peft_personalize)):
-        if on:
-            raise NotImplementedError(
-                f"a model with dropout ({type(model.module).__name__}) "
-                f"under FedConfig.{setting} is not ported to "
-                "fedml_tpu_torch yet (ROADMAP: Queue A item 13c, dropout "
-                "in the bulk engine and the PEFT rounds)")
 
 
 def consume_round_counters(train_metrics: dict, counters: dict) -> dict:
@@ -414,7 +406,6 @@ class FedAvgSim:
                  draws: R.Draws | None = None,
                  slot_sampler: SlotSampler | None = None):
         check_ported(cfg)
-        check_dropout_compat(model, cfg)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, the simulation "

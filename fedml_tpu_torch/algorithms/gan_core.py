@@ -196,8 +196,9 @@ class GanCohortUpdate:
     epochs, S, B]`` the steps' noise and fake labels (``S`` at least
     ``steps``); ``steps`` is the host's count of steps an epoch, the
     group's largest ``ceil(n_k / B)``. A discriminator with dropout takes
-    ``masks`` (``{site: [G, epochs, S, 3, B, H, W, C]}`` bool, one mask a
-    discriminator call of a step); ``labelled`` (``[N_train]`` 0/1)
+    ``masks`` (``{site: [G, epochs, S, 3, B, *site_shape]}`` bool, one
+    mask a discriminator call of a step; in ssgan mode the discriminator
+    is the client's classifier); ``labelled`` (``[N_train]`` 0/1)
     restricts the real batch's supervised CE to labelled samples
     (FedSSGAN).
 
@@ -394,15 +395,19 @@ def build_logit_extractor(disc: FedModel):
 
 
 class KDUpdate:
-    """``kd(cls_vars, synth_x, synth_y, teachers) -> (cls_vars, sums)``:
-    the distillation of G lanes' classifiers (the JAX package's
+    """``kd(cls_vars, synth_x, synth_y, teachers, masks=None) -> (cls_vars,
+    sums)``: the distillation of G lanes' classifiers (the JAX package's
     ``build_kd_update`` vmapped with ``in_axes=(0, None, None, 0, 0)``).
     ``kd_epochs`` passes over the ``S / B`` batches of the set in order,
     each step the loss ``(1 - kd_alpha) * CE + kd_alpha *
     soft_target(T)`` against the lane's teacher logits (``teachers`` ``[G,
-    S, K]``), with a fresh client optimizer at each call. The batch is the
-    same for every lane; the sums (``kd_loss_sum``, ``dist_loss_sum``,
-    ``batches``) are ``[G]``. One CUDA graph replay a step on the card."""
+    S, K]``) of the classifier in train mode, with a fresh client
+    optimizer at each call. A classifier with dropout takes ``masks``
+    (``{site: [G, kd_epochs, S / B, B, *site_shape]}`` bool, one mask a
+    step: the JAX package's ``fold_in(fold_in(key, epoch), step)`` call).
+    The batch is the same for every lane; the sums (``kd_loss_sum``,
+    ``dist_loss_sum``, ``batches``) are ``[G]``. One CUDA graph replay a
+    step on the card."""
 
     def __init__(self, disc: FedModel, train_cfg: TrainConfig,
                  gan_cfg: GanConfig, size: int, batch_size: int,
@@ -414,27 +419,29 @@ class KDUpdate:
         self.size, self.batch_size = size, batch_size
         self.kd_epochs = gan_cfg.kd_epochs
         self.alpha, self.temperature = gan_cfg.kd_alpha, gan_cfg.kd_temperature
+        self.sites = dropout_sites(disc)
         self.opt = make_client_optimizer(train_cfg)
         self.grad = torch.func.grad_and_value(self._loss, has_aux=True)
         self.vstep = torch.func.vmap(self._lane_step,
-                                     in_dims=(0, None, None, 0))
+                                     in_dims=(0, None, None, 0, 0))
         self.programs = graph_programs(graphed, self._graph_step, "kd_step")
 
     @property
     def graph(self) -> GraphedStep | None:
         return self.programs.last
 
-    def _loss(self, params, stats, xb, yb, tb):
-        logits, new_vars = self.disc.apply_train({**params, **stats}, xb)
+    def _loss(self, params, stats, xb, yb, tb, masks):
+        logits, new_vars = self.disc.apply_train({**params, **stats}, xb,
+                                                 masks=masks)
         kd = soft_target(logits, tb, self.temperature)
         loss = ((1 - self.alpha) * F.cross_entropy(logits, yb.long())
                 + self.alpha * kd)
         return loss, ({k: new_vars[k] for k in stats}, kd)
 
-    def _lane_step(self, carry, xb, yb, tb):
+    def _lane_step(self, carry, xb, yb, tb, masks):
         params = carry["params"]
         grads, (loss, (stats, kd)) = self.grad(params, carry["stats"], xb,
-                                               yb, tb)
+                                               yb, tb, masks)
         updates, opt = self.opt.update(grads, carry["opt"], params)
         sums = carry["sums"]
         return {"params": apply_updates(params, updates), "stats": stats,
@@ -446,7 +453,8 @@ class KDUpdate:
     def _graph_step(self, carry, consts, fixed, batch):
         return self.vstep(carry, *batch)
 
-    def __call__(self, cls_vars: Params, synth_x, synth_y, teachers):
+    def __call__(self, cls_vars: Params, synth_x, synth_y, teachers,
+                 masks=None):
         lanes = teachers.shape[0]
         params, stats = split_vars(cls_vars, self.disc.stat_names)
         carry = {"params": params, "stats": stats,
@@ -456,8 +464,8 @@ class KDUpdate:
                                     "batches")}}
         b = self.batch_size
         batches = [(synth_x[i * b:(i + 1) * b], synth_y[i * b:(i + 1) * b],
-                    teachers[:, i * b:(i + 1) * b])
-                   for _ in range(self.kd_epochs)
+                    teachers[:, i * b:(i + 1) * b], step_masks(masks, e, i))
+                   for e in range(self.kd_epochs)
                    for i in range(self.size // b)]
         carry = run_steps(self.programs, lanes, self._graph_step, carry, {},
                           (), batches)

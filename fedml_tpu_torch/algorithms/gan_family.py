@@ -39,7 +39,7 @@ in float32 whatever ``compute_dtype`` says and ignores ``prox_mu``.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -90,15 +90,18 @@ class GanSim(ClientSim):
     and ``"gan_labels"`` (``{"labels": (epochs, S, B)}``, whole numbers in
     ``[0, K)``) for each cohort member's adversarial steps, ``S`` the
     largest steps an epoch; ``"synth"`` (``{"z": (S_set / B, B, nz)}``,
-    slot 0) for a distillation set; ``"dropout"`` (``{site: (epochs,
-    steps, calls, B, H, W, C)}``, bool keep masks) for the discriminator
-    calls of a group's steps, drawn per group at its own steps. The
-    default, :class:`~fedml_tpu_torch.core.random.DeviceDraws`, draws on
-    the device; the hooks let a test replay the JAX package's draws.
-
-    A classifier with dropout (a dropout ``cnn_*``, ``cnn``) is not
-    carried by the family's classifier updates yet and is refused
-    (ROADMAP item 13c)."""
+    slot 0) for a distillation set; and the dropout masks (``{site:
+    (*lead, B, *site_shape)}``, bool keep masks, per client id) of each
+    model with dropout, a stream a phase (``masked``: ``{stream:
+    model}``): ``"dropout"`` for the discriminator's calls of the local
+    steps (``lead`` ``(epochs, steps, calls)``, drawn per group at its
+    own steps), ``"dropout_cls"`` for FedDTG's classifier there,
+    ``"dropout_kd"`` and ``"dropout_drift"`` for the leave-one-out
+    distillation and FedGDKD's drift correction (``lead`` ``(kd_epochs,
+    S_set / B)``). The default, :class:`~fedml_tpu_torch.core.random.
+    DeviceDraws`, draws on the device, each stream at its model's keep
+    probabilities; the hooks let a test replay the JAX package's draws.
+    """
 
     def __init__(self, gen: GanModel, models: dict[str, FedModel],
                  data: FederatedData, cfg: ExperimentConfig,
@@ -106,46 +109,48 @@ class GanSim(ClientSim):
                  sampler: Callable | None = None,
                  batch_orders: Callable | None = None,
                  draws: R.Draws | None = None,
-                 dropout_model: FedModel | None = None):
-        for name, m in models.items():
-            if m.has_dropout and m is not dropout_model:
-                raise NotImplementedError(
-                    f"a {name} with dropout is not carried by the GAN "
-                    "family's classifier updates in fedml_tpu_torch yet "
-                    "(ROADMAP: Queue A item 13c, dropout in the GAN "
-                    "family's classifiers)")
-        self.sites = (G.dropout_sites(dropout_model) if dropout_model
-                      is not None else {})
+                 masked: Mapping[str, FedModel] | None = None):
+        masked = {s: m for s, m in (masked or {}).items() if m.has_dropout}
+        # each dropout stream's sites, {stream: {site: shape}}
+        self.mask_sites = {s: G.dropout_sites(m) for s, m in masked.items()}
         seed = cfg.seed
         super().__init__(
             {"generator": gen.model, **models}, data, cfg, device, sampler,
             batch_orders, draws,
             {"gan_z": seed, "gan_labels": seed, "synth": seed,
-             "dropout": seed},
+             **{s: seed for s in masked}},
             high={"gan_labels": max(gen.num_classes, 1)},
-            p={"dropout": dropout_model.mask_keep} if self.sites else {})
+            p={s: m.mask_keep for s, m in masked.items()})
         self.gen = gen
         self.synth_size = (cfg.gan.distillation_size // self.batch_size
                            ) * self.batch_size or self.batch_size
 
-    def _masks(self, round_idx: int, slots, prefix: tuple) -> dict | None:
-        """The dropout masks of ``slots``' discriminator calls,
-        ``{site: [len(slots), *prefix, B, H, W, C]}``; None without
-        dropout."""
-        return self._site_masks("dropout", round_idx, slots, self.sites,
-                                prefix)
+    def _masks(self, round_idx: int, slots, prefix: tuple,
+               stream: str = "dropout") -> dict | None:
+        """``stream``'s dropout masks of ``slots``' calls, ``{site:
+        [len(slots), *prefix, B, *site_shape]}``; None for a stream
+        without sites."""
+        return self._site_masks(stream, round_idx, slots,
+                                self.mask_sites.get(stream, {}), prefix)
 
-    def _local_phase(self, run_group: Callable, calls: int, round_idx: int,
-                     cohort: np.ndarray, ids: torch.Tensor,
+    def _kd_masks(self, stream: str, round_idx: int, slots) -> dict | None:
+        """The masks of ``slots``' classifiers over a distillation (one a
+        step: ``kd_epochs`` passes of ``S_set / B`` batches)."""
+        return self._masks(round_idx, slots, (
+            self.cfg.gan.kd_epochs, self.synth_size // self.batch_size),
+            stream)
+
+    def _local_phase(self, run_group: Callable, calls: Mapping[str, int],
+                     round_idx: int, cohort: np.ndarray, ids: torch.Tensor,
                      stacked: tuple = ()):
         """The cohort's adversarial training in size-sorted groups of
         ``cohort_groups`` (0: groups of about 2), each group stepping its
         largest member's ``ceil(n_k / B)`` steps an epoch:
         ``run_group(orders, z, labels, masks, steps, ids, *stacked)`` for
         each group, on its lanes' rows of ``ids``, the batch orders, the
-        noise and fake labels, and of the lane-stacked trees ``stacked``,
-        with the group's dropout masks for ``calls`` discriminator calls a
-        step."""
+        noise and fake labels, and of the lane-stacked trees ``stacked``;
+        ``masks`` holds the group's dropout masks by stream (``calls``:
+        ``{stream: calls a step}``; None for a stream without sites)."""
         cfg, b = self.cfg, self.batch_size
         epochs = cfg.train.epochs
         orders = torch.stack([
@@ -164,7 +169,9 @@ class GanSim(ClientSim):
             steps = G.dynamic_trip_count(counts.max(), b,
                                          self.steps_per_epoch)
             self.last_groups.append((len(counts), steps))
-            masks = self._masks(round_idx, hosts, (epochs, steps, calls))
+            masks = {stream: self._masks(round_idx, hosts,
+                                         (epochs, steps, n), stream)
+                     for stream, n in calls.items()}
             return run_group(orders_g, z_g, labels_g, masks, steps, ids_g,
                              *stacked_g)
 
@@ -223,7 +230,8 @@ class FedGANSim(GanSim):
                  batch_orders: Callable | None = None,
                  draws: R.Draws | None = None):
         super().__init__(gen, {"discriminator": disc}, data, cfg, device,
-                         sampler, batch_orders, draws, dropout_model=disc)
+                         sampler, batch_orders, draws,
+                         masked={"dropout": disc})
         self.disc = disc
         self.gan_update = G.GanCohortUpdate(
             gen, disc, cfg.train, cfg.gan, self.batch_size, self.graphed,
@@ -243,9 +251,9 @@ class FedGANSim(GanSim):
             idx, mask = self._rows(ids_g)
             return self.gan_update(state.gen_vars, state.disc_vars, idx,
                                    mask, a.x, a.y, orders, z, labels, steps,
-                                   masks, self.labelled)
+                                   masks["dropout"], self.labelled)
 
-        return self._local_phase(run, G.GanCohortUpdate.CALLS,
+        return self._local_phase(run, {"dropout": G.GanCohortUpdate.CALLS},
                                  state.round, cohort, self._ids(cohort))
 
     def run_round(self, state: FedGANState):
@@ -270,8 +278,12 @@ class FedGDKDState(NamedTuple):
 
 class FedGDKDSim(GanSim):
     """FedGDKD on one device (the module docstring's steps 1-5), with the
-    hooks of :class:`GanSim` (the classifier has no dropout, so no
-    ``"dropout"`` draws).
+    hooks of :class:`GanSim`. A classifier with dropout takes masks in
+    every train-mode call, each phase from its own stream by client id:
+    the adversarial steps' three calls (``"dropout"``: G's on the fakes,
+    then D's on the fakes and on the real batch), the leave-one-out
+    distillation's steps (``"dropout_kd"``) and the drift correction's
+    (``"dropout_drift"``); the logit extraction runs in eval mode.
 
     ``counters["fedgdkd.drift_corrected"]`` counts the drift-corrected
     members over the run; ``last_drift`` holds the last round's."""
@@ -283,7 +295,9 @@ class FedGDKDSim(GanSim):
                  batch_orders: Callable | None = None,
                  draws: R.Draws | None = None):
         super().__init__(gen, {"classifier": classifier}, data, cfg, device,
-                         sampler, batch_orders, draws)
+                         sampler, batch_orders, draws,
+                         masked={s: classifier for s in (
+                             "dropout", "dropout_kd", "dropout_drift")})
         self.classifier = classifier
         if self.task.name != "classification":
             raise ValueError("FedGDKD distills classifiers; the data's task "
@@ -327,9 +341,10 @@ class FedGDKDSim(GanSim):
         pos = self._ids(new)
         teachers = state.prev_teacher.expand(len(new),
                                              *state.prev_teacher.shape)
-        corrected, _ = self.kd_update(stack_gather(cls_vars, pos),
-                                      state.prev_synth_x,
-                                      state.prev_synth_y, teachers)
+        corrected, _ = self.kd_update(
+            stack_gather(cls_vars, pos), state.prev_synth_x,
+            state.prev_synth_y, teachers,
+            self._kd_masks("dropout_drift", state.round, cohort[new]))
         return stack_scatter(cls_vars, pos, corrected)
 
     def run_round(self, state: FedGDKDState):
@@ -344,16 +359,18 @@ class FedGDKDSim(GanSim):
         def run(orders, z, labels, masks, steps, ids_g, cls_g):
             idx, mask = self._rows(ids_g)
             return self.gan_update(state.gen_vars, cls_g, idx, mask, a.x,
-                                   a.y, orders, z, labels, steps)
+                                   a.y, orders, z, labels, steps,
+                                   masks["dropout"])
 
         g_stack, cls_vars, n_k, sums = self._local_phase(
-            run, G.GanCohortUpdate.CALLS, state.round, cohort,
+            run, {"dropout": G.GanCohortUpdate.CALLS}, state.round, cohort,
             ids, (cls_vars,))
         gen_vars = T.tree_weighted_mean(g_stack, n_k)
         synth_x, synth_y = self._synth_set(gen_vars, state.round)
         logits = self.extract(cls_vars, synth_x)  # [C, S, K]
-        cls_vars, kd_sums = self.kd_update(cls_vars, synth_x, synth_y,
-                                           G.leave_one_out_teacher(logits))
+        cls_vars, kd_sums = self.kd_update(
+            cls_vars, synth_x, synth_y, G.leave_one_out_teacher(logits),
+            self._kd_masks("dropout_kd", state.round, cohort))
         sampled = torch.zeros_like(state.prev_sampled)
         sampled[torch.from_numpy(cohort)] = True
         metrics = {
@@ -429,8 +446,9 @@ def reverse_grad(x: torch.Tensor) -> torch.Tensor:
 
 class DTGCohortUpdate:
     """``update(gen_vars, disc_vars, cls_vars, idx_rows, mask_rows, x, y,
-    orders, z, gen_labels, steps, masks=None) -> (gen stack, disc stack,
-    cls stack, n_k)``: FedDTG's local training of G lanes (the JAX
+    orders, z, gen_labels, steps, masks=None, cls_masks=None) -> (gen
+    stack, disc stack, cls stack, n_k)``: FedDTG's local training of G
+    lanes (the JAX
     package's ``FedDTGSim._build_local_update`` vmapped with
     ``in_axes=(None, None, 0, 0, 0, None, None, 0)``). Every lane starts
     from the global generator and discriminator; ``cls_vars`` are the
@@ -439,7 +457,10 @@ class DTGCohortUpdate:
     :class:`~fedml_tpu_torch.algorithms.gan_core.GanCohortUpdate`;
     ``masks`` (``{site: [G, epochs, S, 3, B, H, W, C]}``) are the
     discriminator's, for its calls of a step in order: G's (on the
-    fakes), D's on the real batch, D's on the fakes.
+    fakes), D's on the real batch, D's on the fakes; a classifier with
+    dropout takes ``cls_masks`` (``{site: [G, epochs, S, 3, B,
+    *site_shape]}``) for its calls in the same order: G's, then the
+    classifier step's on the real batch and on the fakes.
 
     A step is a G step, a D step and a classifier step:
 
@@ -486,11 +507,11 @@ class DTGCohortUpdate:
         return val, new
 
     def _g_loss(self, g_params, g_stats, d_vars, c_vars, z, gen_labels, w,
-                masks):
+                masks, cls_masks):
         fakes, new_g = self.gen.apply_train({**g_params, **g_stats}, z,
                                             gen_labels)
         val, _ = self._validity(d_vars, fakes, masks)
-        pred, _ = self.cls.apply_train(c_vars, fakes)
+        pred, _ = self.cls.apply_train(c_vars, fakes, masks=cls_masks)
         pred = reverse_grad(pred)
         loss = 0.5 * (G.bce_logits(val, self.REAL_LABEL, w)
                       + G.ce(pred, gen_labels, w))
@@ -504,26 +525,30 @@ class DTGCohortUpdate:
                       + G.bce_logits(v_f, 0.0, w))
         return loss, {k: vars2[k] for k in d_stats}
 
-    def _c_loss(self, c_params, c_stats, fakes, gen_labels, x_b, y_b, w):
-        p_real, vars1 = self.cls.apply_train({**c_params, **c_stats}, x_b)
-        p_fake, vars2 = self.cls.apply_train(vars1, fakes)
+    def _c_loss(self, c_params, c_stats, fakes, gen_labels, x_b, y_b, w,
+                masks_real, masks_fake):
+        p_real, vars1 = self.cls.apply_train({**c_params, **c_stats}, x_b,
+                                             masks=masks_real)
+        p_fake, vars2 = self.cls.apply_train(vars1, fakes, masks=masks_fake)
         loss = 0.5 * (G.ce(p_real, y_b, w) + G.ce(p_fake, gen_labels, w))
         return loss, {k: vars2[k] for k in c_stats}
 
-    def _lane_step(self, carry, x_b, y_b, w_b, z, gen_labels, masks):
+    def _lane_step(self, carry, x_b, y_b, w_b, z, gen_labels, masks,
+                   cls_masks):
         gp, dp, cp = carry["g_params"], carry["d_params"], carry["c_params"]
         g_grads, (_, (g_stats, fakes)) = self.g_grad(
             gp, carry["g_stats"], {**dp, **carry["d_stats"]},
             {**cp, **carry["c_stats"]}, z, gen_labels, w_b,
-            G.call_masks(masks, 0))
+            G.call_masks(masks, 0), G.call_masks(cls_masks, 0))
         g_upd, g_opt = self.g_opt.update(g_grads, carry["g_opt"], gp)
         fakes = fakes.detach()
         d_grads, (_, d_stats) = self.d_grad(
             dp, carry["d_stats"], fakes, x_b, w_b, G.call_masks(masks, 1),
             G.call_masks(masks, 2))
         d_upd, d_opt = self.d_opt.update(d_grads, carry["d_opt"], dp)
-        c_grads, (_, c_stats) = self.c_grad(cp, carry["c_stats"], fakes,
-                                            gen_labels, x_b, y_b, w_b)
+        c_grads, (_, c_stats) = self.c_grad(
+            cp, carry["c_stats"], fakes, gen_labels, x_b, y_b, w_b,
+            G.call_masks(cls_masks, 1), G.call_masks(cls_masks, 2))
         c_upd, c_opt = self.c_opt.update(c_grads, carry["c_opt"], cp)
         new = {"g_params": apply_updates(gp, g_upd), "g_stats": g_stats,
                "g_opt": g_opt, "d_params": apply_updates(dp, d_upd),
@@ -533,9 +558,10 @@ class DTGCohortUpdate:
         valid = torch.sum(w_b) > 0
         return T.tree_map(lambda n, o: torch.where(valid, n, o), new, carry)
 
-    def step(self, carry, x, y, b_idx, w_b, z, gen_labels, masks=None):
+    def step(self, carry, x, y, b_idx, w_b, z, gen_labels, masks=None,
+             cls_masks=None):
         return self.vstep(carry, x[b_idx], y[b_idx], w_b, z, gen_labels,
-                          masks or {})
+                          masks or {}, cls_masks or {})
 
     def _graph_step(self, carry, consts, fixed, batch):
         return self.step(carry, *fixed, *batch)
@@ -553,12 +579,14 @@ class DTGCohortUpdate:
         return carry
 
     def __call__(self, gen_vars, disc_vars, cls_vars, idx_rows, mask_rows,
-                 x, y, orders, z, gen_labels, steps: int, masks=None):
+                 x, y, orders, z, gen_labels, steps: int, masks=None,
+                 cls_masks=None):
         lanes = idx_rows.shape[0]
         batches = [
             (b_idx, w_b, z[:, i // steps, i % steps],
              gen_labels[:, i // steps, i % steps],
-             G.step_masks(masks, i // steps, i % steps))
+             G.step_masks(masks, i // steps, i % steps),
+             G.step_masks(cls_masks, i // steps, i % steps))
             for i, (b_idx, w_b) in enumerate(lane_batches(
                 idx_rows, mask_rows, orders, self.epochs, steps,
                 self.batch_size))]
@@ -587,8 +615,9 @@ class FedDTGSim(GanSim):
     ``n_k``-weighted means of G and D; the distillation set of the new
     generator; each member's classifier distills against the leave-one-out
     mean teacher (``KDUpdate``; no drift correction). The classifiers of
-    the clients a round did not sample are untouched. Metric:
-    ``kd_loss``."""
+    the clients a round did not sample are untouched. A classifier with
+    dropout takes the masks of its local steps (``"dropout_cls"``) and
+    of its distillation (``"dropout_kd"``). Metric: ``kd_loss``."""
 
     def __init__(self, gen: GanModel, disc: FedModel, classifier: FedModel,
                  data: FederatedData, cfg: ExperimentConfig,
@@ -599,7 +628,9 @@ class FedDTGSim(GanSim):
         super().__init__(gen, {"discriminator": disc,
                                "classifier": classifier}, data, cfg,
                          device, sampler, batch_orders, draws,
-                         dropout_model=disc)
+                         masked={"dropout": disc,
+                                 "dropout_cls": classifier,
+                                 "dropout_kd": classifier})
         self.disc, self.classifier = disc, classifier
         b = self.batch_size
         self.dtg_update = DTGCohortUpdate(gen, disc, classifier, cfg.train,
@@ -627,16 +658,19 @@ class FedDTGSim(GanSim):
             idx, mask = self._rows(ids_g)
             return self.dtg_update(state.gen_vars, state.disc_vars, cls_g,
                                    idx, mask, a.x, a.y, orders, z, labels,
-                                   steps, masks)
+                                   steps, masks["dropout"],
+                                   masks["dropout_cls"])
 
         g_stack, d_stack, cls_vars, n_k = self._local_phase(
-            run, DTGCohortUpdate.CALLS, state.round, cohort, ids,
-            (stack_gather(state.cls_stack, ids),))
+            run, {"dropout": DTGCohortUpdate.CALLS,
+                  "dropout_cls": DTGCohortUpdate.CALLS}, state.round,
+            cohort, ids, (stack_gather(state.cls_stack, ids),))
         gen_vars = T.tree_weighted_mean(g_stack, n_k)
         synth_x, synth_y = self._synth_set(gen_vars, state.round)
         logits = self.extract(cls_vars, synth_x)
-        cls_vars, kd_sums = self.kd_update(cls_vars, synth_x, synth_y,
-                                           G.leave_one_out_teacher(logits))
+        cls_vars, kd_sums = self.kd_update(
+            cls_vars, synth_x, synth_y, G.leave_one_out_teacher(logits),
+            self._kd_masks("dropout_kd", state.round, cohort))
         return FedDTGState(
             gen_vars, T.tree_weighted_mean(d_stack, n_k),
             stack_scatter(state.cls_stack, ids, cls_vars),

@@ -223,7 +223,7 @@ class FedUAGANSim(GanSim):
             raise ValueError("UA-GAN needs an ACGAN discriminator with its "
                              "validity head")
         super().__init__(gen, {"discriminator": disc}, data, cfg, device,
-                         None, batch_orders, draws, dropout_model=disc)
+                         None, batch_orders, draws, masked={"dropout": disc})
         self.disc = disc
         self.g_opt = G.make_gen_optimizer(cfg.gan)
         self.g_grad = torch.func.grad_and_value(self._g_loss)

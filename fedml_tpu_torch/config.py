@@ -97,19 +97,49 @@ class FedConfig:
     robust_multikrum_m: int = 0  # multi-Krum's keep count (0: C - f)
     robust_trim_frac: float = 0.1  # trimmed mean's trim, each side
     gmf: float = 0.0  # global momentum factor
+    # elastic buckets (core/elastic.py): the round runs the power-of-two
+    # bucket above the cohort, so the live cohort may change size
+    elastic_buckets: bool = False
     # the client->server wire codec (core/compress.py): "none" | "int8" |
     # "topk" | "topk_int8", with error feedback carried across rounds
     compress: str = "none"
     compress_topk_frac: float = 0.01  # share of each leaf topk keeps
-    # elastic buckets (core/elastic.py): the round runs the power-of-two
-    # bucket above the cohort, so the live cohort may change size
-    elastic_buckets: bool = False
+    # the deploy server's aggregation sharded over a device mesh, and
+    # buffered asynchronous aggregation with its staleness discount
+    # ("poly": (1 + lag)^-alpha, "const": full weight). Not ported yet:
+    # a value other than the default is refused
+    # (algorithms/fedavg.py _NOT_PORTED)
+    shard_aggregation: bool = False
+    async_buffer_k: int = 0
+    staleness_fn: str = "poly"
+    staleness_alpha: float = 0.5
+    # the observability planes (core/perf.py, memscope.py, slo.py,
+    # anatomy.py), all off by default, where they cost one attribute
+    # check a round and change no result:
+    # torch.profiler windows around the first K rounds, each parsed into
+    # a device-time breakdown, and the live perf.* gauges (round rate,
+    # MFU, the dispatch-bound detector) for the whole run; 0 = off
+    profile_rounds: int = 0
+    # the used share of device memory at which the memory monitor leaves
+    # its one mem_headroom flight event
+    mem_headroom_warn: float = 0.9
     # the bulk engine (core/bulk.py): stream the cohort in blocks of this
     # many clients (0: the stacked round)
     client_block_size: int = 0
     # run the round loop in blocks of this many rounds (core/fuse.py): the
     # host reads a block's metrics back once, at its end (1: per round)
     fuse_rounds: int = 1
+    # declarative SLOs ("perf.round_wall_s:p99<2.0@60s"), evaluated on
+    # the metrics time series' cadence; empty = no engine
+    slos: tuple[str, ...] = ()
+    # per-phase attribution of each round's wall time (perf.phase.*, the
+    # /tracez ring)
+    anatomy: bool = False
+    # a one-shot torch.profiler window on an SLO breach transition or the
+    # mem_headroom crossing, under <telemetry_dir>/profiles/
+    profile_on_breach: bool = False
+    profile_window_s: float = 5.0  # its length (> 0)
+    profile_max_captures: int = 3  # the run's cap (>= 1)
     # parameter-efficient fine-tuning (fedml_tpu_torch/peft): "lora" wraps
     # the transformer's targeted projections (lora_targets, from q_proj,
     # k_proj, v_proj, attn_out, mlp_up, mlp_down) with zero-init rank
@@ -122,27 +152,6 @@ class FedConfig:
     # keep each client's adapters in a private per-client bank: only the
     # LM head aggregates (fedml_tpu_torch/peft/personal.py)
     peft_personalize: bool = False
-    # the observability planes (core/perf.py, memscope.py, slo.py,
-    # anatomy.py), all off by default, where they cost one attribute
-    # check a round and change no result:
-    # torch.profiler windows around the first K rounds, each parsed into
-    # a device-time breakdown, and the live perf.* gauges (round rate,
-    # MFU, the dispatch-bound detector) for the whole run; 0 = off
-    profile_rounds: int = 0
-    # the used share of device memory at which the memory monitor leaves
-    # its one mem_headroom flight event
-    mem_headroom_warn: float = 0.9
-    # declarative SLOs ("perf.round_wall_s:p99<2.0@60s"), evaluated on
-    # the metrics time series' cadence; empty = no engine
-    slos: tuple[str, ...] = ()
-    # per-phase attribution of each round's wall time (perf.phase.*, the
-    # /tracez ring)
-    anatomy: bool = False
-    # a one-shot torch.profiler window on an SLO breach transition or the
-    # mem_headroom crossing, under <telemetry_dir>/profiles/
-    profile_on_breach: bool = False
-    profile_window_s: float = 5.0  # its length (> 0)
-    profile_max_captures: int = 3  # the run's cap (>= 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,11 +244,25 @@ class AdversaryPolicy:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh of the multi-device runtime: the sampled cohort
+    sharded over ``client_axis_size`` devices, each client's batch over
+    ``data_axis_size``. Not ported yet: a layout other than the default
+    is refused (algorithms/fedavg.py ``_NOT_PORTED``)."""
+
+    client_axis_size: int = 1
+    data_axis_size: int = 1
+    client_axis_name: str = "clients"
+    data_axis_name: str = "data"
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     fed: FedConfig = dataclasses.field(default_factory=FedConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     gan: GanConfig = dataclasses.field(default_factory=GanConfig)
     adversary: AdversaryPolicy = dataclasses.field(
         default_factory=AdversaryPolicy
@@ -289,6 +312,7 @@ class ExperimentConfig:
             model=build(ModelConfig, d.get("model")),
             train=build(TrainConfig, d.get("train")),
             fed=build(FedConfig, d.get("fed")),
+            mesh=build(MeshConfig, d.get("mesh")),
             gan=build(GanConfig, d.get("gan")),
             adversary=build(AdversaryPolicy, d.get("adversary")),
             seed=d.get("seed", 0),

@@ -14,7 +14,7 @@ names are mapped explicitly.
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -261,3 +261,38 @@ def acgan_state_dict(variables: Mapping[str, Any], lead: int = 0
     ``bns.k``, the dense heads by their names (kernels transposed).
     ``lead`` leading axes of rows (a ``[N, ...]`` bank) stay in front."""
     return vision_state_dict(variables, "ACGANDiscriminator", lead)
+
+
+def bucket_state_dicts(stacks: Sequence[Mapping[str, Any]],
+                       archs: Sequence[str]) -> list[dict[str, torch.Tensor]]:
+    """The JAX package's ``HeteroFedGDKD`` bucket stacks (flax variables
+    of each bucket's architecture, every leaf with a leading
+    ``[len(client_ids)]`` axis of rows, as numpy) to the port's bucket
+    stacks, bucket by bucket: ``archs`` are the port's class names
+    (``type(bucket.model.module).__name__``). A vision architecture keeps
+    its rows in front (:func:`vision_state_dict` with ``lead=1``); an LSTM
+    (``CharLSTM``, ``NWPLSTM``) is converted row by row
+    (:func:`nlp_state_dict`) and stacked."""
+    out = []
+    for stack, arch in zip(stacks, archs, strict=True):
+        if arch in _VISION_TOP:
+            out.append(vision_state_dict(stack, arch, lead=1))
+            continue
+        rows = len(next(iter(_leaves(stack))))
+        per_row = [nlp_state_dict(_row(stack, i), arch) for i in range(rows)]
+        out.append({k: torch.stack([r[k] for r in per_row])
+                    for k in per_row[0]})
+    return out
+
+
+def _leaves(tree: Mapping[str, Any]):
+    for val in tree.values():
+        if isinstance(val, Mapping):
+            yield from _leaves(val)
+        else:
+            yield np.asarray(val)
+
+
+def _row(tree: Mapping[str, Any], i: int) -> dict:
+    return {k: _row(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
+            for k, v in tree.items()}

@@ -2,8 +2,8 @@
 the defended round (the aggregate's noise, the quantizer's stochastic
 rounding, the adversaries' gaussians, the streamed defenses' random
 projection), the GAN family's (the adversarial steps' noise and fake
-labels, the distillation set's noise) and the dropout masks of its
-discriminators.
+labels, the distillation set's noise) and the dropout masks of every
+model with dropout, a stream a phase.
 
 Every draw comes from a ``torch.Generator`` seeded by a seed and the
 draw's coordinates (round, client, slot, ...), so each is a function of
@@ -53,7 +53,31 @@ STREAMS = {
     "dropout_pretrain_private": (0x44505056, "bernoulli"),
     "dropout_a2l": (0x4441324C, "bernoulli"),
     "dropout_l2a": (0x444C3241, "bernoulli"),
+    # the GAN family's classifiers: FedDTG's classifier in a local step
+    # (G's call, then the classifier step's real and fake calls,
+    # [epochs, steps, 3, B, *site]); the leave-one-out distillation and
+    # FedGDKD's drift correction ([kd_epochs, batches, B, *site]), per
+    # client id
+    "dropout_cls": (0x44434C53, "bernoulli"),
+    "dropout_kd": (0x44524B44, "bernoulli"),
+    "dropout_drift": (0x44524654, "bernoulli"),
 }
+
+# a stream of one of several models (a bucket of HeteroFedGDKD) is the
+# stream's name, "@" and the model's tag: the same salt and distribution,
+# its own seed and keep probabilities
+SCOPE = "@"
+
+
+def scoped(stream: str, tag) -> str:
+    """``stream`` of the model tagged ``tag``, e.g. ``"dropout_kd@2"``."""
+    return f"{stream}{SCOPE}{tag}"
+
+
+def base_stream(stream: str) -> str:
+    """The stream in :data:`STREAMS` that ``stream`` (scoped or not)
+    draws from."""
+    return stream.partition(SCOPE)[0]
 
 # (stream, round, slots, {name: shape}) -> {name: [len(slots), *shape]}
 Draws = Callable[[str, int, Sequence[int], Mapping[str, tuple]],
@@ -79,12 +103,16 @@ class DeviceDraws:
     ``[0, high[stream])``, by stream), and each leaf is a view of its
     columns. One kernel per slot, whatever the number of leaves.
 
-    A "bernoulli" stream (the dropout masks) gives bool leaves, True with
-    probability ``p[stream]`` (a float, or ``{leaf: float}`` for sites
-    of different rates): each slot's generator draws each leaf one
-    leading index at a time, uniform on [0, 1) compared with ``p``, so
-    the float32 staging is one such slice, never the whole draw (a
-    group's masks at full width are hundreds of millions of values)."""
+    A "bernoulli" stream (the dropout masks) gives bool leaves, leaf
+    ``site`` True with probability ``p[stream][site]``: the keep
+    probabilities are the model's (``FedModel.mask_keep``), keyed by
+    stream then site, so two models whose sites share a name draw each at
+    its own rate from streams of their own (:func:`scoped`). Each slot's
+    generator draws each leaf one leading index at a time, uniform on [0,
+    1) compared with the site's keep probability, so the float32 staging
+    is one such slice, never the whole draw (a group's masks at full
+    width are hundreds of millions of values). A scoped stream draws
+    with its base stream's salt and distribution."""
 
     def __init__(self, seeds: Mapping[str, int], device: torch.device,
                  high: Mapping[str, int] | None = None,
@@ -92,11 +120,11 @@ class DeviceDraws:
         self.seeds = dict(seeds)
         self.device = torch.device(device)
         self.high = dict(high or {})
-        self.p = dict(p or {})
+        self.p = {k: dict(v) for k, v in (p or {}).items()}
 
     def __call__(self, stream: str, round_idx: int, slots: Sequence[int],
                  shapes: Mapping[str, tuple]) -> dict[str, torch.Tensor]:
-        salt, kind = STREAMS[stream]
+        salt, kind = STREAMS[base_stream(stream)]
         if kind == "bernoulli":
             return self._bernoulli(stream, salt, round_idx, slots, shapes)
         sizes = [int(np.prod(s)) for s in shapes.values()]
@@ -125,7 +153,7 @@ class DeviceDraws:
             gen = generator(self.seeds[stream], salt, round_idx, int(slot),
                             device=self.device)
             for name, shape in shapes.items():
-                keep = p[name] if isinstance(p, Mapping) else p
+                keep = p[name]
                 for i in range(shape[0]):
                     u = torch.rand(shape[1:], generator=gen,
                                    device=self.device)
@@ -135,7 +163,7 @@ class DeviceDraws:
 
 def mask_shapes(sites: Mapping[str, tuple], lead: tuple, batch: int
                 ) -> dict[str, tuple]:
-    """The ``"dropout"`` draw's shapes for a lane: ``{site: (*lead, batch,
+    """A dropout draw's shapes for a lane: ``{site: (*lead, batch,
     *site_shape)}``, ``lead`` the steps' coordinates (a classifier's
     ``(epochs, steps)``, a discriminator's ``(epochs, steps, calls)``)."""
     return {k: tuple(lead) + (batch,) + tuple(s) for k, s in sites.items()}

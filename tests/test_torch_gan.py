@@ -482,11 +482,14 @@ def test_two_rounds_match_jax(world):
 
 
 def test_refusals_name_their_items():
-    """What is still refused names its ROADMAP item: a classifier with
-    dropout in the GAN family, and a dropout model in the bulk engine or
-    a PEFT round (13c); the other algorithm families (13). The acgan mode
-    and the rest of the GAN family (item 13a) are ported, so build_sim
-    returns each of them on the CPU."""
+    """What is still refused names its ROADMAP item: the other algorithm
+    families (13). Dropout (item 13c) is ported: FedGDKD and FedDTG build
+    a classifier with dropout, each of its phases on a mask stream of its
+    own, and the bulk engine builds ``cnn``; a dropout model under PEFT
+    gets the JAX package's ``ValueError`` (LoRA needs the TransformerLM's
+    projections, personalization needs LoRA). The acgan mode and the rest
+    of the GAN family (item 13a) are ported, so build_sim returns each of
+    them on the CPU."""
     cfg = tiny_cfg(tc)
     gen = generator_from_config(cfg.gan, K, 28, 1, device="cpu")
     model = create_model(cfg.model, "cpu")
@@ -504,16 +507,24 @@ def test_refusals_name_their_items():
                                           extra=(("dropout", 0.25),)), "cpu")
     assert dropped.has_dropout
     data = make_fake_image_dataset("mnist", cfg.data, n_train=96, n_test=32)
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        FedGDKDSim(gen, dropped, data, cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        FedDTGSim(gen, acgan_discriminator(K, SHAPE, (8, 16), device="cpu"),
-                  dropped, data, cfg, "cpu")
-    for fed in (dict(client_block_size=2), dict(peft="lora")):
-        bulk = dataclasses.replace(cfg, fed=dataclasses.replace(cfg.fed,
+    gdkd = FedGDKDSim(gen, dropped, data, cfg, "cpu")
+    assert set(gdkd.mask_sites) == {"dropout", "dropout_kd", "dropout_drift"}
+    assert gdkd.mask_sites["dropout_kd"] == dropped.mask_sites
+    dtg = FedDTGSim(gen, acgan_discriminator(K, SHAPE, (8, 16), device="cpu"),
+                    dropped, data, cfg, "cpu")
+    assert set(dtg.mask_sites) == {"dropout", "dropout_cls", "dropout_kd"}
+    assert dtg.mask_sites["dropout_cls"] == dropped.mask_sites
+    cnn = create_model(tc.ModelConfig(name="cnn", num_classes=K,
+                                      input_shape=SHAPE), "cpu")
+    bulk = FedAvgSim(cnn, data, dataclasses.replace(
+        cfg, fed=dataclasses.replace(cfg.fed, client_block_size=2)), "cpu")
+    assert bulk.model.has_dropout and bulk._bulk.enabled()
+    for fed, match in ((dict(peft="lora"), "TransformerLM"),
+                       (dict(peft_personalize=True), "requires peft='lora'")):
+        peft = dataclasses.replace(cfg, fed=dataclasses.replace(cfg.fed,
                                                                 **fed))
-        with pytest.raises(NotImplementedError, match="item 13c"):
-            FedAvgSim(dropped, data, bulk, "cpu")
+        with pytest.raises(ValueError, match=match):
+            FedAvgSim(cnn, data, peft, "cpu")
 
     def with_algo(algo):
         return dataclasses.replace(cfg, fed=dataclasses.replace(

@@ -182,7 +182,8 @@ def step_draws(ckey, epochs, steps, n_split):
     """A client's noise, fake labels and three dropout keys a step (G's
     call, then the D step's two, from the split of the fourth key), as
     ``build_gan_local_update`` (``n_split`` 4) and FedDTG's update (5)
-    derive them."""
+    derive them; FedDTG's also the classifier's three (G's call, then the
+    classifier step's two, from the split of the fifth key)."""
     skeys = _step_keys(ckey, jnp.arange(epochs), jnp.arange(steps))
     return _split_draws(skeys.reshape(-1), n_split)
 
@@ -201,9 +202,13 @@ def _split_any(skeys, n):
     def one(k):
         ks = jax.random.split(k, n)
         d1, d2 = jax.random.split(ks[3])
-        return (jax.random.normal(ks[0], (B, NZ)),
-                jax.random.randint(ks[1], (B,), 0, K),
-                jnp.stack([ks[2], d1, d2]))
+        out = (jax.random.normal(ks[0], (B, NZ)),
+               jax.random.randint(ks[1], (B,), 0, K),
+               jnp.stack([ks[2], d1, d2]))
+        if n == 5:
+            c1, c2 = jax.random.split(ks[4])
+            out += (jnp.stack([ks[2], c1, c2]),)
+        return out
 
     return jax.vmap(one)(skeys)
 
