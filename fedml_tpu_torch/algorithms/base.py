@@ -87,7 +87,46 @@ def _nwp_sums(logits, y, w):
     }
 
 
-_TASKS = {"classification": _classification_sums, "nwp": _nwp_sums}
+def _tag_sums(logits, y, w):
+    """Multi-label tags: logits and multi-hot ``y`` [B, tags]; the sigmoid
+    binary cross-entropy averaged over the tags (optax's form, from the
+    log-sigmoids); ``correct`` the true positives at ``sigmoid > 0.5`` and
+    ``count`` the raw count of predicted tags (micro precision; a batch
+    may predict none, and :func:`finalize_sums` clamps the total)."""
+    logits = T.wide(logits)
+    y = y.to(logits.dtype)
+    bce = (-y * F.logsigmoid(logits)
+           - (1.0 - y) * F.logsigmoid(-logits)).mean(-1)
+    pred = (torch.sigmoid(logits) > 0.5).to(logits.dtype)
+    return {
+        "loss_sum": torch.sum(bce * w),
+        "correct": torch.sum(pred * y * w[:, None]),
+        "count": torch.sum(pred * w[:, None]),
+        "w_sum": torch.sum(w),
+    }
+
+
+def _segmentation_sums(logits, y, w):
+    """Per-pixel classes: logits [B, H, W, K], y [B, H, W]; the loss is
+    each image's mean cross-entropy over its pixels, the accuracy the
+    pixel accuracy (``correct`` as the JAX package forms it: each image's
+    mean, times its weight and its pixel count)."""
+    b, h, wd, k = logits.shape
+    ce = F.cross_entropy(T.wide(logits).reshape(-1, k),
+                         y.reshape(-1).long(), reduction="none")
+    ce = ce.reshape(b, h, wd).mean(dim=(1, 2))
+    correct = (logits.argmax(-1) == y).float()
+    pixels = h * wd
+    return {
+        "loss_sum": torch.sum(ce * w),
+        "correct": torch.sum(correct.mean(dim=(1, 2)) * w * pixels),
+        "count": torch.sum(w) * pixels,
+        "w_sum": torch.sum(w),
+    }
+
+
+_TASKS = {"classification": _classification_sums, "nwp": _nwp_sums,
+          "tag_prediction": _tag_sums, "segmentation": _segmentation_sums}
 
 
 def make_task(name: str) -> Task:

@@ -21,14 +21,16 @@ from typing import Callable, Mapping, Sequence
 import numpy as np
 import torch
 
-from fedml_tpu_torch.algorithms.base import make_task
+from fedml_tpu_torch.algorithms import gan_core as G
+from fedml_tpu_torch.algorithms.base import CohortUpdate, make_task
 from fedml_tpu_torch.algorithms.fedavg import check_ported
+from fedml_tpu_torch.algorithms.stack_utils import size_grouped_lanes
 from fedml_tpu_torch.config import ExperimentConfig
 from fedml_tpu_torch.core import memscope as M
 from fedml_tpu_torch.core import random as R
 from fedml_tpu_torch.core.device import resolve_device, to_device
 from fedml_tpu_torch.data.federated import FederatedData, arrays_and_batch
-from fedml_tpu_torch.models.base import FedModel
+from fedml_tpu_torch.models.base import FedModel, Params
 
 
 class ClientSim:
@@ -112,3 +114,57 @@ class ClientSim:
             return None
         return self.draws(stream, round_idx, [int(c) for c in slots],
                           R.mask_shapes(sites, lead, self.batch_size))
+
+    def _stack_orders(self, hosts, order_of: Callable,
+                      epochs: int | None = None) -> torch.Tensor:
+        """``[lanes, epochs, max_n]`` batch orders of host ids ``hosts`` on
+        the device, one copy: ``order_of(client)``'s first ``epochs`` (by
+        default ``train.epochs``)."""
+        epochs = epochs or self.cfg.train.epochs
+        return to_device(torch.stack([
+            torch.stack(list(order_of(int(c)))[:epochs]) for c in hosts
+        ]).long(), self.device)
+
+    def _steps(self, counts) -> int:
+        return G.dynamic_trip_count(np.max(counts), self.batch_size,
+                                    self.steps_per_epoch)
+
+    def _grouped(self, run_group: Callable, cohort: np.ndarray,
+                 stacked: tuple):
+        """``run_group(ids_g, steps, hosts, *stacked_g)`` for each
+        size-sorted group of ``cohort`` (host ids), ``steps`` the group's
+        largest ``ceil(n_k / B)``; outputs lane-stacked, in cohort order."""
+        self.last_groups = []
+
+        def group(ids_g, *rest):
+            *stacked_g, counts, hosts = rest
+            steps = self._steps(counts)
+            self.last_groups.append((len(counts), steps))
+            return run_group(ids_g, steps, hosts, *stacked_g)
+
+        return size_grouped_lanes(
+            group, (self._ids(cohort), *stacked), self._host_counts[cohort],
+            self.cfg.train.cohort_groups, host=cohort)
+
+    def _train_lanes(self, update: CohortUpdate, model: FedModel,
+                     hosts: np.ndarray, lane_vars: Params,
+                     orders: torch.Tensor, draw_round: int):
+        """``update`` of the lanes of host ids ``hosts`` in size-sorted
+        groups (:meth:`_grouped`), each lane from its own variables
+        (``lane_vars``, ``{name: [lanes, ...]}``), on its rows, in its
+        batch orders (``orders``, ``[lanes, epochs, max_n]`` on the device)
+        and, for a model with dropout, the ``"dropout"`` masks drawn at
+        ``draw_round`` by host id. Returns the stacked variables, n_k and
+        the metric sums, in the lanes' order."""
+
+        def run_group(ids_g, steps, hosts_g, orders_g, vars_g):
+            idx, mask = self._rows(ids_g)
+            # every variable starts from the lane's own; lane 0 gives shapes
+            return update({k: v[0] for k, v in vars_g.items()}, idx, mask,
+                          self.arrays.x, self.arrays.y, orders_g, steps,
+                          starts=vars_g,
+                          masks=self._site_masks(
+                              "dropout", draw_round, hosts_g,
+                              model.mask_sites, (update.epochs, steps)))
+
+        return self._grouped(run_group, hosts, (orders, lane_vars))

@@ -63,7 +63,6 @@ from fedml_tpu_torch.algorithms.client_sim import ClientSim
 from fedml_tpu_torch.algorithms.kd import logits_mse, soft_target
 from fedml_tpu_torch.algorithms.stack_utils import (
     evaluate_stack,
-    size_grouped_lanes,
     stack_gather,
     stack_scatter,
     vmap_init,
@@ -362,31 +361,8 @@ class DistillSim(ClientSim):
     def _lane_orders(self, round_idx: int, ids, phase: str, epochs: int):
         """``[lanes, epochs, max_n]`` batch orders of host ids ``ids`` on
         the device, one copy."""
-        return to_device(torch.stack([
-            torch.stack(list(self.batch_orders(round_idx, int(c), phase,
-                                               epochs))[:epochs])
-            for c in ids]).long(), self.device)
-
-    def _steps(self, counts) -> int:
-        return G.dynamic_trip_count(np.max(counts), self.batch_size,
-                                    self.steps_per_epoch)
-
-    def _grouped(self, run_group: Callable, cohort: np.ndarray,
-                 stacked: tuple):
-        """``run_group(ids_g, steps, hosts, *stacked_g)`` for each
-        size-sorted group of ``cohort`` (host ids), ``steps`` the group's
-        largest ``ceil(n_k / B)``; outputs lane-stacked, in cohort order."""
-        self.last_groups = []
-
-        def group(ids_g, *rest):
-            *stacked_g, counts, hosts = rest
-            steps = self._steps(counts)
-            self.last_groups.append((len(counts), steps))
-            return run_group(ids_g, steps, hosts, *stacked_g)
-
-        return size_grouped_lanes(
-            group, (self._ids(cohort), *stacked), self._host_counts[cohort],
-            self.cfg.train.cohort_groups, host=cohort)
+        return self._stack_orders(ids, lambda c: self.batch_orders(
+            round_idx, c, phase, epochs), epochs)
 
     def _count(self, stream: str, steps: int) -> None:
         self.last_steps[stream] = self.last_steps.get(stream, 0) + steps

@@ -89,6 +89,17 @@ _VISION_TOP = {
     "ACGANDiscriminator": {**{f"Conv2D_{k}": f"convs.{k}" for k in range(8)},
                            **{f"BatchNorm_{k}": f"bns.{k}"
                               for k in range(8)}},
+    "TagLogisticRegression": {"Dense_0": "linear"},
+    "VGG": {**{f"Conv2D_{k}": f"convs.{k}" for k in range(16)},
+            "Dense_0": "fc1", "Dense_1": "head"},
+    "LeNet": {"Conv2D_0": "conv1", "Conv2D_1": "conv2", "Dense_0": "fc1",
+              "Dense_1": "head"},
+    "MobileNetV3": {"Conv2D_0": "stem", "BatchNorm_0": "stem_bn",
+                    "Conv2D_1": "last", "BatchNorm_1": "last_bn",
+                    "Dense_0": "fc1", "Dense_1": "head"},
+    "EfficientNet": {"Conv2D_0": "stem", "BatchNorm_0": "stem_bn",
+                     "Conv2D_1": "last", "BatchNorm_1": "last_bn",
+                     "Dense_0": "head"},
 }
 # inside a block (BasicBlock_k or DepthwiseSeparable_k, numbered across
 # the whole model as blocks.k; in the exact s2d ResNet _S2DBasicBlock_k,
@@ -107,6 +118,46 @@ _BLOCKS = {
     "DepthwiseSeparable": {"Conv2D_0": "dw", "BatchNorm_0": "dw_bn",
                            "Conv2D_1": "pw", "BatchNorm_1": "pw_bn"},
 }
+# an MBConv_k (blocks.k): with an expansion conv (expand above 1) its
+# convs and norms are expansion, depthwise, projection; without, depthwise
+# and projection. Its squeeze-excite's dense layers are fc1 and fc2.
+_MBCONV = {"SqueezeExcite_0": "se", "Dense_0": "fc1", "Dense_1": "fc2"}
+_MBCONV_PARTS = {True: (("expand_conv", "expand_bn"), ("dw", "dw_bn"),
+                        ("project", "project_bn")),
+                 False: (("dw", "dw_bn"), ("project", "project_bn"))}
+
+
+def _mbconv_map(block: Mapping[str, Any]) -> dict[str, str]:
+    """The names in one MBConv's params or batch_stats subtree: a third
+    conv, or a third norm, is an expansion's."""
+    expand = "Conv2D_2" in block or "BatchNorm_2" in block
+    out = dict(_MBCONV)
+    for i, (conv, norm) in enumerate(_MBCONV_PARTS[expand]):
+        out[f"Conv2D_{i}"], out[f"BatchNorm_{i}"] = conv, norm
+    return out
+
+
+def _deeplab_top(tree: Mapping[str, Any], rates: int = 3
+                 ) -> dict[str, str]:
+    """DeepLab-lite's flax names: the encoder's convs and norms come
+    first, then the ``rates`` ASPP branches', then the global pool's conv,
+    the projection and its norm, and the head. Its BatchNorm count (in
+    ``tree``, its params or its batch_stats) is encoder + rates + 1."""
+    enc = sum(k.startswith("BatchNorm_") for k in tree) - rates - 1
+    top = {}
+    for i in range(enc):
+        top[f"Conv2D_{i}"], top[f"BatchNorm_{i}"] = (f"encoder.{i}",
+                                                     f"encoder_bn.{i}")
+    for j in range(rates):
+        top[f"Conv2D_{enc + j}"] = f"aspp.{j}"
+        top[f"BatchNorm_{enc + j}"] = f"aspp_bn.{j}"
+    top[f"Conv2D_{enc + rates}"] = "pool_conv"
+    top[f"Conv2D_{enc + rates + 1}"] = "project"
+    top[f"BatchNorm_{enc + rates}"] = "project_bn"
+    top[f"Conv2D_{enc + rates + 2}"] = "head"
+    return top
+
+
 _VISION_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
                 "mean": "running_mean", "var": "running_var"}
 
@@ -126,14 +177,25 @@ def vision_state_dict(variables: Mapping[str, Any], arch: str,
     (``LogisticRegression``, ``CNNDropOut``, ``CNNOriginalFedAvg``,
     ``CNNParameterised``,
     ``ResNetCIFAR`` with or without ``space_to_depth``,
-    ``ResNetCIFARS2DExact``, ``ResNet18GN`` or ``MobileNet``). Every leaf
+    ``ResNetCIFARS2DExact``, ``ResNet18GN``, ``MobileNet``, ``VGG``,
+    ``LeNet``, ``MobileNetV3``, ``EfficientNet``, ``DeepLabLite`` or
+    ``TagLogisticRegression``). Every leaf
     may carry ``lead`` leading axes of rows (a stacked ``[N, ...]`` bank of
     classifiers), which stay in front. ``BasicBlock_k`` (numbered across
-    all stages) and ``DepthwiseSeparable_k`` become ``blocks.k``; in the
+    all stages), ``DepthwiseSeparable_k`` and ``MBConv_k`` become
+    ``blocks.k``; in the
     exact s2d ResNet, with ``n`` blocks a stage, ``_S2DBasicBlock_k``
     becomes ``blocks.k``, ``_TransitionBlock_0`` ``blocks.n`` and
-    ``_BasicBlock_k`` ``blocks.(n + 1 + k)``."""
-    top = _VISION_TOP[arch]
+    ``_BasicBlock_k`` ``blocks.(n + 1 + k)``. An ``MBConv_k``'s names
+    depend on whether it has an expansion conv, and DeepLab-lite's on its
+    encoder's depth (``_deeplab_top``, three ASPP rates)."""
+    top = (_deeplab_top(variables.get("params")
+                        or variables.get("batch_stats", {}))
+           if arch == "DeepLabLite" else _VISION_TOP[arch])
+    mbconv = {k: _mbconv_map(v)
+              for collection in ("batch_stats", "params")
+              for k, v in variables.get(collection, {}).items()
+              if k.startswith("MBConv_")}
     n = len({k for collection in ("params", "batch_stats")
              for k in variables.get(collection, {})
              if k.startswith("_S2DBasicBlock_")})
@@ -144,7 +206,10 @@ def vision_state_dict(variables: Mapping[str, Any], arch: str,
         parts, block = [], None
         for i, name in enumerate(path):
             kind, _, k = name.rpartition("_")
-            if kind in _BLOCKS:
+            if i == 0 and kind == "MBConv":
+                parts.append(f"blocks.{k}")
+                block = mbconv[name]
+            elif kind in _BLOCKS:
                 parts.append(f"blocks.{offset.get(kind, 0) + int(k)}")
                 block = _BLOCKS[kind]
             elif i == 0:

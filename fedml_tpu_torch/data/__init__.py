@@ -9,6 +9,8 @@ from fedml_tpu_torch.data.federated import (
 from fedml_tpu_torch.data.loaders import (
     load_dataset,
     make_fake_image_dataset,
+    make_fake_segmentation_dataset,
+    make_fake_tag_dataset,
     make_fake_text_dataset,
     make_synthetic,
 )
@@ -20,6 +22,8 @@ __all__ = [
     "build_federated_data",
     "load_dataset",
     "make_fake_image_dataset",
+    "make_fake_segmentation_dataset",
+    "make_fake_tag_dataset",
     "make_fake_text_dataset",
     "make_synthetic",
 ]

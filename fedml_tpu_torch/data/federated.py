@@ -92,7 +92,8 @@ class FederatedData:
     train_idx_map: dict[int, np.ndarray]
     test_idx_map: dict[int, np.ndarray]
     num_classes: int
-    task: str = "classification"  # "classification" | "nwp"
+    # "classification" | "nwp" | "tag_prediction" | "segmentation"
+    task: str = "classification"
 
     @property
     def num_clients(self) -> int:

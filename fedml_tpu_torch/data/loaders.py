@@ -1,10 +1,10 @@
 """Offline federated dataset loaders.
 
 The procedural datasets (``fake_<image>`` with the shapes and class
-counts of ``IMAGE_SPECS``, the fake text sets, and LEAF's
-``synthetic(alpha, beta)``) draw from numpy ``default_rng`` in the same
-order as the JAX package's loaders, so the arrays and the partitions are
-bitwise equal.
+counts of ``IMAGE_SPECS``, the fake text sets, the fake segmentation and
+tag sets, and LEAF's ``synthetic(alpha, beta)``) draw from numpy
+``default_rng`` in the same order as the JAX package's loaders, so the
+arrays and the partitions are bitwise equal.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from fedml_tpu_torch.config import DataConfig
+from fedml_tpu_torch.data import partition as P
 from fedml_tpu_torch.data.federated import (
     FederatedData,
     build_federated_data,
@@ -155,12 +156,103 @@ def make_fake_text_dataset(
     )
 
 
+def make_fake_segmentation_dataset(
+    cfg: DataConfig,
+    img_size: int = 32,
+    num_classes: int = 4,
+    n_train: int = 512,
+    n_test: int = 64,
+) -> FederatedData:
+    """Procedural segmentation (the stand-in for pascal_voc and coco):
+    each image holds one axis-aligned blob of each class 1..K-1 on the
+    background 0, later blobs over earlier ones; ``y`` [N, H, W] int32 is
+    the layout. The partition goes by each image's majority class, so a
+    hetero partition still skews."""
+    rng = np.random.default_rng(cfg.seed)
+
+    def gen(n):
+        x = rng.normal(0, 0.1, (n, img_size, img_size, 3)).astype(np.float32)
+        y = np.zeros((n, img_size, img_size), np.int32)
+        for i in range(n):
+            for c in range(1, num_classes):
+                cx, cy = rng.integers(0, img_size, 2)
+                h, w = rng.integers(img_size // 4, img_size // 2, 2)
+                y[i, cx:cx + h, cy:cy + w] = c
+                x[i, cx:cx + h, cy:cy + w, :] += np.eye(3)[c % 3] * c
+        return x, y
+
+    x_tr, y_tr = gen(n_train)
+    x_te, y_te = gen(n_test)
+    rng2 = np.random.default_rng(cfg.seed)
+
+    def majority(y):
+        flat = y.reshape(y.shape[0], -1)
+        return np.array(
+            [np.bincount(r, minlength=num_classes).argmax() for r in flat],
+            np.int64,
+        )
+
+    train_map = P.partition_indices_train(
+        majority(y_tr), num_classes, cfg.partition_method, cfg.num_clients,
+        cfg.partition_alpha, cfg.dataset_r, rng2,
+    )
+    test_map = P.partition_indices_test(
+        majority(y_te), num_classes, cfg.num_clients
+    )
+    return FederatedData(
+        x_tr, y_tr, x_te, y_te, train_map, test_map, num_classes,
+        task="segmentation",
+    )
+
+
+def make_fake_tag_dataset(
+    cfg: DataConfig,
+    vocab: int = 1000,
+    num_tags: int = 50,
+    n_train: int = 4000,
+    n_test: int = 500,
+) -> FederatedData:
+    """Multi-label bag-of-words tags (the stand-in for stackoverflow_lr):
+    ``x`` [N, vocab] float32 word indicators, ``y`` [N, tags] float32
+    multi-hot, a sample's tags those whose score through a sparse random
+    word-tag map reaches its own 95th percentile; a homogeneous split."""
+    rng = np.random.default_rng(cfg.seed)
+    W = (rng.random((vocab, num_tags)) < 0.01).astype(np.float32)
+
+    def gen(n):
+        x = (rng.random((n, vocab)) < 0.02).astype(np.float32)
+        score = x @ W
+        y = (score >= np.quantile(score, 0.95, axis=1, keepdims=True)).astype(
+            np.float32
+        )
+        return x, y
+
+    x_tr, y_tr = gen(n_train)
+    x_te, y_te = gen(n_test)
+    rng2 = np.random.default_rng(cfg.seed + 1)
+    perm = rng2.permutation(n_train)
+    train_map = {
+        i: s for i, s in enumerate(np.array_split(perm, cfg.num_clients))
+    }
+    test_map = {
+        i: s
+        for i, s in enumerate(
+            np.array_split(np.arange(n_test), cfg.num_clients)
+        )
+    }
+    return FederatedData(
+        x_tr, y_tr, x_te, y_te, train_map, test_map, num_tags,
+        task="tag_prediction",
+    )
+
+
 def load_dataset(cfg: DataConfig) -> FederatedData:
     """Dataset dispatch. Only the offline datasets are ported:
     ``synthetic_stackoverflow_nwp`` (``data/natural.py``, its 10,000-word
     vocabulary), ``synthetic``, ``synthetic_<alpha>_<beta>`` and the
-    ``fake_<name>`` sets of the image (``IMAGE_SPECS``) and text paths;
-    any other name raises."""
+    ``fake_<name>`` sets of the image (``IMAGE_SPECS``), text, tag
+    (``fake_stackoverflow_lr``) and segmentation (``fake_seg``,
+    ``fake_pascal_voc``, ``fake_coco_seg``) paths; any other name raises."""
     name = cfg.dataset.lower()
     if name == "synthetic_stackoverflow_nwp":
         # before the synthetic_<a>_<b> family, as in the JAX package: the
@@ -182,10 +274,15 @@ def load_dataset(cfg: DataConfig) -> FederatedData:
         return make_fake_text_dataset(
             cfg, seq_len=STACKOVERFLOW_SEQ_LEN, vocab=2000
         )
+    if base == "stackoverflow_lr":
+        return make_fake_tag_dataset(cfg)
+    if base in ("pascal_voc", "coco_seg", "seg"):
+        return make_fake_segmentation_dataset(cfg)
     raise ValueError(
         f"dataset {cfg.dataset!r} is not ported to fedml_tpu_torch yet "
         f"(available: synthetic_stackoverflow_nwp, "
         f"synthetic[_<alpha>_<beta>], "
         f"fake_<{'|'.join(IMAGE_SPECS)}>, fake_shakespeare, "
-        "fake_stackoverflow_nwp)"
+        "fake_stackoverflow_nwp, fake_stackoverflow_lr, fake_seg, "
+        "fake_pascal_voc, fake_coco_seg)"
     )

@@ -1,8 +1,10 @@
 """The experiment harness: the algorithm registry and the seeded
 repetition runner, with round checkpoints and resume
-(``fedml_tpu.experiments.harness``, its FedAvg family, the GAN family:
-FedGAN, FedGDKD, FedDTG, FedSSGAN and FedUAGAN, and the distillation
-family: FedMD, FD+FAug and FedArjun).
+(``fedml_tpu.experiments.harness``, its FedAvg family with the
+``fedseg`` alias, the GAN family: FedGAN, FedGDKD, FedDTG, FedSSGAN and
+FedUAGAN, the distillation family: FedMD, FD+FAug and FedArjun, and the
+topologies: hierarchical, decentralized DSGD and push-sum, and their
+online variants ``dol_dsgd`` and ``dol_pushsum``).
 
 :class:`Experiment` runs N repetitions of a config, repetition ``k`` with
 ``seed + k`` and ``data.seed + k`` under the run name
@@ -19,9 +21,12 @@ UA-GAN's generator optimizer) and the distillation family's (the
 client model banks, FD's teachers, FedArjun's adapter) checkpoint the
 same way; they have no fused blocks, so ``fuse_rounds > 1`` warns and
 the rounds run one by one, as in the JAX package. A sim without ``run``
-(all of the GAN family but FedGDKD, the distillation family) goes
-through the harness's round loop, and one without an evaluator (FedGAN,
-FedSSGAN, FedUAGAN) logs no evaluation.
+(all of the GAN family but FedGDKD, the distillation family, the
+hierarchical and decentralized sims) goes through the harness's round
+loop, and one without an evaluator (FedGAN, FedSSGAN, FedUAGAN) logs no
+evaluation. The online sims have ``run`` only: they log their regret
+rows themselves, and ``checkpoint_every`` warns and is ignored for them,
+as in the JAX package.
 
 The observability planes ride the loops as in the JAX package: a sim's
 own ``run`` is one ``sim_run`` tracer span; the harness's round loop
@@ -40,6 +45,10 @@ import warnings
 
 import torch
 
+from fedml_tpu_torch.algorithms.decentralized import (
+    DecentralizedSim,
+    OnlineDecentralizedSim,
+)
 from fedml_tpu_torch.algorithms.distill import (
     FDSim,
     FedArjunSim,
@@ -55,6 +64,7 @@ from fedml_tpu_torch.algorithms.gan_family import (
     FedGANSim,
     FedGDKDSim,
 )
+from fedml_tpu_torch.algorithms.hierarchical import HierarchicalFedAvg
 from fedml_tpu_torch.algorithms.sgan import FedSSGANSim, FedUAGANSim
 from fedml_tpu_torch.config import ExperimentConfig
 from fedml_tpu_torch.core import export
@@ -62,6 +72,7 @@ from fedml_tpu_torch.core import fuse as FU
 from fedml_tpu_torch.core import perf as P
 from fedml_tpu_torch.core import telemetry
 from fedml_tpu_torch.data import load_dataset
+from fedml_tpu_torch.data import streaming as S
 from fedml_tpu_torch.metrics import MetricsSink
 from fedml_tpu_torch.models import create_model
 from fedml_tpu_torch.models.gan import (
@@ -73,10 +84,11 @@ from fedml_tpu_torch.utils.checkpoint import RoundCheckpointer, from_savable
 # the registry's FedAvg family: --algorithm -> the FedConfig.algorithm
 # FedAvgSim runs (fedprox is fedavg with TrainConfig.prox_mu; the robust
 # and multiclient aliases are fedavg with the FedConfig defenses and the
-# adversaries, as in the JAX package)
+# adversaries, fedseg fedavg with the segmentation task its dataset
+# names, as in the JAX package)
 ALGORITHMS = {"fedavg": "fedavg", "fedopt": "fedopt", "fedprox": "fedavg",
               "fednova": "fednova", "fedavg_robust": "fedavg",
-              "fedavg_multiclient": "fedavg"}
+              "fedavg_multiclient": "fedavg", "fedseg": "fedavg"}
 
 
 # the GAN family (fedml_tpu.experiments.harness _build_gan)
@@ -129,6 +141,45 @@ def _build_distill(cfg: ExperimentConfig, device):
     return FedArjunSim(model, local, data, cfg, device)
 
 
+# the topologies (fedml_tpu.experiments.harness _build_hierarchical,
+# _build_decentralized, _build_dol)
+TOPOLOGY_FAMILY = ("hierarchical", "decentralized_dsgd",
+                   "decentralized_pushsum", "dol_dsgd", "dol_pushsum")
+
+
+def _build_topology(cfg: ExperimentConfig, device):
+    """The hierarchical sim (2 groups, one inner round, the JAX harness's
+    defaults) or a decentralized one over the ring of 2 neighbours. The
+    online sims (``dol_*``) run ``comm_round`` iterations on the
+    procedural SUSY-shaped stream (``susy`` and ``ro`` read UCI files:
+    item 18), ``beta`` from ``partition_alpha`` only under
+    ``partition_method == "hetero"``, logging every ``eval_every``."""
+    algo = cfg.fed.algorithm
+    if algo.startswith("dol_"):
+        name = cfg.data.dataset.lower()
+        n, t = cfg.data.num_clients, cfg.fed.num_rounds
+        beta = (cfg.data.partition_alpha
+                if cfg.data.partition_method == "hetero" else 0.0)
+        if name in ("susy", "ro"):
+            xs, ys = S.load_uci_stream(name, cfg.data.data_dir, n, t,
+                                       beta=beta, seed=cfg.data.seed)
+        else:
+            xs, ys = S.make_susy_like_stream(n, t, beta=beta,
+                                             seed=cfg.data.seed)
+        sim = OnlineDecentralizedSim(
+            xs, ys, method=algo[len("dol_"):], lr=cfg.train.lr,
+            weight_decay=cfg.train.weight_decay, seed=cfg.seed,
+            device=device)
+        sim.log_every = cfg.fed.eval_every
+        return sim
+    data = load_dataset(cfg.data)
+    model = create_model(cfg.model, device)
+    if algo == "hierarchical":
+        return HierarchicalFedAvg(model, data, cfg, device)
+    return DecentralizedSim(model, data, cfg, device,
+                            method=algo[len("decentralized_"):])
+
+
 def build_sim(cfg: ExperimentConfig, device: str | torch.device = "cuda"):
     """The simulation of ``cfg.fed.algorithm`` on ``device``."""
     algo = cfg.fed.algorithm
@@ -136,10 +187,14 @@ def build_sim(cfg: ExperimentConfig, device: str | torch.device = "cuda"):
         return _build_gan(cfg, device)
     if algo in DISTILL_FAMILY:
         return _build_distill(cfg, device)
+    if algo in TOPOLOGY_FAMILY:
+        return _build_topology(cfg, device)
     if algo not in ALGORITHMS:
         raise NotImplementedError(
             f"algorithm={algo!r} is not ported to fedml_tpu_torch yet "
-            "(ROADMAP: Queue A item 13, the other algorithm families)")
+            "(ROADMAP: Queue A item 13b, the rest: split learning, "
+            "FedNAS, TurboAggregate, the local baselines, async "
+            "aggregation)")
     cfg = dataclasses.replace(cfg, fed=dataclasses.replace(
         cfg.fed, algorithm=ALGORITHMS[algo]))
     return FedAvgSim(create_model(cfg.model, device), load_dataset(cfg.data),
@@ -186,6 +241,14 @@ class Experiment:
         every ``checkpoint_every`` rounds and after the last. A sim
         without ``run_block`` (the GAN family) runs its rounds one by one
         under ``fuse_rounds > 1``, with a warning."""
+        if cfg.checkpoint_every > 0 and not hasattr(sim, "run_round"):
+            warnings.warn(
+                f"checkpoint_every={cfg.checkpoint_every} ignored: "
+                f"{type(sim).__name__} has no init/run_round state "
+                "protocol", stacklevel=2)
+            with telemetry.maybe_span("sim_run", sim=type(sim).__name__):
+                sim.run(metrics_sink=sink)
+            return
         fused = cfg.fed.fuse_rounds > 1 and hasattr(sim, "run_block")
         if cfg.fed.fuse_rounds > 1 and not fused:
             warnings.warn(
@@ -339,13 +402,15 @@ class Experiment:
 
     @staticmethod
     def _eval_record(sim, state) -> dict:
-        """The evaluation: the global model's (``evaluate_global``), or
-        the mean over the clients' own models (``evaluate_clients``: FedGDKD,
-        FedDTG and the distillation family), its scalars with ``acc`` and ``loss`` under
-        the summary's names ``test_acc`` and ``test_loss``; nothing for a
-        sim without an evaluator."""
+        """The evaluation: the global model's (``evaluate_global``), the
+        mean over the clients' own models (``evaluate_clients``: FedGDKD,
+        FedDTG and the distillation family) or the clients' mean model
+        (``evaluate_consensus``: the decentralized sims), its scalars with
+        ``acc`` and ``loss`` under the summary's names ``test_acc`` and
+        ``test_loss``; nothing for a sim without an evaluator."""
         evaluate = (getattr(sim, "evaluate_global", None)
-                    or getattr(sim, "evaluate_clients", None))
+                    or getattr(sim, "evaluate_clients", None)
+                    or getattr(sim, "evaluate_consensus", None))
         if evaluate is None:
             return {}
         rename = {"acc": "test_acc", "loss": "test_loss"}

@@ -1,11 +1,15 @@
 """CLI entry: ``python -m fedml_tpu_torch.experiments.run ...``.
 
 The FedAvg family of ``fedml_tpu.experiments.run`` (``--algorithm``
-fedavg, fedopt, fedprox, fednova, fedavg_robust, fedavg_multiclient) and
+fedavg, fedopt, fedprox, fednova, fedavg_robust, fedavg_multiclient and
+fedseg, the segmentation alias: the task comes from the dataset) and
 the GAN family (``--algorithm`` fedgan, fedgdkd, feddtg, fedssgan,
 feduagan) and the distillation family (``--algorithm`` fedmd, fd_faug,
 fedarjun; their settings, as the GAN family's, the ``gan`` section of
-the ``--config`` JSON, as the JAX CLI has no GAN flags), with its flag
+the ``--config`` JSON, as the JAX CLI has no GAN flags) and the
+topologies (``--algorithm`` hierarchical, decentralized_dsgd,
+decentralized_pushsum, and the online dol_dsgd and dol_pushsum, whose
+``--comm_round`` is the stream's length), with its flag
 names: the
 defenses
 (``--defense`` or ``--robust_method``, ``--defense_*``,
@@ -69,9 +73,12 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
                    help="JSON file with the full ExperimentConfig")
     p.add_argument("--algorithm", type=str, default=None,
                    help="fedavg, fedopt, fedprox, fednova, fedavg_robust, "
-                        "fedavg_multiclient, the GAN family: fedgan, "
-                        "fedgdkd, feddtg, fedssgan, feduagan, or the "
-                        "distillation family: fedmd, fd_faug, fedarjun")
+                        "fedavg_multiclient, fedseg, the GAN family: "
+                        "fedgan, fedgdkd, feddtg, fedssgan, feduagan, the "
+                        "distillation family: fedmd, fd_faug, fedarjun, "
+                        "or the topologies: hierarchical, "
+                        "decentralized_dsgd, decentralized_pushsum, "
+                        "dol_dsgd, dol_pushsum")
     p.add_argument("--dataset", type=str, default=None)
     p.add_argument("--model", type=str, default=None)
     p.add_argument("--num_classes", type=int, default=None)

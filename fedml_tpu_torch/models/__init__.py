@@ -7,7 +7,13 @@ reference's CNN_DropOut, dropout 0.25 and 0.5), ``cnn_fedavg``,
 parameterization; the extra ``norm`` "bn" or "gn" overrides the suffix),
 ``resnet<depth>_s2d_exact`` (the standard BatchNorm ResNet with stage 1
 in space-to-depth layout, ``models/s2d_exact.py``), ``resnet18_gn``,
-``mobilenet`` (extra ``width_mult``), ``rnn``/``char_lstm`` and
+``mobilenet`` (extra ``width_mult``), ``vgg11``, ``mobilenet_v3``
+(extra ``width_mult``), ``efficientnet-b0`` .. ``efficientnet-b7``
+(``efficientnet`` alone is b0; another suffix raises ``ValueError``),
+``lenet``, ``deeplab``/``deeplab_lite`` (extra ``encoder_features``;
+per-pixel logits for the segmentation task), ``tag_lr``/
+``stackoverflow_lr`` (sigmoid logits for the tag task),
+``rnn``/``char_lstm`` and
 ``rnn_stackoverflow``/``nwp_lstm`` (extra ``vocab_size``) and
 ``transformer_lm``, and the parameterised CNNs ``cnn_small``,
 ``cnn_medium``, ``cnn_large`` and ``cnn_custom`` (extra ``convs``,
@@ -26,8 +32,13 @@ import torch
 from fedml_tpu_torch.config import ModelConfig
 from fedml_tpu_torch.core.device import resolve_device
 from fedml_tpu_torch.models.base import FedModel, weightless
-from fedml_tpu_torch.models.nlp import NWPLSTM, CharLSTM
+from fedml_tpu_torch.models.nlp import (
+    NWPLSTM,
+    CharLSTM,
+    TagLogisticRegression,
+)
 from fedml_tpu_torch.models.s2d_exact import ResNetCIFARS2DExact
+from fedml_tpu_torch.models.segmentation import DeepLabLite
 from fedml_tpu_torch.models.transformer import TransformerLM
 from fedml_tpu_torch.models.vision import (
     CNNDropOut,
@@ -37,12 +48,21 @@ from fedml_tpu_torch.models.vision import (
     MobileNet,
     ResNet18GN,
     ResNetCIFAR,
+    VGG,
+)
+from fedml_tpu_torch.models.vision_extra import (
+    EFFICIENTNET_PARAMS,
+    EfficientNet,
+    LeNet,
+    MobileNetV3,
 )
 
 PORTED = ("lr", "cnn", "cnn_fedavg", "cnn_small", "cnn_medium", "cnn_large",
           "cnn_custom", "resnet<depth>[_gn][_s2d]",
           "resnet<depth>_s2d_exact",
-          "resnet18_gn", "mobilenet", "rnn", "char_lstm",
+          "resnet18_gn", "mobilenet", "vgg11", "mobilenet_v3",
+          "efficientnet-b<0-7>", "lenet", "deeplab", "deeplab_lite",
+          "tag_lr", "stackoverflow_lr", "rnn", "char_lstm",
           "rnn_stackoverflow", "nwp_lstm", "transformer_lm")
 
 
@@ -95,6 +115,18 @@ def _cnn(name: str, cfg: ModelConfig):
                             tuple(cfg.input_shape), extra.get("dropout", 0.0))
 
 
+def _efficientnet(name: str, cfg: ModelConfig):
+    """``efficientnet-b<k>`` (or ``efficientnet_b<k>``; ``efficientnet``
+    alone is b0) at its compound coefficients."""
+    suffix = name[len("efficientnet"):].lstrip("-_") or "b0"
+    if suffix not in EFFICIENTNET_PARAMS:
+        raise ValueError(f"unknown efficientnet variant: {cfg.name} (use "
+                         "efficientnet-b0 .. efficientnet-b7)")
+    width, depth = EFFICIENTNET_PARAMS[suffix]
+    return EfficientNet(cfg.num_classes, width, depth,
+                        in_channels=cfg.input_shape[-1])
+
+
 _TOKEN_MODELS = ("transformer", "transformer_lm", "rnn", "char_lstm",
                  "rnn_stackoverflow", "nwp_lstm")
 
@@ -139,6 +171,24 @@ def create_model(cfg: ModelConfig, device: str | torch.device = "cuda"
         module = weightless(lambda: MobileNet(
             cfg.num_classes, cfg.extra_dict().get("width_mult", 1.0),
             in_channels=shape[-1]))
+    elif name == "vgg11":
+        module = weightless(lambda: VGG(cfg.num_classes, shape))
+    elif name == "mobilenet_v3":
+        module = weightless(lambda: MobileNetV3(
+            cfg.num_classes, cfg.extra_dict().get("width_mult", 1.0),
+            in_channels=shape[-1]))
+    elif name.startswith("efficientnet"):
+        module = weightless(lambda: _efficientnet(name, cfg))
+    elif name == "lenet":
+        module = weightless(lambda: LeNet(cfg.num_classes, shape))
+    elif name in ("tag_lr", "stackoverflow_lr"):
+        module = weightless(lambda: TagLogisticRegression(cfg.num_classes,
+                                                          shape))
+    elif name in ("deeplab", "deeplab_lite"):
+        module = weightless(lambda: DeepLabLite(
+            cfg.num_classes, encoder_features=tuple(cfg.extra_dict().get(
+                "encoder_features", (32, 64, 128))),
+            in_channels=shape[-1]))
     else:
         raise ValueError(
             f"model {cfg.name!r} is not ported to fedml_tpu_torch yet "
@@ -146,6 +196,8 @@ def create_model(cfg: ModelConfig, device: str | torch.device = "cuda"
     return FedModel(module, shape, dev)
 
 
-__all__ = ["CNNDropOut", "CNNOriginalFedAvg", "CNNParameterised", "CharLSTM", "FedModel", "LogisticRegression",
-           "MobileNet", "NWPLSTM", "ResNet18GN", "ResNetCIFAR",
-           "ResNetCIFARS2DExact", "TransformerLM", "create_model"]
+__all__ = ["CNNDropOut", "CNNOriginalFedAvg", "CNNParameterised", "CharLSTM",
+           "DeepLabLite", "EfficientNet", "FedModel", "LeNet",
+           "LogisticRegression", "MobileNet", "MobileNetV3", "NWPLSTM",
+           "ResNet18GN", "ResNetCIFAR", "ResNetCIFARS2DExact",
+           "TagLogisticRegression", "TransformerLM", "VGG", "create_model"]

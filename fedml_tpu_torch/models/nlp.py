@@ -1,4 +1,5 @@
-"""NLP models: the reference's federated LSTM pair.
+"""NLP models: the reference's federated LSTM pair and the
+StackOverflow tag model.
 
 Same architectures as ``fedml_tpu.models.nlp``:
 
@@ -6,6 +7,8 @@ Same architectures as ``fedml_tpu.models.nlp``:
   -> dense(vocab), logits at every position.
 - :class:`NWPLSTM`: StackOverflow next-word prediction, embed(96) ->
   LSTM(670) -> dense(96) -> dense(vocab).
+- :class:`TagLogisticRegression`: StackOverflow tag prediction from a
+  bag of words, flatten -> dense(tags).
 
 The LSTM is written out (:class:`LSTM`), not ``nn.LSTM``: cuDNN's RNN op
 has no ``torch.func.vmap`` batching rule, and the local step is vmapped
@@ -21,6 +24,8 @@ float32, as in the JAX package.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -115,3 +120,17 @@ class NWPLSTM(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.head(self.fc(self.lstm(self.embed(tokens))))
+
+
+class TagLogisticRegression(nn.Module):
+    """Multi-label bag-of-words tagger (the model names ``tag_lr`` and
+    ``stackoverflow_lr``): the input flattened, then one dense layer
+    (``linear``) to a logit a tag; the sigmoid is the tag task's loss's."""
+
+    def __init__(self, num_tags: int = 500,
+                 input_shape: tuple[int, ...] = (1000,)):
+        super().__init__()
+        self.linear = nn.Linear(math.prod(input_shape), num_tags)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(x.reshape(x.shape[0], -1))

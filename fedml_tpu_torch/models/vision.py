@@ -1,6 +1,6 @@
 """Vision models: logistic regression, the FedAvg-paper CNN, the
 reference's CNN_DropOut, the fork's parameterised CNNs, the CIFAR ResNets with BatchNorm or GroupNorm,
-ResNet-18 with GroupNorm and MobileNet (V1).
+ResNet-18 with GroupNorm, MobileNet (V1) and VGG-11.
 
 Same architectures as ``fedml_tpu.models.vision`` at ``cohort=1``, the
 CIFAR ResNets with and without ``space_to_depth``. Inputs are NHWC, as
@@ -21,16 +21,17 @@ from torch import nn
 from fedml_tpu_torch.models.base import BatchNorm, GroupNorm
 
 
-def same_padding(in_spatial, kernel_spatial, strides
+def same_padding(in_spatial, kernel_spatial, strides, dilations=None
                  ) -> tuple[tuple[int, int], ...]:
     """Flax/XLA "SAME" padding as (lo, hi) pairs per spatial dim: the
     output has ceil(in / stride) positions, and the odd pixel of padding
-    goes after (``fedml_tpu.ops.cohort_conv._resolve_padding``, no
-    dilation)."""
+    goes after (``fedml_tpu.ops.cohort_conv._resolve_padding``). A dilated
+    kernel pads for its effective size ``(k - 1) * dilation + 1``."""
     out = []
-    for i, k, s in zip(in_spatial, kernel_spatial, strides):
+    for i, k, s, d in zip(in_spatial, kernel_spatial, strides,
+                          dilations or (1,) * len(strides)):
         o = -(-i // s)
-        total = max((o - 1) * s + k - i, 0)
+        total = max((o - 1) * s + (k - 1) * d + 1 - i, 0)
         out.append((total // 2, total - total // 2))
     return tuple(out)
 
@@ -86,22 +87,25 @@ def dropout(x: torch.Tensor, mask: torch.Tensor, rate: float
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with flax's ``padding="SAME"``, resolved from the
     input's size at every call. ``groups`` is flax's
-    ``feature_group_count`` (``in_channels`` for a depthwise conv)."""
+    ``feature_group_count`` (``in_channels`` for a depthwise conv) and
+    ``dilation`` its ``kernel_dilation`` (an atrous conv)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, bias: bool = True, groups: int = 1):
+                 stride: int = 1, bias: bool = True, groups: int = 1,
+                 dilation: int = 1):
         super().__init__(in_channels, out_channels, kernel_size, stride,
-                         padding=0, bias=bias, groups=groups)
+                         padding=0, dilation=dilation, bias=bias,
+                         groups=groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (top, bottom), (left, right) = same_padding(
-            x.shape[2:], self.kernel_size, self.stride)
+            x.shape[2:], self.kernel_size, self.stride, self.dilation)
         if top == bottom and left == right:
             return F.conv2d(x, self.weight, self.bias, self.stride,
-                            (top, left), groups=self.groups)
+                            (top, left), self.dilation, self.groups)
         x = F.pad(x, (left, right, top, bottom))  # keeps x's layout
-        return F.conv2d(x, self.weight, self.bias, self.stride,
-                        groups=self.groups)
+        return F.conv2d(x, self.weight, self.bias, self.stride, 0,
+                        self.dilation, self.groups)
 
 
 def norm_layer(kind: str, channels: int) -> nn.Module:
@@ -388,3 +392,38 @@ class MobileNet(nn.Module):
         for block in self.blocks:
             x = block(x, train, stats_out)
         return self.head(x.mean(dim=(2, 3)))
+
+
+# VGG-11's plan: a conv width, or "M" for a 2x2 max-pool
+VGG11_PLAN = (64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512,
+              "M")
+
+
+class VGG(nn.Module):
+    """VGG-11 (the model name ``vgg11``): per width of ``plan`` a 3x3 SAME
+    conv with bias and a ReLU (``convs.k``), per "M" a VALID 2x2 max-pool;
+    the (H, W, C) flatten, a dense 512 with ReLU (``fc1``) and the dense
+    ``head``. At 32x32x3 and 10 classes about 9.2M parameters."""
+
+    def __init__(self, num_classes: int = 10,
+                 input_shape: tuple[int, ...] = (32, 32, 3),
+                 plan: tuple = VGG11_PLAN):
+        super().__init__()
+        self.plan = plan
+        h, w, cin = input_shape
+        self.convs = nn.ModuleList()
+        for p in plan:
+            if p == "M":
+                h, w = h // 2, w // 2
+            else:
+                self.convs.append(Conv2d(cin, int(p), 3))
+                cin = int(p)
+        self.fc1 = nn.Linear(h * w * cin, 512)
+        self.head = nn.Linear(512, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, convs = nchw(x), iter(self.convs)
+        for p in self.plan:
+            x = F.max_pool2d(x, 2, 2) if p == "M" else F.relu(next(convs)(x))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return self.head(F.relu(self.fc1(x)))

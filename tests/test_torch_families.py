@@ -430,7 +430,7 @@ def test_factory_builds_the_lstms_and_refuses_the_rest():
         create_model(tc.ModelConfig(name="resnet20",
                                     extra=(("norm", "ln"),)), "meta")
     with pytest.raises(ValueError, match="not ported"):
-        create_model(tc.ModelConfig(name="vgg11"), "meta")
+        create_model(tc.ModelConfig(name="darts"), "meta")
 
 
 def test_initializers_of_the_new_leaves():

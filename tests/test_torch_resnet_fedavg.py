@@ -357,6 +357,6 @@ def test_cli_prints_its_summary(capsys, tmp_path):
     assert (tmp_path / "run_rep0" / "metrics.jsonl").exists()
     assert all(np.isfinite(summary[k]) for k in
                ("train_loss", "test_loss", "test_acc"))
-    for algorithm in ("hierarchical", "decentralized_dsgd"):
+    for algorithm in ("fednas", "splitnn"):
         with pytest.raises(NotImplementedError, match="ROADMAP: .*item 13"):
             cli.main(argv[:2] + ["--algorithm", algorithm] + argv[4:])
