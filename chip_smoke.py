@@ -334,7 +334,38 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    CPU's own spread under a PERTURB change of the start (the zoo's
    mobilenet_v3 and efficientnet-b0 steps in float64, TINY_ZOO_X64); (g)
    the phase's seconds. The flash counters, set to 0 before the phase,
-   must read 0 after it. The "kernels" line comes after it.
+   must read 0 after it.
+19. Split learning, FedNAS over DARTS, TurboAggregate's secure FedAvg and
+   the local baselines, each part a JSON line with the card's name and
+   power limit, at the JAX package's full widths on the headline's data
+   (fake_cifar10, hetero 0.5, batch 32, lr 0.03; float32, the split sims
+   and FedNAS taking no compute type; the headline's bf16 for (e) and
+   (f)): (a) FedGKT (harness build_sim: the resnet8_56 edge, the
+   Bottleneck [6, 6, 6] server at 16/32/64), 10 clients all training, 3
+   rounds, each round's edge, server and logits seconds, the edge's
+   graph replays against its group-steps and the server's against its
+   sequential steps, the composed path's test accuracy; (b) SplitNN
+   (convs 32/64, hidden 128) around a ring of 10 clients, 3 rounds, one
+   replay a step; (c) vertical FL on fake_vfl, two parties, 5 epochs, the
+   loss falling, accuracy and AUC; (d) FedNAS over DARTSNetwork's
+   defaults (16 channels, 4 layers, 4 steps), 100 clients, 10 a round, 2
+   rounds: max_memory_allocated, the alphas' largest change (above 0),
+   derive_genotype; (e) TurboAggregate at the headline (resnet56, 100
+   clients, 10 a round), 2 rounds with the field pass's host seconds apart
+   from the locals, then from one state the secure round within 5e-4 of
+   the plain FedAvg round and a round with client 1 dropped within 1e-6 of
+   the undropped one; (f) the local baseline (all 100 clients on their own
+   resnet56) and the centralized trainer over the pooled set, 1 round
+   each; (g) each of (a)-(f) at its CPU test's configuration
+   (tests/test_torch_split.py, _fednas.py, _mpc.py, _baselines.py) on the
+   card and on the CPU from the same start and host-drawn orders (TF32
+   off, cuDNN deterministic, as in (e) and (f)): every leaf within atol
+   1e-5, rtol 1e-4, or else within SPREAD_FACTOR times the CPU's own
+   spread (FedGKT in float64, as its CPU test, and in float32, as (a)
+   runs it; the secure rounds within
+   5e-4, a float32 difference in the locals moving one 2^-16 step of the
+   field); (h) the phase's seconds. The flash counters, set to 0 before
+   the phase, must read 0 after it. The "kernels" line comes after it.
 """
 
 from __future__ import annotations
@@ -3241,9 +3272,10 @@ def tiny_gan_config(algo: str):
         seed=1)
 
 
-# the fields of a GAN-family, distillation or FedAvg state that hold
-# model variables
+# the fields of a GAN-family, distillation, split-learning or FedAvg
+# state that hold model variables
 MODEL_FIELDS = ("gen_vars", "disc_vars", "disc_stack", "cls_stack",
+                "client_stack", "server_vars",
                 "model_stack", "adapter_vars", "local_stack", "variables",
                 "stacked_vars")
 
@@ -5121,6 +5153,496 @@ def topology_zoo_phase(card: str) -> int:
     return launches
 
 
+# phase 19: split learning (FedGKT, SplitNN, vertical FL), FedNAS over
+# DARTS, TurboAggregate's secure FedAvg and the local baselines
+SPLIT_ROUNDS = 3
+NAS_ROUNDS = 2
+SECURE_ROUNDS = 2
+VFL_EPOCHS = 5
+# tests/test_mpc.py::test_secure_fedavg_matches_plain's bands
+SECURE_BAND = 5e-4
+DROPPED_BAND = 1e-6
+# the CPU tests' clients (tests/test_torch_split.py SIZES) and batch
+TINY_SIZES = (40, 30, 26)
+TINY_BATCH = 8
+
+
+def program_replays(update) -> int:
+    """The CUDA graph replays of ``update``'s programs, every lane count."""
+    return sum(g.replays for g in update.programs.values() if g is not None)
+
+
+def synced(fn):
+    """``fn()`` and its seconds, the host clock ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def split_config(algorithm: str, num_clients: int = 10, cpr: int = 10,
+                 rounds: int = SPLIT_ROUNDS, dataset: str = "fake_cifar10"):
+    """The headline's data (fake_cifar10, hetero 0.5, batch 32, lr 0.03,
+    a cohort of 10 in 5 groups of lanes) for ``algorithm``, float32 (the
+    JAX package's split sims and FedNAS take no compute type)."""
+    return topo_config(dataset, "resnet56", num_clients, cpr,
+                       algorithm=algorithm, rounds=rounds, dtype="float32")
+
+
+def gkt_bench(card: str, device: str = "cuda") -> None:
+    """(a): FedGKT at the JAX defaults (the resnet8_56 edge, the
+    Bottleneck [6, 6, 6] server at 16/32/64), 10 clients all training, 3
+    rounds, each phase timed; one replay a group-step and a server
+    step."""
+    from fedml_tpu_torch.experiments.harness import build_sim
+
+    cfg = split_config("fedgkt")
+    sim = build_sim(cfg, device)
+    sim.time_phases = True
+    state = sim.init()
+    rows = []
+    for r in range(cfg.fed.num_rounds):
+        before = (program_replays(sim.edge_update),
+                  program_replays(sim.server_update))
+        state, _, seconds = timed_round(sim, state)
+        row = {"round": r, "seconds": seconds,
+               **{f"{k}_s": v for k, v in sim.last_phase_s.items()},
+               "edge_group_steps": sim.last_steps["edge"],
+               "edge_replays": program_replays(sim.edge_update) - before[0],
+               "server_steps": sim.last_steps["server"],
+               "server_replays": (program_replays(sim.server_update)
+                                  - before[1]),
+               "groups": [{"clients": n, "steps_per_epoch": s}
+                          for n, s in sim.last_groups],
+               **sim.evaluate(state)}
+        rows.append(row)
+        if (row["edge_replays"] != row["edge_group_steps"]
+                or row["server_replays"] != row["server_steps"]
+                or not bool(torch.isfinite(state.server_logits).all())):
+            raise RuntimeError(f"fedgkt: {row}")
+    record_line(card, metric="fedgkt_resnet8_56_server56_10c",
+                edge_params=param_count_of(sim.client_model,
+                                           state.client_stack, lead=1),
+                server_params=param_count_of(sim.server_model,
+                                             state.server_vars),
+                rounds=rows)
+
+
+def param_count_of(model, variables, lead: int = 0) -> int:
+    return int(sum(v[(0,) * lead].numel() for k, v in variables.items()
+                   if k not in model.stat_names))
+
+
+def splitnn_bench(card: str, device: str = "cuda") -> None:
+    """(b): SplitNN (convs 32/64, hidden 128) around a ring of 10
+    clients, 3 rounds, one replay a step."""
+    from fedml_tpu_torch.experiments.harness import build_sim
+
+    sim = build_sim(split_config("splitnn"), device)
+    state = sim.init()
+    rows = []
+    for r in range(SPLIT_ROUNDS):
+        before = program_replays(sim.update)
+        state, m, seconds = timed_round(sim, state)
+        row = {"round": r, "seconds": seconds, "steps": sim.last_steps,
+               "replays": program_replays(sim.update) - before,
+               **{k: float(v) for k, v in m.items()}, **sim.evaluate(state)}
+        rows.append(row)
+        if row["replays"] != row["steps"] or not math.isfinite(
+                row["train_loss"]):
+            raise RuntimeError(f"splitnn: {row}")
+    record_line(card, metric="splitnn_10c_ring", rounds=rows)
+
+
+def vfl_bench(card: str, device: str = "cuda") -> None:
+    """(c): two-party vertical FL on fake_vfl, 5 epochs: the loss must
+    fall; the accuracy and AUC after each epoch."""
+    from fedml_tpu_torch.experiments.harness import build_sim
+
+    sim = build_sim(split_config("vfl", rounds=VFL_EPOCHS,
+                                 dataset="fake_vfl"), device)
+    state = sim.init()
+    rows = []
+    for e in range(VFL_EPOCHS):
+        (state, loss), seconds = synced(lambda: sim.run_epoch(state))
+        rows.append({"epoch": e, "seconds": seconds, "train_loss": loss,
+                     **sim.evaluate(state)})
+    record_line(card, metric="vfl_fake_vfl_2party", parties=len(sim.splits),
+                steps=state.step, epochs=rows)
+    if not rows[-1]["train_loss"] < rows[0]["train_loss"]:
+        raise RuntimeError(f"vfl: the loss did not fall: {rows}")
+
+
+def fednas_bench(card: str, device: str = "cuda") -> None:
+    """(d): FedNAS over DARTSNetwork's defaults (16 channels, 4 layers, 4
+    steps), 100 clients, 10 a round, 2 rounds: the peak memory, the alphas
+    moving, the derived genotype."""
+    from fedml_tpu_torch.experiments.harness import build_sim
+    from fedml_tpu_torch.models.darts import ARCH, derive_genotype
+
+    sim = build_sim(split_config("fednas", 100, 10, NAS_ROUNDS), device)
+    state = sim.init()
+    start = {k: state.variables[k].clone() for k in ARCH}
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for r in range(NAS_ROUNDS):
+        before = program_replays(sim.update)
+        state, _, seconds = timed_round(sim, state)
+        rows.append({"round": r, "seconds": seconds,
+                     "group_steps": sim.last_steps,
+                     "replays": program_replays(sim.update) - before,
+                     "groups": [{"clients": n, "steps_per_epoch": s}
+                                for n, s in sim.last_groups]})
+        if rows[-1]["replays"] != rows[-1]["group_steps"]:
+            raise RuntimeError(f"fednas: {rows[-1]}")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    moved = {k: float((state.variables[k] - start[k]).abs().max())
+             for k in ARCH}
+    record_line(card, metric="fednas_darts16_4l_4s_100c", rounds=rows,
+                batch=sim.batch_size, peak_allocated_mb=peak,
+                alphas_max_change=moved,
+                genotype=derive_genotype(state.variables),
+                **sim.evaluate(state))
+    if not all(v > 0 and math.isfinite(v) for v in moved.values()):
+        raise RuntimeError(f"fednas: the alphas did not move: {moved}")
+
+
+def vars_err(x: dict, y: dict) -> float:
+    """Max |x - y| over two variable dicts, on any devices."""
+    return max(float((x[k].cpu().double() - y[k].cpu().double()).abs().max())
+               for k in y)
+
+
+def secure_bench(card: str, device: str = "cuda") -> None:
+    """(e): TurboAggregate at the headline (resnet56, bf16, 100 clients,
+    10 a round), 2 rounds, the field pass's host seconds apart from the
+    locals; then, from the state before the last round, the plain FedAvg
+    round (the same sim's locals, cuDNN deterministic) against that
+    secure round within SECURE_BAND, and the round with client 1 dropped
+    after sharing against it within DROPPED_BAND."""
+    import dataclasses
+
+    from fedml_tpu_torch.experiments.harness import build_sim
+
+    cfg = resnet_config()
+    cfg = dataclasses.replace(cfg, fed=dataclasses.replace(
+        cfg.fed, algorithm="turboaggregate", num_rounds=SECURE_ROUNDS))
+    sim = build_sim(cfg, device)
+    state = sim.init()
+    rows = []
+    for r in range(SECURE_ROUNDS):
+        before = state
+        state, m, seconds = timed_round(sim, state)
+        rows.append({"round": r, "seconds": seconds,
+                     "field_host_s": sim.last_field_s,
+                     "locals_s": seconds - sim.last_field_s,
+                     "train_loss": float(m["train_loss"])})
+    secure = state
+    plain, _ = sim.inner.run_round(before)
+    dropped, _ = sim.run_round(before, dropped=[1])
+    d = sum(v.numel() for v in state.variables.values())
+    err = vars_err(secure.variables, plain.variables)
+    drop_err = vars_err(dropped.variables, secure.variables)
+    record_line(card, metric="turboaggregate_resnet56_100c_10pr",
+                flat_d=d, cohort=sim.secure.num_clients,
+                threshold=sim.secure.threshold,
+                shares_mb=sim.secure.num_clients ** 2 * d * 8 / 2**20,
+                rounds=rows, secure_vs_plain_max_abs=err,
+                dropped_vs_undropped_max_abs=drop_err,
+                **{"test_" + k: v for k, v in
+                   sim.evaluate_global(secure).items()})
+    if err > SECURE_BAND or drop_err > DROPPED_BAND:
+        raise RuntimeError(f"turboaggregate: secure vs plain {err}, "
+                           f"dropped vs undropped {drop_err}")
+
+
+def baselines_bench(card: str, device: str = "cuda") -> None:
+    """(f): the local-only baseline, every one of 100 clients on its own
+    resnet56, and the centralized trainer over the pooled set, 1 round
+    each at the headline (bf16)."""
+    import dataclasses
+
+    from fedml_tpu_torch.experiments.harness import build_sim
+
+    for algo in ("baseline", "centralized"):
+        cfg = resnet_config()
+        cfg = dataclasses.replace(cfg, fed=dataclasses.replace(
+            cfg.fed, algorithm=algo, num_rounds=1))
+        sim = build_sim(cfg, device)
+        state = sim.init()
+        before = program_replays(sim.cohort_update)
+        if algo == "baseline":
+            state, m, seconds = timed_round(sim, state)
+            ev = sim.evaluate_clients(state)
+            ev.pop("per_client_acc")
+        else:
+            (state, m), seconds = synced(lambda: sim.run_round(state, 0))
+            ev = {"test_" + k: v for k, v in sim.evaluate(state).items()}
+        row = {"seconds": seconds, "lanes": sum(n for n, _ in
+                                                sim.last_groups),
+               "groups": len(sim.last_groups),
+               "group_steps": sum(s for _, s in sim.last_groups),
+               "replays": program_replays(sim.cohort_update) - before,
+               **{k: float(v) for k, v in m.items()}, **ev}
+        record_line(card, metric=f"{algo}_resnet56", **row)
+        if (row["replays"] != row["group_steps"]
+                or not math.isfinite(row["train_loss"])):
+            raise RuntimeError(f"{algo}: {row}")
+        del sim, state
+        free_card()
+
+
+def tiny_split_data():
+    """tests/test_torch_split.py's image_data: random 16x16x3 images and
+    labels from a numpy seed, TINY_SIZES clients."""
+    import numpy as np
+
+    from fedml_tpu_torch.data.federated import FederatedData
+
+    rng = np.random.default_rng(0)
+    n, n_test = sum(TINY_SIZES), 32
+    x = rng.normal(size=(n, 16, 16, 3)).astype(np.float32)
+    y = rng.integers(0, 10, n).astype(np.int32)
+    xt = rng.normal(size=(n_test, 16, 16, 3)).astype(np.float32)
+    yt = rng.integers(0, 10, n_test).astype(np.int32)
+    perm = rng.permutation(n)
+    bounds = np.cumsum((0,) + TINY_SIZES)
+    train = {i: np.sort(perm[bounds[i]:bounds[i + 1]])
+             for i in range(len(TINY_SIZES))}
+    test = {i: np.arange(n_test)[i::len(TINY_SIZES)]
+            for i in range(len(TINY_SIZES))}
+    return FederatedData(x, y, xt, yt, train, test, 10)
+
+
+def tiny_split_config(cpr: int = len(TINY_SIZES), epochs: int = 1):
+    """tests/test_torch_split.py's tiny_cfg: batch 8, SGD lr 0.05 with
+    momentum 0.5."""
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+
+    return ExperimentConfig(
+        data=DataConfig(dataset="fake_mnist", num_clients=len(TINY_SIZES),
+                        batch_size=TINY_BATCH, seed=0),
+        model=ModelConfig(name="lr", num_classes=10, input_shape=(16, 16, 3)),
+        train=TrainConfig(lr=0.05, momentum=0.5, epochs=epochs),
+        fed=FedConfig(num_rounds=2, clients_per_round=cpr), seed=0)
+
+
+def tiny_split_sim(algo: str, device: str, float64: bool = False):
+    """The CPU tests' sims of (a), (b), (d) and (f) on ``device``."""
+    from fedml_tpu_torch.algorithms.fednas import FedNASSim
+    from fedml_tpu_torch.algorithms.local_baselines import (
+        BaselineSim,
+        CentralizedTrainer,
+    )
+    from fedml_tpu_torch.algorithms.split import FedGKTSim, SplitNNSim
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.models import gkt as GKT
+    from fedml_tpu_torch.models.base import FedModel, weightless
+    from fedml_tpu_torch.models.darts import DARTSNetwork
+
+    def fed(module_fn, shape):
+        return FedModel(weightless(module_fn), shape, torch.device(device))
+
+    data = tiny_split_data()
+    if algo == "fedgkt":
+        sim = FedGKTSim(fed(lambda: GKT.GKTClientResNet(10, 1, 8),
+                            (16, 16, 3)),
+                        fed(lambda: GKT.GKTServerResNet(10, (1, 1, 1),
+                                                        (4, 8, 8), 8),
+                            (16, 16, 8)), data, tiny_split_config(), device)
+    elif algo == "splitnn":
+        sim = SplitNNSim(fed(lambda: GKT.SplitClientNet((8, 16)),
+                             (16, 16, 3)),
+                         fed(lambda: GKT.SplitServerNet(256, 10, 32),
+                             (256,)), data, tiny_split_config(), device)
+    elif algo == "fednas":
+        sim = FedNASSim(fed(lambda: DARTSNetwork(10, 4, 3, 2), (16, 16, 3)),
+                        data, tiny_split_config(cpr=2), device)
+    else:
+        cfg = tiny_split_config(epochs=2 if algo == "centralized" else 1)
+        cls = BaselineSim if algo == "baseline" else CentralizedTrainer
+        sim = cls(create_model(cfg.model, device), data, cfg, device)
+    if float64:
+        sim.arrays.x = sim.arrays.x.double()
+        sim.arrays.test_x = sim.arrays.test_x.double()
+    return sim
+
+
+def float64_state(state):
+    """A state's floating tensors as float64."""
+    from fedml_tpu_torch.core import tree as T
+
+    return T.tree_map(lambda v: v.double() if torch.is_tensor(v)
+                      and v.is_floating_point() else v, state)
+
+
+def split_card_vs_cpu(device: str = "cuda") -> list:
+    """(g): each of (a)-(f) at its CPU test's configuration on the card
+    and on the CPU from the same start, with the same draws (the hooks'
+    defaults draw on the host), TF32 off and cuDNN deterministic: every
+    leaf within GAN_BAND, or else within SPREAD_FACTOR times the CPU's
+    own spread under a PERTURB change of the start. FedGKT runs in
+    float64 on both, as its CPU test does (its float32 server is
+    ill-conditioned there), and in float32, the dtype (a) times; the
+    secure rounds, whose quantization a
+    float32 difference in the locals may move by one 2^-16 step, within
+    SECURE_BAND, the plain rounds within GAN_BAND, and the card's secure
+    round against its plain and its dropped round as in (e)."""
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from fedml_tpu_torch.core import tree as T
+    from fedml_tpu_torch.experiments.harness import build_sim
+
+    reports = []
+    t0 = time.perf_counter()
+    for algo, x64 in (("fedgkt", True), ("fedgkt", False),
+                      ("splitnn", False), ("fednas", False),
+                      ("baseline", False)):
+
+        def sim_on(dev, algo=algo, x64=x64):
+            return tiny_split_sim(algo, dev, x64)
+
+        cpu = sim_on("cpu")
+        start = cpu.init()
+        if x64:
+            start = float64_state(start)
+        want = topo_rounds(cpu, start)
+        got = topo_rounds(sim_on(device), move_state(start, device))
+        report = spread_check(algo, sim_on, start, topo_rounds, want, got)
+        reports.append({**report, "dtype": "float64" if x64 else "float32"})
+    # the centralized trainer: its state is the variables
+    trainers = {dev: tiny_split_sim("centralized", dev)
+                for dev in ("cpu", device)}
+    variables = trainers["cpu"].init()
+    out = {}
+    for dev, tr in trainers.items():
+        v = {k: t.to(dev) for k, t in variables.items()}
+        states = []
+        for r in range(2):
+            v, _ = tr.run_round(v, r)
+            states.append((v,))
+        out[dev] = states
+    errs = [gan_state_err(g, w) for g, w in zip(out[device], out["cpu"])]
+    err, use = (max(e[i] for e in errs) for i in (0, 1))
+    reports.append({"case": "centralized", "max_abs_err": err,
+                    "band_use": use, **GAN_BAND})
+    if use > 1.0:
+        raise RuntimeError(f"centralized: card vs CPU {reports[-1]}")
+    # vertical FL: tests/test_torch_split.py's fake_vfl, 3 epochs
+    vcfg = ExperimentConfig(data=DataConfig(dataset="fake_vfl",
+                                            batch_size=64, seed=3),
+                            train=TrainConfig(lr=0.1, momentum=0.5),
+                            fed=FedConfig(algorithm="vfl"), seed=0)
+    vsims = {dev: build_sim(vcfg, dev) for dev in ("cpu", device)}
+    vstart = vsims["cpu"].init()
+    runs = {}
+    for dev, sim in vsims.items():
+        state = T.tree_map(lambda v, dev=dev: v.to(dev) if torch.is_tensor(v)
+                           else v, vstart)
+        losses = []
+        for _ in range(3):
+            state, loss = sim.run_epoch(state)
+            losses.append(loss)
+        runs[dev] = (torch.tensor(losses),
+                     *[v for p in state.party_vars for part in p
+                       for v in part.values()])
+    err, use = gan_state_err(runs[device], runs["cpu"])
+    reports.append({"case": "vfl", "max_abs_err": err, "band_use": use,
+                    **GAN_BAND})
+    if use > 1.0:
+        raise RuntimeError(f"vfl: card vs CPU {reports[-1]}")
+    # the secure round: tests/test_torch_mpc.py's configuration
+    scfg = ExperimentConfig(
+        data=DataConfig(dataset="fake_mnist", num_clients=8, batch_size=16,
+                        seed=0, dataset_r=0.2),
+        model=ModelConfig(name="lr", num_classes=10,
+                          input_shape=(28, 28, 1)),
+        train=TrainConfig(lr=0.1, epochs=1),
+        fed=FedConfig(algorithm="turboaggregate", num_rounds=1,
+                      clients_per_round=4, eval_every=1), seed=0)
+    secure = {dev: build_sim(scfg, dev) for dev in ("cpu", device)}
+    sstart = secure["cpu"].init()
+    got = {dev: sim.run_round(move_state(sstart, dev))[0]
+           for dev, sim in secure.items()}
+    plain = {dev: sim.inner.run_round(move_state(sstart, dev))[0]
+             for dev, sim in secure.items()}
+    dropped, _ = secure[device].run_round(move_state(sstart, device),
+                                          dropped=[1])
+    # the plain rounds within GAN_BAND; the secure ones within the
+    # quantization's band: a float32 difference in the locals may move a
+    # weighted delta across one 2^-16 step of the field
+    err, use = gan_state_err((plain[device].variables,),
+                             (plain["cpu"].variables,))
+    row = {"case": "turboaggregate", "plain_max_abs_err": err,
+           "plain_band_use": use, **GAN_BAND,
+           "secure_max_abs_err": vars_err(got[device].variables,
+                                          got["cpu"].variables),
+           "card_secure_vs_plain": vars_err(got[device].variables,
+                                            plain[device].variables),
+           "card_dropped_vs_undropped": vars_err(dropped.variables,
+                                                 got[device].variables)}
+    reports.append(row)
+    if (use > 1.0 or row["secure_max_abs_err"] > SECURE_BAND
+            or row["card_secure_vs_plain"] > SECURE_BAND
+            or row["card_dropped_vs_undropped"] > DROPPED_BAND):
+        raise RuntimeError(f"turboaggregate: card vs CPU {row}")
+    reports.append({"seconds": time.perf_counter() - t0})
+    return reports
+
+
+def split_nas_phase(card: str) -> int:
+    """Phase 19: (a)-(h). Returns the flash kernels' launches over it (0:
+    no model of the phase has attention)."""
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+
+    t0 = time.perf_counter()
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    parts = {}
+    for name, run in (("a", gkt_bench), ("b", splitnn_bench),
+                      ("c", vfl_bench), ("d", fednas_bench)):
+        t_part = time.perf_counter()
+        run(card)
+        parts[name] = time.perf_counter() - t_part
+        free_card()
+    deterministic = torch.backends.cudnn.deterministic
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for name, run in (("e", secure_bench), ("f", baselines_bench)):
+            t_part = time.perf_counter()
+            run(card)
+            parts[name] = time.perf_counter() - t_part
+            free_card()
+        t_part = time.perf_counter()
+        print(json.dumps({"split_nas_card_vs_cpu": split_card_vs_cpu(),
+                          "device": card}), flush=True)
+        parts["g"] = time.perf_counter() - t_part
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = benchmark
+    launches = flash_attention.launches + flash_attention.mma_launches
+    if launches != 0:
+        raise RuntimeError(f"phase 19 launched flash attention {launches} "
+                           "times")
+    record_line(card, metric="phase19_s", value=time.perf_counter() - t0,
+                parts_s=parts, flash_launches=launches)
+    return launches
+
+
 def kernel_entry(name, source, launches, by_path, rows, row,
                  note=None) -> dict:
     """One entry of the "kernels" line: the timed ``row``'s numbers, the
@@ -5189,6 +5711,10 @@ def main() -> int:
     free_card()
     # 18. the rest of the zoo, fedseg and the topologies (no hand kernel)
     paths["topology_zoo"] = topology_zoo_phase(card)
+    free_card()
+    # 19. split learning, FedNAS, TurboAggregate and the local baselines
+    # (no hand kernel)
+    paths["split_nas"] = split_nas_phase(card)
 
     # report: the float32 entry's times are at the transformer path's
     # shape, the D = 16 entry's at the LoRA path's, the tensor-core entry's

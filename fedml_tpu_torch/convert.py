@@ -90,6 +90,11 @@ _VISION_TOP = {
                            **{f"BatchNorm_{k}": f"bns.{k}"
                               for k in range(8)}},
     "TagLogisticRegression": {"Dense_0": "linear"},
+    # the split models' auto-named layers (models/gkt.py)
+    "SplitClientNet": {f"Conv2D_{k}": f"convs.{k}" for k in range(8)},
+    "SplitServerNet": {"Dense_0": "hidden", "Dense_1": "head"},
+    "VFLLocalModel": {"Dense_0": "hidden", "Dense_1": "out"},
+    "VFLDenseModel": {"Dense_0": "out"},
     "VGG": {**{f"Conv2D_{k}": f"convs.{k}" for k in range(16)},
             "Dense_0": "fc1", "Dense_1": "head"},
     "LeNet": {"Conv2D_0": "conv1", "Conv2D_1": "conv2", "Dense_0": "fc1",
@@ -170,6 +175,29 @@ def _kernel(arr: np.ndarray, lead: int) -> np.ndarray:
     return np.swapaxes(arr, -1, -2)
 
 
+def _walk_leaves(variables: Mapping[str, Any], module_name, lead: int
+                 ) -> dict[str, torch.Tensor]:
+    """Every leaf of the ``params`` and ``batch_stats`` collections under
+    the port's name ``module_name(path) + "." + leaf``, kernels moved to
+    the port's layout after ``lead`` leading axes; copies, on the CPU."""
+    out = {}
+
+    def walk(tree, path):
+        for key, val in tree.items():
+            if isinstance(val, Mapping):
+                walk(val, path + (key,))
+                continue
+            arr = np.asarray(val)
+            if key == "kernel":
+                arr = _kernel(arr, lead)
+            out[f"{module_name(path)}.{_VISION_LEAF[key]}"] = torch.tensor(
+                arr)
+
+    for collection in ("params", "batch_stats"):
+        walk(variables.get(collection, {}), ())
+    return out
+
+
 def vision_state_dict(variables: Mapping[str, Any], arch: str,
                       lead: int = 0) -> dict[str, torch.Tensor]:
     """Flax variables (``{"params": ..., "batch_stats": ...}``) of a vision
@@ -178,8 +206,9 @@ def vision_state_dict(variables: Mapping[str, Any], arch: str,
     ``CNNParameterised``,
     ``ResNetCIFAR`` with or without ``space_to_depth``,
     ``ResNetCIFARS2DExact``, ``ResNet18GN``, ``MobileNet``, ``VGG``,
-    ``LeNet``, ``MobileNetV3``, ``EfficientNet``, ``DeepLabLite`` or
-    ``TagLogisticRegression``). Every leaf
+    ``LeNet``, ``MobileNetV3``, ``EfficientNet``, ``DeepLabLite``,
+    ``TagLogisticRegression`` or a split model: ``SplitClientNet``,
+    ``SplitServerNet``, ``VFLLocalModel``, ``VFLDenseModel``). Every leaf
     may carry ``lead`` leading axes of rows (a stacked ``[N, ...]`` bank of
     classifiers), which stay in front. ``BasicBlock_k`` (numbered across
     all stages), ``DepthwiseSeparable_k`` and ``MBConv_k`` become
@@ -200,7 +229,6 @@ def vision_state_dict(variables: Mapping[str, Any], arch: str,
              for k in variables.get(collection, {})
              if k.startswith("_S2DBasicBlock_")})
     offset = {"_TransitionBlock": n, "_BasicBlock": n + 1}
-    out = {}
 
     def module_name(path):
         parts, block = [], None
@@ -218,20 +246,7 @@ def vision_state_dict(variables: Mapping[str, Any], arch: str,
                 parts.append(block[name])
         return ".".join(parts)
 
-    def walk(tree, path):
-        for key, val in tree.items():
-            if isinstance(val, Mapping):
-                walk(val, path + (key,))
-                continue
-            arr = np.asarray(val)
-            if key == "kernel":
-                arr = _kernel(arr, lead)
-            name = f"{module_name(path)}.{_VISION_LEAF[key]}"
-            out[name] = torch.tensor(arr)  # a copy, on the CPU
-
-    for collection in ("params", "batch_stats"):
-        walk(variables.get(collection, {}), ())
-    return out
+    return _walk_leaves(variables, module_name, lead)
 
 
 # the gates of an OptimizedLSTMCell, in the port's packing order
@@ -361,3 +376,56 @@ def _leaves(tree: Mapping[str, Any]):
 def _row(tree: Mapping[str, Any], i: int) -> dict:
     return {k: _row(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
             for k, v in tree.items()}
+
+
+def gkt_state_dict(variables: Mapping[str, Any], lead: int = 0
+                   ) -> dict[str, torch.Tensor]:
+    """Flax variables of ``fedml_tpu.models.gkt``'s ``GKTClientResNet`` or
+    ``GKTServerResNet`` to the port's (``models/gkt.py``): their modules
+    are named alike on both sides (``conv1``, ``bn1``, ``layer{i}_{b}``
+    with ``conv{j}``, ``bn{j}``, ``downsample_conv``, ``downsample_bn``,
+    and ``fc``), so only the leaves are renamed. ``lead`` leading axes of
+    rows (a ``[N, ...]`` stack of edge models) stay in front."""
+    return _walk_leaves(variables, ".".join, lead)
+
+
+# flax automatic names inside the DARTS network, by scope
+_DARTS_TOP = {"Conv2D_0": "stem", "BatchNorm_0": "stem_bn",
+              "Dense_0": "head"}
+_DARTS_CELL = {"Conv2D_0": "pre0", "Conv2D_1": "pre1"}
+_DARTS_SEP = {"SepConv_0": "sep", "SepConv_1": "dil", "Conv2D_0":
+              "depthwise", "Conv2D_1": "pointwise", "BatchNorm_0": "bn"}
+
+
+def darts_state_dict(variables: Mapping[str, Any], lead: int = 0
+                     ) -> dict[str, torch.Tensor]:
+    """Flax variables of ``fedml_tpu.models.darts.DARTSNetwork`` (the
+    ``params``, ``batch_stats`` and ``arch`` collections) to the port's
+    (``models/darts.py``): ``SearchCell_k`` -> ``cells.k``, its
+    ``Conv2D_0``/``Conv2D_1`` -> ``pre0``/``pre1``, ``MixedOp_m`` ->
+    ``mixed.m``, whose ``SepConv_0``/``SepConv_1`` -> ``sep``/``dil``
+    (``Conv2D_0`` -> ``depthwise``, ``Conv2D_1`` -> ``pointwise``,
+    ``BatchNorm_0`` -> ``bn``); the stem, its BatchNorm and the dense
+    layer -> ``stem``, ``stem_bn``, ``head``; ``arch/alphas_*`` ->
+    ``alphas_*``. ``lead`` leading axes of rows stay in front."""
+
+    def module_name(path):
+        parts = []
+        for i, name in enumerate(path):
+            kind, _, k = name.rpartition("_")
+            if kind == "SearchCell":
+                parts.append(f"cells.{k}")
+            elif kind == "MixedOp":
+                parts.append(f"mixed.{k}")
+            elif i == 0:
+                parts.append(_DARTS_TOP[name])
+            elif len(path) == 2:
+                parts.append(_DARTS_CELL[name])
+            else:
+                parts.append(_DARTS_SEP[name])
+        return ".".join(parts)
+
+    out = _walk_leaves(variables, module_name, lead)
+    for key, val in variables.get("arch", {}).items():
+        out[key] = torch.tensor(np.asarray(val))
+    return out

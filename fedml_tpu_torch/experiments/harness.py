@@ -4,7 +4,10 @@ repetition runner, with round checkpoints and resume
 ``fedseg`` alias, the GAN family: FedGAN, FedGDKD, FedDTG, FedSSGAN and
 FedUAGAN, the distillation family: FedMD, FD+FAug and FedArjun, and the
 topologies: hierarchical, decentralized DSGD and push-sum, and their
-online variants ``dol_dsgd`` and ``dol_pushsum``).
+online variants ``dol_dsgd`` and ``dol_pushsum``, split learning:
+FedGKT, SplitNN and classical vertical FL, FedNAS, TurboAggregate's
+secure FedAvg and the local-only and centralized baselines): every name
+of the JAX package's ``ALGORITHMS``.
 
 :class:`Experiment` runs N repetitions of a config, repetition ``k`` with
 ``seed + k`` and ``data.seed + k`` under the run name
@@ -26,7 +29,11 @@ hierarchical and decentralized sims) goes through the harness's round
 loop, and one without an evaluator (FedGAN, FedSSGAN, FedUAGAN) logs no
 evaluation. The online sims have ``run`` only: they log their regret
 rows themselves, and ``checkpoint_every`` warns and is ignored for them,
-as in the JAX package.
+as in the JAX package. The round loop drives each sim's own protocol:
+``run_round(state, round_idx)`` where the sim takes the round index
+(the centralized trainer, the secure FedAvg), ``run_round(state)``
+otherwise, and the first evaluator the sim has of ``evaluate_global``,
+``evaluate_clients``, ``evaluate_consensus`` and ``evaluate``.
 
 The observability planes ride the loops as in the JAX package: a sim's
 own ``run`` is one ``sim_run`` tracer span; the harness's round loop
@@ -40,9 +47,11 @@ spans, ``core/fuse.py`` ``drive``).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import os
 import warnings
 
+import numpy as np
 import torch
 
 from fedml_tpu_torch.algorithms.decentralized import (
@@ -64,17 +73,32 @@ from fedml_tpu_torch.algorithms.gan_family import (
     FedGANSim,
     FedGDKDSim,
 )
+from fedml_tpu_torch.algorithms.fednas import FedNASSim
 from fedml_tpu_torch.algorithms.hierarchical import HierarchicalFedAvg
+from fedml_tpu_torch.algorithms.local_baselines import (
+    BaselineSim,
+    CentralizedTrainer,
+)
+from fedml_tpu_torch.algorithms.mpc import SecureFedAvgSim
 from fedml_tpu_torch.algorithms.sgan import FedSSGANSim, FedUAGANSim
+from fedml_tpu_torch.algorithms.split import FedGKTSim, SplitNNSim, VFLSim
 from fedml_tpu_torch.config import ExperimentConfig
 from fedml_tpu_torch.core import export
 from fedml_tpu_torch.core import fuse as FU
 from fedml_tpu_torch.core import perf as P
 from fedml_tpu_torch.core import telemetry
+from fedml_tpu_torch.core.device import resolve_device
 from fedml_tpu_torch.data import load_dataset
 from fedml_tpu_torch.data import streaming as S
+from fedml_tpu_torch.data.vertical import (
+    load_lending_club_two_party,
+    load_nus_wide_two_party,
+)
 from fedml_tpu_torch.metrics import MetricsSink
 from fedml_tpu_torch.models import create_model
+from fedml_tpu_torch.models import gkt as GKT
+from fedml_tpu_torch.models.base import FedModel, weightless
+from fedml_tpu_torch.models.darts import DARTSNetwork
 from fedml_tpu_torch.models.gan import (
     acgan_discriminator,
     generator_from_config,
@@ -180,25 +204,128 @@ def _build_topology(cfg: ExperimentConfig, device):
                             method=algo[len("decentralized_"):])
 
 
+def _fed_model(module_fn, shape, device) -> FedModel:
+    return FedModel(weightless(module_fn), tuple(shape),
+                    resolve_device(device))
+
+
+def _build_fedgkt(cfg: ExperimentConfig, device):
+    """FedGKT at the JAX harness's defaults: the ``resnet8_56`` edge and
+    the Bottleneck [6, 6, 6] server, on ``cfg.data``'s images."""
+    shape = tuple(cfg.model.input_shape)
+    k = cfg.model.num_classes
+    return FedGKTSim(
+        _fed_model(lambda: GKT.GKTClientResNet(k, in_channels=shape[-1]),
+                   shape, device),
+        _fed_model(lambda: GKT.GKTServerResNet(k), shape[:2]
+                   + (GKT.EDGE_WIDTH,), device),
+        load_dataset(cfg.data), cfg, device)
+
+
+def _build_splitnn(cfg: ExperimentConfig, device):
+    """SplitNN at the JAX harness's defaults (convs 32/64, hidden 128),
+    on ``cfg.data``'s images."""
+    shape = tuple(cfg.model.input_shape)
+    width = GKT.split_out_features(shape)
+    return SplitNNSim(
+        _fed_model(lambda: GKT.SplitClientNet(in_channels=shape[-1]), shape,
+                   device),
+        _fed_model(lambda: GKT.SplitServerNet(width, cfg.model.num_classes),
+                   (width,), device),
+        load_dataset(cfg.data), cfg, device)
+
+
+def vfl_data(cfg: ExperimentConfig) -> dict:
+    """Vertical FL's two-party set: ``nus_wide`` ("person" against the
+    rest: the sim is binary) or ``lending_club`` read under
+    ``data.data_dir``, else the offline ``fake_vfl``: 512 train and 128
+    test rows of 24 standard normal features, labelled by a seeded
+    ``x @ w > 0``, the columns split in halves."""
+    ds = cfg.data.dataset
+    if ds == "nus_wide":
+        return load_nus_wide_two_party(cfg.data.data_dir,
+                                       binary_positive="person")
+    if ds == "lending_club":
+        return load_lending_club_two_party(cfg.data.data_dir)
+    rng = np.random.default_rng(cfg.data.seed)
+    n, dim = 512, 24
+    w = rng.normal(size=(dim,))
+    x = rng.normal(size=(n, dim)).astype(np.float32)
+    xt = rng.normal(size=(n // 4, dim)).astype(np.float32)
+    return {"train": (x, (x @ w > 0).astype(np.float32)),
+            "test": (xt, (xt @ w > 0).astype(np.float32)),
+            "splits": [(0, dim // 2), (dim // 2, dim)]}
+
+
+def _build_vfl(cfg: ExperimentConfig, device):
+    """Two-party classical vertical FL: a party's local model (hidden
+    16, out 8) and its dense logit head over its column slice."""
+    d = vfl_data(cfg)
+    models = []
+    for lo, hi in d["splits"]:
+        models.append((
+            _fed_model(lambda w=hi - lo: GKT.VFLLocalModel(w, 8, 16),
+                       (hi - lo,), device),
+            _fed_model(lambda: GKT.VFLDenseModel(8), (8,), device)))
+    return VFLSim(models, d["splits"], *d["train"], *d["test"], cfg, device)
+
+
+def _build_fednas(cfg: ExperimentConfig, device):
+    """FedNAS over ``DARTSNetwork`` at its defaults."""
+    shape = tuple(cfg.model.input_shape)
+    return FedNASSim(_fed_model(lambda: DARTSNetwork(
+        cfg.model.num_classes, in_channels=shape[-1]), shape, device),
+        load_dataset(cfg.data), cfg, device)
+
+
+def _build_turboaggregate(cfg: ExperimentConfig, device):
+    """FedAvg with TurboAggregate's secure sum as the server's rule."""
+    return SecureFedAvgSim(create_model(cfg.model, device),
+                           load_dataset(cfg.data), cfg, device)
+
+
+def _build_baseline(cfg: ExperimentConfig, device):
+    return BaselineSim(create_model(cfg.model, device),
+                       load_dataset(cfg.data), cfg, device)
+
+
+def _build_centralized(cfg: ExperimentConfig, device):
+    return CentralizedTrainer(create_model(cfg.model, device),
+                              load_dataset(cfg.data), cfg, device)
+
+
+# the rest of the registry (fedml_tpu.experiments.harness _build_fedgkt,
+# _build_splitnn, _build_vfl, _build_turboaggregate, _build_fednas,
+# _build_baseline, _build_centralized)
+REGISTRY = {
+    **{name: _build_gan for name in GAN_FAMILY},
+    **{name: _build_distill for name in DISTILL_FAMILY},
+    **{name: _build_topology for name in TOPOLOGY_FAMILY},
+    "fedgkt": _build_fedgkt, "splitnn": _build_splitnn,
+    "vfl": _build_vfl, "classical_vertical_fl": _build_vfl,
+    "turboaggregate": _build_turboaggregate, "fednas": _build_fednas,
+    "baseline": _build_baseline, "centralized": _build_centralized,
+}
+
+
 def build_sim(cfg: ExperimentConfig, device: str | torch.device = "cuda"):
-    """The simulation of ``cfg.fed.algorithm`` on ``device``."""
+    """The simulation of ``cfg.fed.algorithm`` on ``device``; an unknown
+    name raises ``ValueError``, as in the JAX package."""
     algo = cfg.fed.algorithm
-    if algo in GAN_FAMILY:
-        return _build_gan(cfg, device)
-    if algo in DISTILL_FAMILY:
-        return _build_distill(cfg, device)
-    if algo in TOPOLOGY_FAMILY:
-        return _build_topology(cfg, device)
+    if algo in REGISTRY:
+        return REGISTRY[algo](cfg, device)
     if algo not in ALGORITHMS:
-        raise NotImplementedError(
-            f"algorithm={algo!r} is not ported to fedml_tpu_torch yet "
-            "(ROADMAP: Queue A item 13b, the rest: split learning, "
-            "FedNAS, TurboAggregate, the local baselines, async "
-            "aggregation)")
+        raise ValueError(f"unknown algorithm: {algo}; known: "
+                         f"{sorted({*ALGORITHMS, *REGISTRY})}")
     cfg = dataclasses.replace(cfg, fed=dataclasses.replace(
         cfg.fed, algorithm=ALGORITHMS[algo]))
     return FedAvgSim(create_model(cfg.model, device), load_dataset(cfg.data),
                      cfg, device)
+
+
+def _wants_round(sim) -> bool:
+    """Whether the sim's ``run_round`` takes the round index too."""
+    return len(inspect.signature(sim.run_round).parameters) >= 2
 
 
 class Experiment:
@@ -311,7 +438,8 @@ class Experiment:
             for r in range(start_round, cfg.fed.num_rounds):
                 export.set_round(r, cfg)
                 with rp.round(r), telemetry.maybe_span("sim_round", round=r):
-                    state, m = sim.run_round(state)
+                    state, m = (sim.run_round(state, r) if _wants_round(sim)
+                                else sim.run_round(state))
                     record = Experiment._record(r, start_round, m,
                                                 sim.counters)
                 if Experiment._is_eval(cfg, r):
@@ -404,13 +532,16 @@ class Experiment:
     def _eval_record(sim, state) -> dict:
         """The evaluation: the global model's (``evaluate_global``), the
         mean over the clients' own models (``evaluate_clients``: FedGDKD,
-        FedDTG and the distillation family) or the clients' mean model
-        (``evaluate_consensus``: the decentralized sims), its scalars with
+        FedDTG, the distillation family and the local baseline), the
+        clients' mean model (``evaluate_consensus``: the decentralized
+        sims) or the sim's own (``evaluate``: split learning, FedNAS, the
+        centralized trainer), its scalars with
         ``acc`` and ``loss`` under the summary's names ``test_acc`` and
         ``test_loss``; nothing for a sim without an evaluator."""
         evaluate = (getattr(sim, "evaluate_global", None)
                     or getattr(sim, "evaluate_clients", None)
-                    or getattr(sim, "evaluate_consensus", None))
+                    or getattr(sim, "evaluate_consensus", None)
+                    or getattr(sim, "evaluate", None))
         if evaluate is None:
             return {}
         rename = {"acc": "test_acc", "loss": "test_loss"}

@@ -9,8 +9,11 @@ fedarjun; their settings, as the GAN family's, the ``gan`` section of
 the ``--config`` JSON, as the JAX CLI has no GAN flags) and the
 topologies (``--algorithm`` hierarchical, decentralized_dsgd,
 decentralized_pushsum, and the online dol_dsgd and dol_pushsum, whose
-``--comm_round`` is the stream's length), with its flag
-names: the
+``--comm_round`` is the stream's length) and the rest of the JAX
+registry (``--algorithm`` fedgkt, splitnn, vfl, classical_vertical_fl,
+fednas, turboaggregate, baseline, centralized; vfl's ``--dataset`` is
+fake_vfl, or nus_wide or lending_club read under the config's
+``data.data_dir``), with its flag names: the
 defenses
 (``--defense`` or ``--robust_method``, ``--defense_*``,
 ``--robust_norm_clip``, ``--robust_noise_stddev``), the wire codec
@@ -76,9 +79,11 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
                         "fedavg_multiclient, fedseg, the GAN family: "
                         "fedgan, fedgdkd, feddtg, fedssgan, feduagan, the "
                         "distillation family: fedmd, fd_faug, fedarjun, "
-                        "or the topologies: hierarchical, "
+                        "the topologies: hierarchical, "
                         "decentralized_dsgd, decentralized_pushsum, "
-                        "dol_dsgd, dol_pushsum")
+                        "dol_dsgd, dol_pushsum, split learning: fedgkt, "
+                        "splitnn, vfl, classical_vertical_fl, or fednas, "
+                        "turboaggregate, baseline, centralized")
     p.add_argument("--dataset", type=str, default=None)
     p.add_argument("--model", type=str, default=None)
     p.add_argument("--num_classes", type=int, default=None)

@@ -193,7 +193,12 @@ def _init_tensor(mod: nn.Module, leaf: str, shape, gen: torch.Generator):
     embeddings normal with std 1/sqrt(features), LayerNorm, BatchNorm and
     GroupNorm scale ones, every bias zeros, BatchNorm running mean zeros
     and variance ones; a LoRA ``lora_a`` ``[rank, in]`` lecun-normal
-    (fan_in = in features) and ``lora_b`` zeros."""
+    (fan_in = in features) and ``lora_b`` zeros. A module's own
+    parameters of another kind are drawn by its ``init_leaf(leaf, shape,
+    gen)`` (DARTS's architecture weights)."""
+    own = getattr(mod, "init_leaf", None)
+    if own is not None:
+        return own(leaf, shape, gen)
     if leaf in ("bias", "running_mean", "lora_b"):
         return torch.zeros(shape)
     if leaf == "lora_a":

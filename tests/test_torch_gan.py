@@ -530,8 +530,8 @@ def test_refusals_name_their_items():
         return dataclasses.replace(cfg, fed=dataclasses.replace(
             cfg.fed, algorithm=algo))
 
-    with pytest.raises(NotImplementedError, match="item 13"):
-        build_sim(with_algo("fedgkt"), "cpu")
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        build_sim(with_algo("fedgkt2"), "cpu")
     for algo, kind in (("fedgan", FedGANSim), ("feddtg", FedDTGSim),
                        ("fedssgan", FedSSGANSim),
                        ("feduagan", FedUAGANSim)):
