@@ -153,15 +153,15 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    final checkpoint equal to an uninterrupted run's, bit for bit or within
    (c)'s spread. The flash counters, set to 0 before the phase, must read
    0 after it.
-11. A "kernels" JSON line, printed after phase 18, with one entry per
+11. A "kernels" JSON line, printed after phase 20, with one entry per
    kernel instance the paths run (flash_attention, the float32 body at
    head dim 32; flash_attention_d16, its head-dim-16 instance; and
    flash_attention_mma, the bf16/fp16 body), each with its launches on
    the transformer path, on the LoRA path, on the ResNet-56 path, on each
    family, in the defended rounds, in the bulk phase, in phase 10 and on
    the FedGDKD path, on the rest of the GAN family, in phase 15, on
-   the distillation path of phase 16, in phase 17 and in phase 18 (none
-   of them but the transformer
+   the distillation path of phase 16, in phase 17, in phase 18, in phase
+   19 and in phase 20 (none of them but the transformer
    and LoRA paths runs a hand-written kernel), the card's
    name and power limit, and last the result line
    {"ok": true, "device": {...}}.
@@ -365,7 +365,37 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    runs it; the secure rounds within
    5e-4, a float32 difference in the locals moving one 2^-16 step of the
    field); (h) the phase's seconds. The flash counters, set to 0 before
-   the phase, must read 0 after it. The "kernels" line comes after it.
+   the phase, must read 0 after it.
+20. Data on disk, the async buffer, per-client metrics and FID, each part
+   a JSON line with the card's name and power limit. The files are the
+   formats the standard library writes, in their published layouts, in a
+   temporary directory removed at the end: (a) CIFAR-10's python pickles
+   at 50,000/10,000 (class prototypes plus noise, seeded), the port's
+   load_dataset bitwise equal to the phase's own decode, then ResNet-56
+   FedAvg at bench.py build_sim's configuration through python -m
+   fedml_tpu_torch.experiments.run --dataset cifar10 --data_dir, 3
+   rounds: the load's host seconds, the time to the first round, each
+   round's seconds, the test accuracy above chance; (b) MNIST's gzipped
+   IDX at 60,000/10,000 through lr, LEAF FEMNIST's json (cut to 200
+   writers of about 227 samples) through cnn, 2 rounds each, the test
+   accuracy above chance, and a SUSY csv through dol_dsgd, its regret
+   falling; (c) log_per_client_observability of (a)'s global model over
+   all 100 clients' train and test slices, its seconds and
+   max_memory_allocated, the confusion counts summed over the clients
+   equal to each split's real rows; (d) one FedGDKD round at phase 13's
+   data, then log_gan_round with the default scorer and with
+   make_fid_scorer(train_data=...), which fits TrainedCNNEmbed on the
+   card: FID(real, real) 0 up to rounding, FID(real, fake) larger, the
+   grid file written; (e) 32 ResNet-56-sized deltas folded at lags 0-7
+   (poly, alpha 0.5, K 32) and emitted through server_update, within
+   ASYNC_BAND of a float64 weighted mean on the host, the buffer stopped
+   after 13 folds, saved, loaded and finished equal to the uninterrupted
+   one bit for bit, a fold's and an emit's CUDA-event time; (f) (c)'s,
+   (d)'s and (e)'s functions at their CPU tests' configurations on the
+   card and on the CPU from the same start, within atol 1e-5, rtol 1e-4,
+   or else within SPREAD_FACTOR times the CPU's own spread; (g) the
+   phase's seconds. The flash counters, set to 0 before the phase, must
+   read 0 after it. The "kernels" line comes after it.
 """
 
 from __future__ import annotations
@@ -5643,6 +5673,701 @@ def split_nas_phase(card: str) -> int:
     return launches
 
 
+# phase 20: data on disk (item 18), and item 13b's rest: the async buffer,
+# the per-client metrics and FID
+CIFAR_ROWS = 10_000  # a batch file's rows: five train batches and a test
+MNIST_ROWS = (60_000, 10_000)
+MNIST_CLIENTS = 100
+FEMNIST_USERS = 200  # cut from LEAF FEMNIST's ~3,600 writers
+FEMNIST_SAMPLES = (180, 275)  # a writer's samples, mean ~227 (LEAF's)
+SUSY_NODES = 8
+SUSY_T = 2000  # phase 18's stream length
+DISK_ROUNDS = 3  # (a); (b) runs 2
+DISK_CLI_TIMEOUT_S = 600
+ASYNC_K = 32  # (e): the buffer's K, its lags 0-7, stopped after 13 folds
+ASYNC_LAGS = 8
+ASYNC_STOP = 13
+ASYNC_DELTA = 0.01  # the deltas' scale
+# a fold against the float64 weighted mean on the host: 32 float32 sums of
+# deltas of size 0.01
+ASYNC_BAND = dict(atol=1e-7, rtol=1e-5)
+FID_SAME = 1e-6  # FID(real, real) at most this share of 1 + FID(real, fake)
+TINY_METRICS_COUNTS = (9, 3, 0, 6)  # tests/test_torch_metrics.py's clients
+
+
+def write_cifar10(root: str, seed: int = 0) -> dict:
+    """CIFAR-10's python layout at its published size under
+    ``root/cifar-10-batches-py``: ``data_batch_1``..``5`` and
+    ``test_batch``, each a pickled dict of CIFAR_ROWS rows (``b"data"``
+    ``[n, 3072]`` uint8, a 32x32 image's R, G and B planes; ``b"labels"``,
+    ``b"batch_label"``, ``b"filenames"``), and ``batches.meta``. A pixel
+    is its class's seeded prototype plus uniform noise, so the labels can
+    be learned. Returns ``{file: (pixels, labels)}``."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(d)
+    proto = rng.integers(40, 216, (10, 3072)).astype(np.int16)
+    written = {}
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        labels = rng.integers(0, 10, CIFAR_ROWS)
+        noise = rng.integers(-64, 65, (CIFAR_ROWS, 3072), dtype=np.int16)
+        pixels = np.clip(proto[labels] + noise, 0, 255).astype(np.uint8)
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump({b"batch_label": name.encode(),
+                         b"labels": labels.tolist(), b"data": pixels,
+                         b"filenames": [f"{name}_{i:05d}.png".encode()
+                                        for i in range(CIFAR_ROWS)]}, f)
+        written[name] = (pixels, labels)
+    with open(os.path.join(d, "batches.meta"), "wb") as f:
+        pickle.dump({b"num_cases_per_batch": CIFAR_ROWS, b"num_vis": 3072,
+                     b"label_names": [c.encode() for c in (
+                         "airplane", "automobile", "bird", "cat", "deer",
+                         "dog", "frog", "horse", "ship", "truck")]}, f)
+    return written
+
+
+def decode_cifar10(root: str, written: dict):
+    """The phase's own decode of the batch files: the rows back to NHWC,
+    normalized by CIFAR-10's mean and std in float32. Each file's bytes
+    must be the pixels written."""
+    import pickle
+
+    import numpy as np
+
+    mean = np.array([0.4914, 0.4822, 0.4465], np.float32)
+    std = np.array([0.2470, 0.2435, 0.2616], np.float32)
+    out = {}
+    for name, (pixels, labels) in written.items():
+        with open(os.path.join(root, "cifar-10-batches-py", name), "rb") as f:
+            blob = pickle.load(f, encoding="bytes")
+        if not (np.array_equal(blob[b"data"], pixels)
+                and blob[b"labels"] == labels.tolist()):
+            raise RuntimeError(f"{name}: the file holds other rows")
+        x = blob[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        out[name] = ((x.astype(np.float32) / 255.0 - mean) / std,
+                     np.asarray(blob[b"labels"], np.int32))
+    train = [out[f"data_batch_{i}"] for i in range(1, 6)]
+    return (np.concatenate([x for x, _ in train]),
+            np.concatenate([y for _, y in train]), *out["test_batch"])
+
+
+def bitwise_equal(name: str, got, want) -> None:
+    import numpy as np
+
+    if got.dtype != want.dtype or not np.array_equal(got, want):
+        raise RuntimeError(f"{name}: the loaded array is not the decode "
+                           f"({got.dtype} {got.shape} against {want.dtype} "
+                           f"{want.shape})")
+
+
+def disk_config(root: str, out_dir: str):
+    """(a): bench.py build_sim's configuration (resnet_config) on CIFAR-10
+    read from ``root``, 3 rounds, a checkpoint at the last."""
+    import dataclasses
+
+    cfg = resnet_config()
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, dataset="cifar10",
+                                      data_dir=root),
+        fed=dataclasses.replace(cfg.fed, num_rounds=DISK_ROUNDS),
+        checkpoint_every=DISK_ROUNDS, run_name="cifar10_disk",
+        out_dir=out_dir)
+
+
+def cifar_from_disk(card: str, tmp: str, device: str = "cuda"):
+    """(a): CIFAR-10's files written, loaded by the port bitwise equal to
+    the phase's decode, then ResNet-56 FedAvg through the CLI in a child
+    process reading them. Returns (the loaded data, the config, the
+    final global variables on the CPU)."""
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.utils.checkpoint import RoundCheckpointer
+
+    root = os.path.join(tmp, "cifar10")
+    t0 = time.perf_counter()
+    written = write_cifar10(root)
+    write_s = time.perf_counter() - t0
+    out_dir = os.path.join(tmp, "runs")
+    cfg = disk_config(root, out_dir)
+    t0 = time.perf_counter()
+    data = load_dataset(cfg.data)
+    load_s = time.perf_counter() - t0
+    want = decode_cifar10(root, written)
+    for name, got, w in zip(("x_train", "y_train", "x_test", "y_test"),
+                            (data.x_train, data.y_train, data.x_test,
+                             data.y_test), want):
+        bitwise_equal(name, got, w)
+    if data.x_train.shape != (5 * CIFAR_ROWS, 32, 32, 3) \
+            or data.num_clients != cfg.data.num_clients:
+        raise RuntimeError(f"CIFAR-10 from disk: {data.x_train.shape}, "
+                           f"{data.num_clients} clients")
+    cfg_path = os.path.join(tmp, "cifar10_disk.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    # the config file carries the rest (cohort_groups, scan_unroll)
+    args = ["--config", cfg_path, "--algorithm", "fedavg", "--dataset",
+            "cifar10", "--data_dir", root, "--model", cfg.model.name,
+            "--client_num_in_total", str(cfg.data.num_clients),
+            "--client_num_per_round", str(cfg.fed.clients_per_round),
+            "--partition_method", cfg.data.partition_method,
+            "--partition_alpha", str(cfg.data.partition_alpha),
+            "--batch_size", str(cfg.data.batch_size), "--lr",
+            str(cfg.train.lr), "--compute_dtype", cfg.train.compute_dtype,
+            "--comm_round", str(DISK_ROUNDS), "--frequency_of_the_test",
+            "1", "--checkpoint_every", str(DISK_ROUNDS), "--run_name",
+            cfg.run_name, "--device", device]
+    started = time.time()
+    t0 = time.perf_counter()
+    proc = child(args, out_dir)
+    if proc.wait(timeout=DISK_CLI_TIMEOUT_S) != 0:
+        raise RuntimeError(f"CIFAR-10 CLI run rc {proc.returncode}: "
+                           f"{child_error(out_dir)}")
+    cli_s = time.perf_counter() - t0
+    run_dir = os.path.join(out_dir, f"{cfg.run_name}_rep0")
+    rows = read_rows(run_dir)
+    accs = [r["test_acc"] for r in rows]
+    blob, nxt = RoundCheckpointer(os.path.join(run_dir, "ckpt")).restore_raw()
+    record_line(card, metric="cifar10_from_disk_resnet56",
+                files_write_s=write_s, load_s=load_s,
+                load_rows=[len(data.x_train), len(data.x_test)],
+                cli_s=cli_s, time_to_first_round_s=rows[0]["_ts"] - started,
+                round_s=[b["_ts"] - a["_ts"] for a, b in zip(rows, rows[1:])],
+                test_acc=accs, test_loss=[r["test_loss"] for r in rows],
+                train_loss=[r.get("train_loss") for r in rows],
+                note="host clocks; time to the first round from the child's "
+                     "start to its first row (the process start, the load, "
+                     "the capture, round 0 and its evaluation); a round's "
+                     "seconds between consecutive rows, each with its "
+                     "evaluation")
+    if ([r["round"] for r in rows] != list(range(DISK_ROUNDS))
+            or nxt != DISK_ROUNDS
+            or not all(math.isfinite(r["test_loss"]) for r in rows)
+            or not 0.1 < accs[-1] <= 1.0):
+        raise RuntimeError(f"CIFAR-10 CLI run: {rows}, checkpoint {nxt}")
+    return data, cfg, blob["variables"]
+
+
+def write_idx_gz(path: str, arr) -> None:
+    """An IDX file (big-endian dims after a 4-byte magic), gzipped."""
+    import gzip
+    import struct
+
+    with gzip.open(path, "wb", compresslevel=1) as f:
+        f.write(struct.pack(">HBB", 0, 8, arr.ndim)  # 8: unsigned bytes
+                + struct.pack(">" + "I" * arr.ndim, *arr.shape)
+                + arr.astype("uint8").tobytes())
+
+
+def write_mnist(d: str, seed: int = 1) -> int:
+    """MNIST's four gzipped IDX files at 60,000/10,000, each digit its
+    class's seeded prototype plus noise. Returns the samples written."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(d)
+    proto = rng.integers(0, 200, (10, 28, 28)).astype(np.int16)
+    for split, n in zip(("train", "t10k"), MNIST_ROWS):
+        labels = rng.integers(0, 10, n)
+        noise = rng.integers(-60, 61, (n, 28, 28), dtype=np.int16)
+        images = np.clip(proto[labels] + noise, 0, 255)
+        write_idx_gz(os.path.join(d, f"{split}-images-idx3-ubyte.gz"),
+                     images)
+        write_idx_gz(os.path.join(d, f"{split}-labels-idx1-ubyte.gz"),
+                     labels)
+    return sum(MNIST_ROWS)
+
+
+def leaf_rows_json(q) -> bytes:
+    """``[n, 784]`` pixel levels 0-4 as json rows of floats on a quarter
+    grid (``[[0.25,1.00,...],...]``), one byte table lookup."""
+    import numpy as np
+
+    table = np.frombuffer(b"0.00,0.25,0.50,0.75,1.00,", np.uint8)
+    body = table.reshape(5, 5)[q].reshape(len(q), 5 * q.shape[1])
+    body[:, -1] = ord("]")
+    edge = np.full((len(q), 1), ord("["), np.uint8)
+    rows = np.concatenate([edge, body, np.full_like(edge, ord(","))], 1)
+    return b"[" + rows.tobytes()[:-1] + b"]"
+
+
+def write_leaf_femnist(d: str, seed: int = 2) -> int:
+    """LEAF FEMNIST's json layout, cut to FEMNIST_USERS writers of
+    FEMNIST_SAMPLES samples: ``train/`` and ``test/`` each four
+    ``all_data_<k>_niid_0_keep_0_<split>_9.json`` files with ``users``,
+    ``num_samples`` and ``user_data`` (``x`` 784 floats in [0, 1], ``y``
+    one of 62 classes); a writer's last tenth is its test split. Returns
+    the samples written."""
+    import json
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    proto = rng.random((62, 784))
+    users = {"train": {}, "test": {}}
+    total = 0
+    for u in range(FEMNIST_USERS):
+        n = int(rng.integers(*FEMNIST_SAMPLES))
+        y = rng.integers(0, 62, n)
+        q = np.round(4 * np.clip(proto[y] + rng.normal(0, 0.15, (n, 784)),
+                                 0, 1)).astype(np.int64)
+        cut = n - max(1, n // 10)
+        name = f"f{u:04d}_{u % 100:02d}"
+        users["train"][name] = (q[:cut], y[:cut])
+        users["test"][name] = (q[cut:], y[cut:])
+        total += n
+    for split, data in users.items():
+        os.makedirs(os.path.join(d, split))
+        names = list(data)
+        for k in range(4):
+            part = names[k::4]
+            blob = b", ".join(
+                json.dumps(u).encode() + b': {"x": '
+                + leaf_rows_json(data[u][0]) + b', "y": '
+                + json.dumps(data[u][1].tolist()).encode() + b"}"
+                for u in part)
+            with open(os.path.join(d, split, f"all_data_{k}_niid_0_keep_0_"
+                                   f"{split}_9.json"), "wb") as f:
+                f.write(b'{"users": ' + json.dumps(part).encode()
+                        + b', "num_samples": ' + json.dumps(
+                            [len(data[u][1]) for u in part]).encode()
+                        + b', "user_data": {' + blob + b"}}")
+    return total
+
+
+def write_susy(d: str, seed: int = 3) -> int:
+    """A ``SUSY.csv`` of the rows the stream reads (4 N T): the label
+    first, then 18 features, a noisy linear concept. Returns its rows."""
+    import numpy as np
+
+    rows = 4 * SUSY_NODES * SUSY_T
+    rng = np.random.default_rng(seed)
+    os.makedirs(d)
+    x = rng.normal(size=(rows, 18))
+    y = (x @ rng.normal(size=18) + rng.normal(0, 0.5, rows) > 0)
+    np.savetxt(os.path.join(d, "SUSY.csv"), np.column_stack([y, x]),
+               delimiter=",", fmt="%.8e")
+    return rows
+
+
+def other_formats(card: str, tmp: str, device: str = "cuda") -> None:
+    """(b): MNIST's gzipped IDX through lr, LEAF FEMNIST's json through
+    cnn (2 rounds each, 10 clients a round) and a SUSY csv through
+    dol_dsgd (its regret falling), each through the CLI's arguments and
+    the harness; a JSON line each with its write and run seconds and its
+    summary."""
+    from fedml_tpu_torch.experiments import run as cli
+    from fedml_tpu_torch.experiments.harness import Experiment
+
+    runs = {
+        "mnist": (write_mnist, [
+            "--algorithm", "fedavg", "--dataset", "mnist", "--model", "lr",
+            "--num_classes", "10", "--input_shape", "28", "28", "1",
+            "--client_num_in_total", str(MNIST_CLIENTS),
+            "--client_num_per_round", "10", "--partition_method", "hetero",
+            "--partition_alpha", "0.5", "--comm_round", "2", "--batch_size",
+            "32", "--lr", "0.03"], 0.1),
+        "leaf_femnist": (write_leaf_femnist, [
+            "--algorithm", "fedavg", "--dataset", "leaf_femnist", "--model",
+            "cnn", "--num_classes", "62", "--input_shape", "28", "28", "1",
+            "--client_num_per_round", "10", "--comm_round", "2",
+            "--batch_size", "32", "--lr", "0.1", "--epochs", "2"], 1 / 62),
+        "susy": (write_susy, [
+            "--algorithm", "dol_dsgd", "--dataset", "susy", "--model", "lr",
+            "--client_num_in_total", str(SUSY_NODES), "--comm_round",
+            str(SUSY_T), "--lr", "0.3", "--frequency_of_the_test",
+            str(SUSY_T // 4)],
+            None),
+    }
+    out_dir = os.path.join(tmp, "runs")
+    for name, (write, argv, chance) in runs.items():
+        d = os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        written = write(d)
+        write_s = time.perf_counter() - t0
+        cfg, _ = cli.parse_args(argv + ["--data_dir", d, "--out_dir",
+                                        out_dir, "--run_name", name])
+        t0 = time.perf_counter()
+        summary = Experiment(cfg, device=device).run()[0]
+        run_s = time.perf_counter() - t0
+        rows = read_rows(os.path.join(out_dir, f"{name}_rep0"))
+        record_line(card, metric=f"{name}_from_disk", files_write_s=write_s,
+                    samples_written=written, run_s=run_s,
+                    summary={k: v for k, v in summary.items()
+                             if isinstance(v, (int, float, str))},
+                    note="host clocks; run_s is the harness's whole run: "
+                         "the load, the partition, the captures, the rounds "
+                         "and the evaluation")
+        if chance is None:
+            ok = (math.isfinite(summary["final_regret"])
+                  and summary["final_regret"] < rows[0]["regret"])
+        else:
+            ok = (math.isfinite(summary["test_loss"])
+                  and chance < summary["test_acc"] <= 1.0)
+        if not ok:
+            raise RuntimeError(f"{name} from disk: {summary}")
+
+
+def per_client_metrics(card: str, data, cfg, variables,
+                       device: str = "cuda") -> None:
+    """(c): log_per_client_observability of (a)'s global model over every
+    client's train and test slice: its seconds and max_memory_allocated;
+    every real row of each split in one confusion cell."""
+    import numpy as np
+
+    from fedml_tpu_torch.metrics import MetricsSink
+    from fedml_tpu_torch.metrics.observability import (
+        build_per_client_eval,
+        log_per_client_observability,
+    )
+    from fedml_tpu_torch.models import create_model
+
+    model = create_model(cfg.model, device)
+    arrays = data.to_arrays(device=device)
+    variables = {k: v.to(device) for k, v in variables.items()}
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    record = log_per_client_observability(MetricsSink(), model, variables,
+                                          arrays, DISK_ROUNDS - 1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    train = build_per_client_eval(model, arrays.num_classes)(
+        variables, arrays.x, arrays.y, arrays.idx, arrays.mask)
+    cells = {"train": float(train["confusion"].sum()),
+             "test": float(np.asarray(record["confusion_test"]).sum())}
+    rows = {"train": float(arrays.mask.sum()),
+            "test": float(arrays.test_mask.sum())}
+    acc = train["acc"].cpu().numpy()
+    same = all(record[f"Client {i}/Train/Acc"] == float(acc[i])
+               for i in range(arrays.num_clients))
+    record_line(card, metric="per_client_observability_resnet56",
+                clients=arrays.num_clients, seconds=seconds,
+                max_memory_allocated_mb=peak / 2**20,
+                resident_before_mb=base / 2**20, confusion_cells=cells,
+                real_rows=rows, train_acc=record["Train/Acc"],
+                test_acc=record["Test/Acc"],
+                note="host clock ending in a synchronize; both splits")
+    if cells != rows or rows["train"] != 5 * CIFAR_ROWS or not same:
+        raise RuntimeError(f"per-client metrics: cells {cells}, rows {rows}, "
+                           f"train accuracies agree {same}")
+
+
+def fid_round(card: str, tmp: str, device: str = "cuda") -> None:
+    """(d): one FedGDKD round at phase 13's data, then log_gan_round with
+    the default scorer and with make_fid_scorer(train_data=...), which
+    fits TrainedCNNEmbed here: FID(real, real) 0 up to rounding, FID(real,
+    fake) larger, the grid file written."""
+    import numpy as np
+
+    from fedml_tpu_torch.metrics import MetricsSink
+    from fedml_tpu_torch.metrics import fid as FID
+
+    sim = fedgdkd_sim(fedgdkd_config(), 6000, device)
+    t0 = time.perf_counter()
+    state, _ = sim.run_round(sim.init())
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    sink = MetricsSink(os.path.join(tmp, "fid", "metrics.jsonl"))
+    real = sim.arrays.test_x[:256].cpu().numpy()
+    out = {}
+    for name in ("default", "trained"):
+        t0 = time.perf_counter()
+        scorer = (FID._default_scorer(sim.device) if name == "default"
+                  else FID.make_fid_scorer(train_data=(
+                      sim.arrays.test_x.cpu().numpy(),
+                      sim.arrays.test_y.cpu().numpy()), num_classes=10,
+                      device=device))
+        make_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec = FID.log_gan_round(sink, sim, state, 1, scorer=scorer)
+        log_s = time.perf_counter() - t0
+        same = scorer.calculate_fid(real, real)
+        grid = np.load(rec["sample_grid"])
+        out[name] = {"fid_real_fake": rec["fid"], "fid_real_real": same,
+                     "scorer_s": make_s, "log_s": log_s,
+                     "grid_shape": list(grid.shape)}
+        if not (0.0 <= same <= FID_SAME * (1.0 + rec["fid"])
+                and rec["fid"] > same and grid.shape == (224, 224, 1)):
+            raise RuntimeError(f"FID, {name} scorer: {out[name]}")
+    sink.close()
+    record_line(card, metric="fid_fedgdkd_round", round_s=round_s, **out,
+                note="host clocks; round 0 includes its captures; the "
+                     "trained scorer's seconds its fit on the 1,000-image "
+                     "test split, the default's log its first embed")
+
+
+def async_buffer(card: str, template: dict, stat_names: tuple,
+                 device: str = "cuda") -> None:
+    """(e): 32 seeded ResNet-56-sized deltas folded at lags 0-7 (poly,
+    alpha 0.5, K 32) and emitted through server_update, against a
+    float64 weighted mean on the host; the buffer stopped after 13
+    folds, saved, loaded into a new one and finished equals the
+    uninterrupted one bit for bit."""
+    import numpy as np
+
+    from fedml_tpu_torch.algorithms.fedavg import (
+        ServerState,
+        local_reducer,
+        make_server_optimizer,
+        server_update,
+    )
+    from fedml_tpu_torch.config import FedConfig
+    from fedml_tpu_torch.core.async_agg import AsyncBuffer, AsyncConfig
+
+    acfg = AsyncConfig(ASYNC_K, "poly", 0.5)
+    gen = torch.Generator(device=device).manual_seed(20)
+    deltas = [{k: ASYNC_DELTA * torch.randn(v.shape, generator=gen,
+                                            device=device)
+               for k, v in template.items()} for _ in range(ASYNC_K)]
+    n_k = np.random.default_rng(20).integers(50, 1000, ASYNC_K)
+    lags = [i % ASYNC_LAGS for i in range(ASYNC_K)]
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    buf = AsyncBuffer(acfg, template)
+    fold_ms = [timed(lambda: buf.fold(d, float(n), lag))[1]
+               for d, n, lag in zip(deltas, n_k, lags)]
+    if not buf.ready():
+        raise RuntimeError(f"async buffer not ready after {buf.count}")
+    (mean_delta, mass), emit_ms = timed(buf.emit)
+    w = [acfg.weight(lag) * float(n) for n, lag in zip(n_k, lags)]
+    want = {k: sum(wi * d[k].double().cpu() for wi, d in zip(w, deltas))
+            / sum(w) for k in template}
+    err = max((mean_delta[k].double().cpu() - want[k]).abs().max().item()
+              for k in template)
+    ok = all(torch.allclose(mean_delta[k].double().cpu(), want[k],
+                            **ASYNC_BAND) for k in template)
+    params = {k: v for k, v in template.items() if k not in stat_names}
+    state = ServerState(template, make_server_optimizer(
+        "sgd", 1.0, 0.0).init(params), {k: torch.zeros_like(v)
+                                        for k, v in params.items()}, 0)
+    row = {k: (v + mean_delta[k].to(v.dtype))[None]
+           for k, v in template.items()}
+    new = server_update(FedConfig(), state, row,
+                        torch.tensor([mass], device=device), local_reducer(),
+                        stat_names)
+    stepped = {k: (new.variables[k].double().cpu(),
+                   template[k].double().cpu() + want[k]) for k in template}
+    step_err = max((a - b).abs().max().item() for a, b in stepped.values())
+    # g + mean delta rounds twice in float32 (the row, then the step)
+    step_ok = all(torch.allclose(a, b, rtol=1e-6, atol=1e-7)
+                  for a, b in stepped.values())
+    first = AsyncBuffer(acfg, template)
+    for d, n, lag in zip(deltas[:ASYNC_STOP], n_k, lags):
+        first.fold(d, float(n), lag)
+    resumed = AsyncBuffer(acfg, template)
+    resumed.load_arrays(first.state_arrays())
+    for d, n, lag in zip(deltas[ASYNC_STOP:], n_k[ASYNC_STOP:],
+                         lags[ASYNC_STOP:]):
+        resumed.fold(d, float(n), lag)
+    again, again_mass = resumed.emit()
+    bitwise = again_mass == mass and all(
+        torch.equal(again[k], mean_delta[k]) for k in template)
+    record_line(card, metric="async_buffer_resnet56", folds=ASYNC_K,
+                leaves=len(template),
+                values=sum(v.numel() for v in template.values()),
+                fold_ms_median=statistics.median(fold_ms),
+                fold_ms_range=[min(fold_ms), max(fold_ms)], emit_ms=emit_ms,
+                max_abs_err_vs_float64=err, band=ASYNC_BAND,
+                server_update_err=step_err, resumed_bitwise=bitwise,
+                note="CUDA-event times around one fold and one emit, each "
+                     "with its host dispatch")
+    if not (ok and bitwise and step_ok):
+        raise RuntimeError(f"async buffer: within the band {ok}, resumed "
+                           f"bitwise {bitwise}, server_update {step_err}")
+
+
+def tiny_metrics_data(device: str):
+    """tests/test_torch_metrics.py's clients: 9, 3, 0 and 6 rows of 8x8x3,
+    5 classes, a test split that overlaps between clients."""
+    import numpy as np
+
+    from fedml_tpu_torch.data.federated import FederatedData
+
+    rng = np.random.default_rng(0)
+    n = sum(TINY_METRICS_COUNTS)
+    x = rng.standard_normal((n, 8, 8, 3)).astype(np.float32)
+    y = rng.integers(0, 5, n).astype(np.int32)
+    xt = rng.standard_normal((7, 8, 8, 3)).astype(np.float32)
+    yt = rng.integers(0, 5, 7).astype(np.int32)
+    starts = np.cumsum((0,) + TINY_METRICS_COUNTS)
+    tr = {i: np.arange(starts[i], starts[i + 1]) for i in range(4)}
+    te = {0: np.arange(0, 4), 1: np.arange(2, 7), 2: np.arange(1, 3),
+          3: np.arange(5, 7)}
+    return FederatedData(x, y, xt, yt, tr, te, 5).to_arrays(device=device)
+
+
+def perturbed(tree: dict, perturb: float) -> dict:
+    """The float leaves of ``tree`` (on the CPU) times 1 + ``perturb`` x a
+    seeded standard normal draw."""
+    gen = torch.Generator().manual_seed(0)
+    return {k: v * (1 + perturb * torch.randn(v.shape, generator=gen,
+                                              dtype=v.dtype))
+            if perturb and v.is_floating_point() else v
+            for k, v in tree.items()}
+
+
+def held_card_vs_cpu(name: str, run, device: str) -> dict:
+    """``run(device, perturb)`` (a tuple of tensors) on the card against
+    the CPU within GAN_BAND, or else within SPREAD_FACTOR times the CPU's
+    own spread under a PERTURB change of the start."""
+    want, got = run("cpu", 0.0), run(device, 0.0)
+    err, use = gan_state_err(got, want)
+    report = {"case": name, "max_abs_err": err, "band_use": use,
+              **GAN_BAND}
+    if use > 1.0:
+        spread = gan_state_err(run("cpu", PERTURB), want)[0]
+        report.update(card_vs_cpu=err, cpu_spread=spread,
+                      spread_factor=SPREAD_FACTOR)
+        if err > SPREAD_FACTOR * spread:
+            raise RuntimeError(f"{name}: card vs CPU outside the band and "
+                               f"the spread: {report}")
+    return report
+
+
+def metrics_card_vs_cpu(device: str = "cuda") -> list:
+    """(f): (c)'s, (d)'s and (e)'s functions at their CPU tests'
+    configurations (tests/test_torch_metrics.py, tests/test_torch_async.
+    py) on the card and on the CPU from the same start."""
+    import numpy as np
+
+    from fedml_tpu_torch.config import ModelConfig
+    from fedml_tpu_torch.core.async_agg import AsyncBuffer, AsyncConfig
+    from fedml_tpu_torch.metrics import fid as FID
+    from fedml_tpu_torch.metrics.observability import build_per_client_eval
+    from fedml_tpu_torch.models import create_model
+
+    t0 = time.perf_counter()
+    mcfg = ModelConfig(name="resnet8", num_classes=5, input_shape=(8, 8, 3))
+    start = create_model(mcfg, "cpu").init(torch.Generator().manual_seed(1))
+
+    def per_client(dev, perturb):
+        arrays = tiny_metrics_data(dev)
+        variables = {k: v.to(dev) for k, v in perturbed(start,
+                                                        perturb).items()}
+        ev = build_per_client_eval(create_model(mcfg, dev), 5, batch_size=4)
+        out = []
+        for split in (("x", "y", "idx", "mask"),
+                      ("test_x", "test_y", "test_idx", "test_mask")):
+            r = ev(variables, *(getattr(arrays, f) for f in split))
+            out += [r["acc"], r["loss"], r["confusion"], r["count"]]
+        return tuple(out)
+
+    rng = np.random.default_rng(5)
+    images = rng.random((40, 12, 12, 1)).astype(np.float32)
+    labels = rng.integers(0, 3, 40)
+    embed_start = FID.embed_model(3, 16, None, "cpu").init(
+        torch.Generator().manual_seed(3))
+    fit_start = FID.embed_model(1, 8, 3, "cpu").init(
+        torch.Generator().manual_seed(2))
+
+    def embeds(dev, perturb):
+        rnd = FID.RandomConvEmbed(16, device=dev,
+                                  start=perturbed(embed_start, perturb))
+        x3 = torch.from_numpy(np.repeat(images[:10], 3, -1)).to(dev)
+        trained = FID.TrainedCNNEmbed.fit(
+            images, labels, num_classes=3, dim=8, epochs=2, batch_size=16,
+            seed=2, device=dev, start=perturbed(fit_start, perturb),
+            perms=lambda e, n: torch.randperm(
+                n, generator=torch.Generator().manual_seed(e)))
+        fid = FID.FIDScorer(trained, 16, dev).calculate_fid(images[:20],
+                                                            images[20:])
+        return (rnd(x3), trained(torch.from_numpy(images[:12]).to(dev)),
+                torch.tensor(fid, dtype=torch.float64))
+
+    shapes = {"conv.weight": (4, 3, 3, 3), "conv.bias": (4,),
+              "head": (7, 5), "bn.running_mean": (4,)}
+    drng = np.random.default_rng(0)
+    deltas = [{k: torch.from_numpy(drng.standard_normal(s).astype(
+        np.float32)) for k, s in shapes.items()} for _ in range(10)]
+    arng = np.random.default_rng(1)
+    arrivals = [(float(arng.integers(1, 50)), int(arng.integers(0, 8)))
+                for _ in range(10)]
+
+    def folds(dev, perturb):
+        buf = AsyncBuffer(AsyncConfig(5, "poly", 0.5),
+                          {k: torch.zeros(s, device=dev)
+                           for k, s in shapes.items()})
+        out = []
+        for d, (n, lag) in zip(deltas, arrivals):
+            buf.fold({k: v.to(dev) for k, v in perturbed(d, perturb).items()},
+                     n, lag)
+            if buf.ready():
+                out += list(buf.emit()[0].values())
+        return tuple(out)
+
+    reports = [held_card_vs_cpu("per_client_eval_resnet8", per_client,
+                                device),
+               held_card_vs_cpu("fid_embeds", embeds, device),
+               held_card_vs_cpu("async_fold_emit", folds, device)]
+    reports.append({"seconds": time.perf_counter() - t0})
+    return reports
+
+
+def disk_phase(card: str, device: str = "cuda") -> int:
+    """Phase 20: (a)-(g). Returns the flash kernels' launches over it (0:
+    no model of the phase has attention)."""
+    import tempfile
+
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+
+    t0 = time.perf_counter()
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    parts = {}
+    tmp = tempfile.mkdtemp(prefix="phase20_")
+
+    def part(name, run, *args):
+        t_part = time.perf_counter()
+        out = run(*args)
+        parts[name] = time.perf_counter() - t_part
+        free_card()
+        return out
+
+    try:
+        data, cfg, variables = part("a", cifar_from_disk, card, tmp, device)
+        part("b", other_formats, card, tmp, device)
+        part("c", per_client_metrics, card, data, cfg, variables, device)
+        del data
+        part("d", fid_round, card, tmp, device)
+        part("e", async_buffer, card,
+             {k: v.to(device) for k, v in variables.items()},
+             create_model(cfg.model, device).stat_names, device)
+        deterministic = torch.backends.cudnn.deterministic
+        benchmark = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            reports = part("f", metrics_card_vs_cpu, device)
+            print(json.dumps({"data_async_metrics_card_vs_cpu": reports,
+                              "device": card}), flush=True)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+            torch.backends.cudnn.benchmark = benchmark
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = flash_attention.launches + flash_attention.mma_launches
+    if launches != 0:
+        raise RuntimeError(f"phase 20 launched flash attention {launches} "
+                           "times")
+    record_line(card, metric="phase20_s", value=time.perf_counter() - t0,
+                parts_s=parts, flash_launches=launches)
+    return launches
+
+
 def kernel_entry(name, source, launches, by_path, rows, row,
                  note=None) -> dict:
     """One entry of the "kernels" line: the timed ``row``'s numbers, the
@@ -5715,6 +6440,10 @@ def main() -> int:
     # 19. split learning, FedNAS, TurboAggregate and the local baselines
     # (no hand kernel)
     paths["split_nas"] = split_nas_phase(card)
+    free_card()
+    # 20. data on disk, the async buffer, per-client metrics and FID (no
+    # hand kernel)
+    paths["data_on_disk"] = disk_phase(card)
 
     # report: the float32 entry's times are at the transformer path's
     # shape, the D = 16 entry's at the LoRA path's, the tensor-core entry's

@@ -101,9 +101,6 @@ from fedml_tpu_torch.peft import personal as PP
 _NOT_PORTED: tuple[tuple[str, object, str], ...] = (
     ("fed.shard_aggregation", False, "Queue A item 15, the multi-device "
      "paths"),
-    ("fed.async_buffer_k", 0, "Queue A item 13b, core/async_agg.py"),
-    ("fed.staleness_fn", "poly", "Queue A item 13b, core/async_agg.py"),
-    ("fed.staleness_alpha", 0.5, "Queue A item 13b, core/async_agg.py"),
     ("mesh", MeshConfig(), "Queue A item 15, the multi-device paths"),
 )
 

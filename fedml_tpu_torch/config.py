@@ -104,12 +104,13 @@ class FedConfig:
     # "topk" | "topk_int8", with error feedback carried across rounds
     compress: str = "none"
     compress_topk_frac: float = 0.01  # share of each leaf topk keeps
-    # the deploy server's aggregation sharded over a device mesh, and
-    # buffered asynchronous aggregation with its staleness discount
-    # ("poly": (1 + lag)^-alpha, "const": full weight). Not ported yet:
-    # a value other than the default is refused
+    # the deploy server's aggregation sharded over a device mesh. Not
+    # ported yet: a value other than the default is refused
     # (algorithms/fedavg.py _NOT_PORTED)
     shard_aggregation: bool = False
+    # buffered asynchronous aggregation (core/async_agg.py) with its
+    # staleness discount ("poly": (1 + lag)^-alpha, "const": full
+    # weight); a deploy setting, which the simulators ignore
     async_buffer_k: int = 0
     staleness_fn: str = "poly"
     staleness_alpha: float = 0.5

@@ -429,3 +429,16 @@ def darts_state_dict(variables: Mapping[str, Any], lead: int = 0
     for key, val in variables.get("arch", {}).items():
         out[key] = torch.tensor(np.asarray(val))
     return out
+
+
+_FID_EMBED = {"Conv_0": "conv1", "Conv_1": "conv2", "Dense_0": "feat",
+              "feat": "feat", "cls": "cls"}
+
+
+def fid_embed_state_dict(variables: Mapping[str, Any]
+                         ) -> dict[str, torch.Tensor]:
+    """Flax variables of ``fedml_tpu.metrics.fid``'s conv embeds (the
+    random embed's ``Conv_0``, ``Conv_1``, ``Dense_0``; the trained one's
+    ``feat`` and ``cls`` heads) to the port's ``metrics/fid.py``
+    ``EmbedNet``."""
+    return _walk_leaves(variables, lambda path: _FID_EMBED[path[0]], 0)

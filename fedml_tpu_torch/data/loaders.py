@@ -1,13 +1,28 @@
-"""Offline federated dataset loaders.
+"""Federated dataset loaders.
 
-The procedural datasets (``fake_<image>`` with the shapes and class
-counts of ``IMAGE_SPECS``, the fake text sets, the fake segmentation and
-tag sets, and LEAF's ``synthetic(alpha, beta)``) draw from numpy
-``default_rng`` in the same order as the JAX package's loaders, so the
-arrays and the partitions are bitwise equal.
+Two families, as in the JAX package (``fedml_tpu.data.loaders``):
+
+- **Readers of files on disk** under ``DataConfig.data_dir`` (the CLI's
+  ``--data_dir``): MNIST and EMNIST IDX files (gzipped or raw), the
+  CIFAR-10/100 python pickles, a CINIC-10 ImageFolder tree, the TFF h5
+  and LEAF json splits (``data/natural.py``), ImageNet and Landmarks
+  (``data/largescale.py``). A missing file raises
+  ``FileNotFoundError`` naming its path; no reader falls back to a
+  procedural set.
+- **Procedural datasets** (``fake_<image>`` with the shapes and class
+  counts of ``IMAGE_SPECS``, the fake text, segmentation and tag sets,
+  and LEAF's ``synthetic(alpha, beta)``), drawn from numpy
+  ``default_rng`` in the JAX package's order.
+
+Both give arrays and partitions bitwise equal to the JAX package's.
 """
 
 from __future__ import annotations
+
+import gzip
+import os
+import pickle
+import struct as pystruct
 
 import numpy as np
 
@@ -246,17 +261,221 @@ def make_fake_tag_dataset(
     )
 
 
+# ---------------------------------------------------------------------------
+# Readers of files on disk
+# ---------------------------------------------------------------------------
+
+
+def _read_idx(path: str) -> np.ndarray:
+    """An IDX file (MNIST's format), gzipped when its name ends in
+    ``.gz``."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        zero, dtype_code, ndim = pystruct.unpack(">HBB", f.read(4))
+        dims = pystruct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        dt = {8: np.uint8, 9: np.int8, 11: np.int16, 12: np.int32,
+              13: np.float32, 14: np.float64}[dtype_code]
+        return np.frombuffer(f.read(), dtype=dt).reshape(dims)
+
+
+def _find(data_dir: str, names: list[str]) -> str | None:
+    for n in names:
+        p = os.path.join(data_dir, n)
+        if os.path.exists(p):
+            return p
+    return None
+
+
+def load_mnist_arrays(data_dir: str):
+    """MNIST from its four IDX files (``train-images-idx3-ubyte[.gz]``,
+    ``train-labels-idx1-ubyte[.gz]``, ``t10k-...``), normalized by the
+    reference's mean 0.1307 and std 0.3081."""
+    files = {
+        "x_tr": ["train-images-idx3-ubyte.gz", "train-images-idx3-ubyte"],
+        "y_tr": ["train-labels-idx1-ubyte.gz", "train-labels-idx1-ubyte"],
+        "x_te": ["t10k-images-idx3-ubyte.gz", "t10k-images-idx3-ubyte"],
+        "y_te": ["t10k-labels-idx1-ubyte.gz", "t10k-labels-idx1-ubyte"],
+    }
+    paths = {k: _find(data_dir, v) for k, v in files.items()}
+    if any(p is None for p in paths.values()):
+        raise FileNotFoundError(
+            f"MNIST IDX files not found under {data_dir}; fetch with the "
+            "reference's data/MNIST/download_and_unzip.sh or use "
+            "dataset='fake_mnist'"
+        )
+    x_tr = _read_idx(paths["x_tr"]).astype(np.float32)[..., None] / 255.0
+    x_te = _read_idx(paths["x_te"]).astype(np.float32)[..., None] / 255.0
+    return (
+        (x_tr - 0.1307) / 0.3081,
+        _read_idx(paths["y_tr"]).astype(np.int32),
+        (x_te - 0.1307) / 0.3081,
+        _read_idx(paths["y_te"]).astype(np.int32),
+        10,
+    )
+
+
+def load_cifar_arrays(data_dir: str, name: str):
+    """CIFAR-10 (``cifar-10-batches-py/data_batch_1..5``, ``test_batch``)
+    or CIFAR-100 (``cifar-100-python/train``, ``test``) from the python
+    pickles: ``b"data"`` ``[n, 3072]`` uint8 rows in CHW order, labels
+    under ``b"labels"`` or ``b"fine_labels"``; NHWC float32 normalized
+    by the reference's CIFAR-10 mean and std."""
+    mean = np.array([0.4914, 0.4822, 0.4465], np.float32)
+    std = np.array([0.2470, 0.2435, 0.2616], np.float32)
+
+    def parse(batch_path, label_key):
+        with open(batch_path, "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        x = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        y = np.asarray(d[label_key], np.int32)
+        return (x.astype(np.float32) / 255.0 - mean) / std, y
+
+    if name == "cifar10":
+        root = _find(data_dir, ["cifar-10-batches-py", "."])
+        if root is None or not os.path.exists(
+            os.path.join(root, "data_batch_1")
+        ):
+            raise FileNotFoundError(
+                f"cifar-10-batches-py not found under {data_dir}; use "
+                "dataset='fake_cifar10' for offline runs"
+            )
+        parts = [
+            parse(os.path.join(root, f"data_batch_{i}"), b"labels")
+            for i in range(1, 6)
+        ]
+        x_tr = np.concatenate([p[0] for p in parts])
+        y_tr = np.concatenate([p[1] for p in parts])
+        x_te, y_te = parse(os.path.join(root, "test_batch"), b"labels")
+        return x_tr, y_tr, x_te, y_te, 10
+    root = _find(data_dir, ["cifar-100-python", "."])
+    if root is None or not os.path.exists(os.path.join(root, "train")):
+        raise FileNotFoundError(
+            f"cifar-100-python not found under {data_dir}; use "
+            "dataset='fake_cifar100' for offline runs"
+        )
+    x_tr, y_tr = parse(os.path.join(root, "train"), b"fine_labels")
+    x_te, y_te = parse(os.path.join(root, "test"), b"fine_labels")
+    return x_tr, y_tr, x_te, y_te, 100
+
+
+def load_emnist_arrays(data_dir: str, split: str = "balanced"):
+    """EMNIST from its IDX files (``emnist-<split>-train-images-idx3-ubyte
+    [.gz]`` and the rest; 47 classes for ``balanced``, 62 ``byclass``, 10
+    ``digits``, 26 ``letters``), normalized at mean 0.5, std 0.5."""
+    nc = {"balanced": 47, "byclass": 62, "digits": 10, "letters": 26}[split]
+    files = {
+        k: [f"emnist-{split}-{k2}-idx{d}-ubyte.gz",
+            f"emnist-{split}-{k2}-idx{d}-ubyte"]
+        for k, (k2, d) in {
+            "x_tr": ("train-images", 3), "y_tr": ("train-labels", 1),
+            "x_te": ("test-images", 3), "y_te": ("test-labels", 1),
+        }.items()
+    }
+    paths = {k: _find(data_dir, v) for k, v in files.items()}
+    if any(p is None for p in paths.values()):
+        raise FileNotFoundError(
+            f"EMNIST ({split}) IDX files not found under {data_dir}; fetch "
+            "with the reference's data scripts or use dataset='fake_emnist'"
+        )
+    x_tr = _read_idx(paths["x_tr"]).astype(np.float32)[..., None] / 255.0
+    x_te = _read_idx(paths["x_te"]).astype(np.float32)[..., None] / 255.0
+    return (
+        (x_tr - 0.5) / 0.5,
+        _read_idx(paths["y_tr"]).astype(np.int32),
+        (x_te - 0.5) / 0.5,
+        _read_idx(paths["y_te"]).astype(np.int32),
+        nc,
+    )
+
+
+def load_image_folder_arrays(data_dir: str, name: str = "cinic10"):
+    """A CINIC-10-style ImageFolder tree, ``<root>/train/<class>/*.png``
+    and ``<root>/test/<class>/*.png`` (a ``valid/`` split, where present,
+    joins train), decoded with PIL (imported here) and normalized by
+    CINIC-10's mean and std. The class ids come from ``train/``."""
+    from PIL import Image
+
+    mean = np.array([0.47889522, 0.47227842, 0.43047404], np.float32)
+    std = np.array([0.24205776, 0.23828046, 0.25874835], np.float32)
+    root = _find(data_dir, [name, "CINIC-10", "."])
+    if root is None or not os.path.isdir(os.path.join(root, "train")):
+        raise FileNotFoundError(
+            f"ImageFolder tree (train/<class>/*.png) not found under "
+            f"{data_dir}; use dataset='fake_{name}' for offline runs"
+        )
+    train_dir = os.path.join(root, "train")
+    classes = sorted(
+        c
+        for c in os.listdir(train_dir)
+        if os.path.isdir(os.path.join(train_dir, c))
+    )
+    class_id = {c: i for i, c in enumerate(classes)}
+
+    def read_split(split):
+        d = os.path.join(root, split)
+        if not os.path.isdir(d):
+            return None, None
+        extra = [
+            c
+            for c in os.listdir(d)
+            if os.path.isdir(os.path.join(d, c)) and c not in class_id
+        ]
+        if extra:
+            raise ValueError(
+                f"{d} has class dirs {extra} not present in train/"
+            )
+        xs, ys = [], []
+        for c in classes:
+            cd = os.path.join(d, c)
+            if not os.path.isdir(cd):
+                continue
+            for fn in sorted(os.listdir(cd)):
+                if not fn.lower().endswith((".png", ".jpg", ".jpeg")):
+                    continue
+                img = np.asarray(
+                    Image.open(os.path.join(cd, fn)).convert("RGB"),
+                    np.float32,
+                ) / 255.0
+                xs.append((img - mean) / std)
+                ys.append(class_id[c])
+        if not xs:
+            return None, None
+        return np.stack(xs), np.asarray(ys, np.int32)
+
+    x_tr, y_tr = read_split("train")
+    x_te, y_te = read_split("test")
+    if x_tr is None or x_te is None:
+        raise FileNotFoundError(
+            f"empty ImageFolder tree under {root}; use "
+            f"dataset='fake_{name}'"
+        )
+    x_va, y_va = read_split("valid")
+    if x_va is not None:
+        x_tr = np.concatenate([x_tr, x_va])
+        y_tr = np.concatenate([y_tr, y_va])
+    return x_tr, y_tr, x_te, y_te, max(len(classes), 1)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+
 def load_dataset(cfg: DataConfig) -> FederatedData:
-    """Dataset dispatch. Only the offline datasets are ported:
-    ``synthetic_stackoverflow_nwp`` (``data/natural.py``, its 10,000-word
-    vocabulary), ``synthetic``, ``synthetic_<alpha>_<beta>`` and the
-    ``fake_<name>`` sets of the image (``IMAGE_SPECS``), text, tag
-    (``fake_stackoverflow_lr``) and segmentation (``fake_seg``,
-    ``fake_pascal_voc``, ``fake_coco_seg``) paths; any other name raises."""
+    """Dataset dispatch, in the JAX package's order: the procedural sets
+    by name, then the readers of ``cfg.data_dir`` (``femnist``,
+    ``fed_cifar100``, ``leaf_<femnist|celeba|shakespeare|synthetic>``,
+    ``shakespeare``, ``stackoverflow_nwp``, ``stackoverflow_lr``,
+    ``imagenet``, ``gld23k``/``gld160k``/``landmarks``, ``mnist``,
+    ``cifar10``, ``cifar100``, ``emnist``, ``cinic10``); the image arrays
+    are partitioned by ``cfg.partition_method``. Any other name raises
+    ``ValueError``."""
+    from fedml_tpu_torch.data import largescale, natural
+
     name = cfg.dataset.lower()
     if name == "synthetic_stackoverflow_nwp":
-        # before the synthetic_<a>_<b> family, as in the JAX package: the
-        # explicitly named StackOverflow-shaped stand-in
+        # before the synthetic_<a>_<b> family: the explicitly named
+        # StackOverflow-shaped stand-in
         return synthetic_stackoverflow_nwp(num_clients=cfg.num_clients,
                                            seed=cfg.seed)
     if name.startswith("synthetic"):
@@ -265,24 +484,83 @@ def load_dataset(cfg: DataConfig) -> FederatedData:
         a = float(parts[1]) if len(parts) > 1 else 1.0
         b = float(parts[2]) if len(parts) > 2 else 1.0
         return make_synthetic(cfg.num_clients, a, b, seed=cfg.seed)
-    base = name[len("fake_"):] if name.startswith("fake_") else None
-    if base in IMAGE_SPECS:
-        return make_fake_image_dataset(base, cfg)
-    if base in ("shakespeare", "fed_shakespeare"):
-        return make_fake_text_dataset(cfg)
-    if base == "stackoverflow_nwp":
-        return make_fake_text_dataset(
-            cfg, seq_len=STACKOVERFLOW_SEQ_LEN, vocab=2000
+    if name.startswith("fake_"):
+        base = name[len("fake_"):]
+        if base in IMAGE_SPECS:
+            return make_fake_image_dataset(base, cfg)
+        if base in ("shakespeare", "fed_shakespeare"):
+            return make_fake_text_dataset(cfg)
+        if base == "stackoverflow_nwp":
+            return make_fake_text_dataset(
+                cfg, seq_len=STACKOVERFLOW_SEQ_LEN, vocab=2000
+            )
+        if base == "stackoverflow_lr":
+            return make_fake_tag_dataset(cfg)
+        if base in ("pascal_voc", "coco_seg", "seg"):
+            return make_fake_segmentation_dataset(cfg)
+        raise ValueError(f"unknown fake dataset: {name}")
+    if name in ("femnist", "fed_emnist", "federated_emnist"):
+        return natural.load_federated_emnist(cfg.data_dir)
+    if name == "fed_cifar100":
+        return natural.load_fed_cifar100(cfg.data_dir)
+    if name.startswith("leaf_"):
+        base = name[len("leaf_"):]
+        if base in ("shakespeare", "fed_shakespeare"):
+            return natural.load_leaf_json(
+                cfg.data_dir, natural.SHAKESPEARE_VOCAB_SIZE, task="nwp",
+                offline_hint="fake_shakespeare", text=True,
+            )
+        if base == "synthetic":
+            # the LEAF synthetic(a, b) files; (a, b) from the directory's
+            # name (synthetic_1_1, ...), needed only to rebuild a missing
+            # train/mytrain.json
+            parts = os.path.basename(
+                os.path.normpath(cfg.data_dir)
+            ).split("_")
+            a = b = None
+            if len(parts) == 3 and parts[0] == "synthetic":
+                try:
+                    a, b = float(parts[1]), float(parts[2])
+                except ValueError:
+                    a = b = None
+            return natural.load_synthetic_leaf(cfg.data_dir, a, b)
+        shapes = {"femnist": ((28, 28, 1), 62), "celeba": ((84, 84, 3), 2)}
+        if base not in shapes:
+            raise ValueError(
+                f"unsupported LEAF dataset: {base} (numeric-feature LEAF "
+                f"sets supported: {sorted(shapes)})"
+            )
+        shape, nc2 = shapes[base]
+        return natural.load_leaf_json(
+            cfg.data_dir, nc2, x_shape=shape,
+            offline_hint="fake_femnist" if base == "femnist" else None,
         )
-    if base == "stackoverflow_lr":
-        return make_fake_tag_dataset(cfg)
-    if base in ("pascal_voc", "coco_seg", "seg"):
-        return make_fake_segmentation_dataset(cfg)
-    raise ValueError(
-        f"dataset {cfg.dataset!r} is not ported to fedml_tpu_torch yet "
-        f"(available: synthetic_stackoverflow_nwp, "
-        f"synthetic[_<alpha>_<beta>], "
-        f"fake_<{'|'.join(IMAGE_SPECS)}>, fake_shakespeare, "
-        "fake_stackoverflow_nwp, fake_stackoverflow_lr, fake_seg, "
-        "fake_pascal_voc, fake_coco_seg)"
+    if name in ("fed_shakespeare", "shakespeare"):
+        return natural.load_fed_shakespeare(cfg.data_dir)
+    if name == "stackoverflow_nwp":
+        return natural.load_stackoverflow_nwp(cfg.data_dir)
+    if name == "stackoverflow_lr":
+        return natural.load_stackoverflow_lr(cfg.data_dir)
+    if name in ("imagenet", "ilsvrc2012"):
+        return largescale.load_imagenet(cfg.data_dir,
+                                        client_number=cfg.num_clients)
+    if name in ("gld23k", "gld160k", "landmarks"):
+        return largescale.load_landmarks(
+            cfg.data_dir, split="gld160k" if name == "gld160k" else "gld23k"
+        )
+    if name == "mnist":
+        x_tr, y_tr, x_te, y_te, nc = load_mnist_arrays(cfg.data_dir)
+    elif name in ("cifar10", "cifar100"):
+        x_tr, y_tr, x_te, y_te, nc = load_cifar_arrays(cfg.data_dir, name)
+    elif name == "emnist":
+        x_tr, y_tr, x_te, y_te, nc = load_emnist_arrays(cfg.data_dir)
+    elif name == "cinic10":
+        x_tr, y_tr, x_te, y_te, nc = load_image_folder_arrays(
+            cfg.data_dir, name
+        )
+    else:
+        raise ValueError(f"unknown dataset: {cfg.dataset}")
+    return build_federated_data(
+        x_tr, y_tr, x_te, y_te, nc, cfg.num_clients,
+        cfg.partition_method, cfg.partition_alpha, cfg.dataset_r, cfg.seed,
     )

@@ -6,16 +6,17 @@ Each client gets a stream of ``T`` (x, y) samples, one consumed an
 iteration. A ``beta`` fraction of the stream is adversarial (samples
 clustered by k-means and dealt out a cluster a client, so clients drift
 apart); the rest is stochastic (a shared shuffled pool).
-:func:`make_susy_like_stream` is the procedural SUSY-shaped stream. The
-UCI readers (SUSY, room occupancy) read data on disk, which the port does
-not have yet: :func:`load_uci_stream` raises.
+:func:`load_uci_stream` reads the UCI files (``SUSY.csv``, the room
+occupancy ``datatraining.txt``) under a data directory;
+:func:`make_susy_like_stream` is the procedural SUSY-shaped stream.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import csv
+import os
 
-DATA_ON_DISK = "ROADMAP: Queue A item 18, data on disk"
+import numpy as np
 
 
 def _kmeans(x: np.ndarray, k: int, iters: int = 20, seed: int = 0):
@@ -83,14 +84,59 @@ def split_stream(
     return xs, ys
 
 
+def load_susy_csv(path: str, limit: int | None = None):
+    """``SUSY.csv``: the label first, then 18 features a row."""
+    xs, ys = [], []
+    with open(path) as f:
+        for i, row in enumerate(csv.reader(f)):
+            if limit is not None and i >= limit:
+                break
+            ys.append(float(row[0]))
+            xs.append([float(v) for v in row[1:19]])
+    return np.asarray(xs, np.float32), np.asarray(ys, np.float32)
+
+
+def load_room_occupancy_txt(path: str, limit: int | None = None):
+    """UCI room occupancy's ``datatraining.txt``: a header, then
+    ``id,date,Temperature,Humidity,Light,CO2,HumidityRatio,Occupancy``
+    rows; 5 features and the binary label last."""
+    xs, ys = [], []
+    with open(path) as f:
+        reader = csv.reader(f)
+        next(reader)  # header
+        for i, row in enumerate(reader):
+            if limit is not None and i >= limit:
+                break
+            vals = row[-6:]  # 5 features + label
+            xs.append([float(v) for v in vals[:5]])
+            ys.append(float(vals[5]))
+    return np.asarray(xs, np.float32), np.asarray(ys, np.float32)
+
+
 def load_uci_stream(name: str, data_dir: str, n_clients: int,
                     iterations: int, beta: float = 0.0, seed: int = 0):
-    """The UCI streams (``susy``, ``ro``) read files under ``data_dir``:
-    not ported yet."""
-    raise NotImplementedError(
-        f"the UCI stream {name!r} reads data on disk, which "
-        f"fedml_tpu_torch does not have yet ({DATA_ON_DISK}); use the "
-        "procedural stream (any other dataset name)")
+    """Per-client streams from the UCI files under ``data_dir``
+    (``SUSY/SUSY.csv`` or ``SUSY.csv``; ``room_occupancy/datatraining.
+    txt`` or ``datatraining.txt``), the first ``max(4 N T, 10000)`` rows,
+    the features standardized; a missing file raises
+    ``FileNotFoundError``."""
+    name = name.upper()
+    limit = max(4 * n_clients * iterations, 10000)
+    if name == "SUSY":
+        path = os.path.join(data_dir, "SUSY", "SUSY.csv")
+        if not os.path.exists(path):
+            path = os.path.join(data_dir, "SUSY.csv")
+        x, y = load_susy_csv(path, limit)
+    elif name == "RO":
+        path = os.path.join(data_dir, "room_occupancy", "datatraining.txt")
+        if not os.path.exists(path):
+            path = os.path.join(data_dir, "datatraining.txt")
+        x, y = load_room_occupancy_txt(path, limit)
+    else:
+        raise ValueError(f"unknown UCI stream: {name} (SUSY | RO)")
+    # standardized features keep the logistic stream well-conditioned
+    x = (x - x.mean(0)) / (x.std(0) + 1e-8)
+    return split_stream(x, y, n_clients, iterations, beta, seed)
 
 
 def make_susy_like_stream(

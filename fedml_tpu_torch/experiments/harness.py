@@ -174,10 +174,11 @@ TOPOLOGY_FAMILY = ("hierarchical", "decentralized_dsgd",
 def _build_topology(cfg: ExperimentConfig, device):
     """The hierarchical sim (2 groups, one inner round, the JAX harness's
     defaults) or a decentralized one over the ring of 2 neighbours. The
-    online sims (``dol_*``) run ``comm_round`` iterations on the
-    procedural SUSY-shaped stream (``susy`` and ``ro`` read UCI files:
-    item 18), ``beta`` from ``partition_alpha`` only under
-    ``partition_method == "hetero"``, logging every ``eval_every``."""
+    online sims (``dol_*``) run ``comm_round`` iterations on the UCI
+    stream that ``susy`` or ``ro`` reads under ``data.data_dir``, else on
+    the procedural SUSY-shaped stream, ``beta`` from ``partition_alpha``
+    only under ``partition_method == "hetero"``, logging every
+    ``eval_every``."""
     algo = cfg.fed.algorithm
     if algo.startswith("dol_"):
         name = cfg.data.dataset.lower()

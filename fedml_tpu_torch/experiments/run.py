@@ -12,13 +12,18 @@ decentralized_pushsum, and the online dol_dsgd and dol_pushsum, whose
 ``--comm_round`` is the stream's length) and the rest of the JAX
 registry (``--algorithm`` fedgkt, splitnn, vfl, classical_vertical_fl,
 fednas, turboaggregate, baseline, centralized; vfl's ``--dataset`` is
-fake_vfl, or nus_wide or lending_club read under the config's
-``data.data_dir``), with its flag names: the
+fake_vfl, or nus_wide or lending_club), with its flag names: the data
+directory (``--data_dir``: the files a dataset name reads, MNIST's IDX,
+CIFAR's pickles, the TFF h5 and LEAF json splits, ImageNet, Landmarks,
+the UCI streams; ``data/loaders.py``), the
 defenses
 (``--defense`` or ``--robust_method``, ``--defense_*``,
 ``--robust_norm_clip``, ``--robust_noise_stddev``), the wire codec
 (``--compress``, ``--compress_topk_frac``), the seeded adversaries
-(``--adversary_*``), the bulk engine (``--client_block_size``) and
+(``--adversary_*``), buffered asynchronous aggregation
+(``--async_buffer_k``, ``--staleness_fn``, ``--staleness_alpha``:
+checked when parsed, then a deployment setting that the simulators
+ignore with a warning, as the JAX CLI does), the bulk engine (``--client_block_size``) and
 elastic buckets (``--elastic``), fused blocks (``--fuse_rounds``), LoRA
 fine-tuning (``--peft lora``, ``--lora_rank``, ``--lora_alpha``,
 ``--lora_targets``, ``--peft_personalize``) and the harness's flags
@@ -51,6 +56,7 @@ import sys
 
 from fedml_tpu_torch.config import ADVERSARY_MODES, ExperimentConfig
 from fedml_tpu_torch.core import anatomy, telemetry
+from fedml_tpu_torch.core.async_agg import STALENESS_FNS, AsyncConfig
 from fedml_tpu_torch.core.bulk import BulkSpec, check_bulk_compat
 from fedml_tpu_torch.core.compress import METHODS, CompressionSpec
 from fedml_tpu_torch.core.device import resolve_device
@@ -85,6 +91,12 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
                         "splitnn, vfl, classical_vertical_fl, or fednas, "
                         "turboaggregate, baseline, centralized")
     p.add_argument("--dataset", type=str, default=None)
+    p.add_argument("--data_dir", type=str, default=None,
+                   help="where a dataset read from disk lives (default "
+                        "./data): mnist/emnist IDX files, cifar10/100 "
+                        "pickles, cinic10's ImageFolder tree, the TFF h5 "
+                        "and leaf_* json splits, imagenet, landmarks, "
+                        "susy/ro for the dol sims")
     p.add_argument("--model", type=str, default=None)
     p.add_argument("--num_classes", type=int, default=None)
     p.add_argument("--input_shape", type=int, nargs="+", default=None)
@@ -151,6 +163,21 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
                         "collude norm")
     p.add_argument("--adversary_noise", type=float, default=None,
                    help="gauss's standard deviation")
+    p.add_argument("--async_buffer_k", type=int, default=None,
+                   help="FedBuff-style buffered-async aggregation: fold "
+                        "every arriving delta into a staleness-weighted "
+                        "buffer and emit a new model every K arrivals "
+                        "(core/async_agg.py). A deployment setting: the "
+                        "simulators run synchronous rounds and ignore it "
+                        "with a warning. 0 (default) keeps it off")
+    p.add_argument("--staleness_fn", type=str, default=None,
+                   choices=list(STALENESS_FNS),
+                   help="staleness discount for async folds: poly = "
+                        "(1+lag)^-alpha over the version lag, const = "
+                        "full weight for every arrival")
+    p.add_argument("--staleness_alpha", type=float, default=None,
+                   help="exponent of the poly staleness discount "
+                        "(0.5 = the FedAsync default)")
     p.add_argument("--client_block_size", type=int, default=None,
                    help="stream the sampled cohort through the device in "
                         "blocks of B clients (the bulk engine): each "
@@ -324,6 +351,7 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
         data=rep(
             cfg.data,
             dataset=a.dataset,
+            data_dir=a.data_dir,
             num_clients=a.client_num_in_total,
             batch_size=None if a.batch_size == -1 else a.batch_size,
             full_batch=True if a.batch_size == -1 else None,
@@ -360,6 +388,9 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
             robust_trim_frac=a.defense_trim_frac,
             compress=a.compress,
             compress_topk_frac=a.compress_topk_frac,
+            async_buffer_k=a.async_buffer_k,
+            staleness_fn=a.staleness_fn,
+            staleness_alpha=a.staleness_alpha,
             elastic_buckets=True if a.elastic else None,
             client_block_size=a.client_block_size,
             fuse_rounds=a.fuse_rounds,
@@ -399,6 +430,7 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
         DefensePipeline.from_fed(cfg.fed)
         CompressionSpec.from_fed(cfg.fed)
         check_fednova_compat(cfg.fed.algorithm, cfg.fed.robust_method)
+        AsyncConfig.from_fed(cfg.fed)
         bulk = BulkSpec.from_fed(cfg.fed)
     except ValueError as err:
         raise SystemExit(str(err)) from err
@@ -514,6 +546,13 @@ def main(argv=None) -> int:
     from fedml_tpu_torch.experiments.harness import Experiment
 
     cfg, a = parse_args(argv)
+    if cfg.fed.async_buffer_k:
+        # the buffer is the deploy server actor's (ROADMAP Queue A item
+        # 14): a simulator is one synchronous program, with no arrival
+        # stream to fold without a barrier
+        print("warning: --async_buffer_k is a deployment flag and is "
+              "ignored by the simulator (the deploy actors are ROADMAP "
+              "Queue A item 14)", file=sys.stderr)
     device = resolve_device(a.device)  # no card: raise before any file
     configure_telemetry(cfg, a, device)
     for summary in Experiment(cfg, a.repetitions, device).run():

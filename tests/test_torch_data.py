@@ -69,11 +69,14 @@ def test_make_synthetic_bitwise_equal():
     _assert_arrays_equal(got, ref)
 
 
-def test_unported_dataset_raises():
-    # real-file readers (here CIFAR-10's) are not ported; the fake_<name>
-    # stand-ins are
-    with pytest.raises(ValueError, match="not ported"):
-        load_dataset(DataConfig(dataset="cifar10"))
+def test_unported_dataset_raises(tmp_path):
+    # the readers of files on disk are ported (tests/test_torch_natural_
+    # data.py): a missing file raises FileNotFoundError naming where it
+    # was looked for, and a name neither package has raises ValueError
+    with pytest.raises(FileNotFoundError, match=str(tmp_path)):
+        load_dataset(DataConfig(dataset="cifar10", data_dir=str(tmp_path)))
+    with pytest.raises(ValueError, match="unknown dataset"):
+        load_dataset(DataConfig(dataset="cifar11"))
     # the StackOverflow stand-in came with PEFT (ROADMAP item 12): it is
     # dispatched before the synthetic_<alpha>_<beta> family, not parsed as
     # one (tests/test_torch_peft.py holds it bitwise against the JAX

@@ -200,12 +200,10 @@ def test_unported_settings_raise():
     _, tdata = _data()
     model = create_model(tc.ModelConfig(**MODEL), "cpu")
     # every setting of the FedAvg family is ported: what is left to
-    # refuse as unported is the JAX config's deploy-side asynchronous
-    # aggregation (item 13b) and its multi-device layout (item 15), kept
-    # as fields so that its config.json loads
+    # refuse as unported is the JAX config's multi-device layout (item
+    # 15), kept as fields so that its config.json loads
     assert {path for path, _, _ in tfed._NOT_PORTED} == {
-        "fed.shard_aggregation", "fed.async_buffer_k", "fed.staleness_fn",
-        "fed.staleness_alpha", "mesh"}
+        "fed.shard_aggregation", "mesh"}
     # a setting the port cannot run still raises by name: LoRA on a
     # model without the transformer's projections, personalization with
     # a codec, in the stacked round and in the bulk engine
@@ -221,8 +219,8 @@ def test_unported_settings_raise():
                                  peft_personalize=True, compress="int8")),
                 device="cpu")
     # the defenses, the codecs, the adversaries, elastic buckets, the
-    # bulk engine, fused blocks and PEFT (in the bulk engine too) are
-    # ported
+    # bulk engine, fused blocks, PEFT (in the bulk engine too) and the
+    # async settings (which the simulators ignore) are ported
     for good in (dict(fed=tc.FedConfig(peft="lora")),
                  dict(fed=tc.FedConfig(client_block_size=4, peft="lora",
                                        peft_personalize=True)),
@@ -233,6 +231,9 @@ def test_unported_settings_raise():
                                        robust_norm_clip=1.0,
                                        robust_noise_stddev=0.1)),
                  dict(fed=tc.FedConfig(compress="topk_int8")),
+                 dict(fed=tc.FedConfig(async_buffer_k=4,
+                                       staleness_fn="const",
+                                       staleness_alpha=1.0)),
                  dict(adversary=tc.AdversaryPolicy(mode="sign_flip",
                                                    ranks=(1,)))):
         tfed.FedAvgSim(model, tdata, tc.ExperimentConfig(**good),

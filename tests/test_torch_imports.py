@@ -75,7 +75,12 @@ assert {"fedml_tpu_torch.core.robust", "fedml_tpu_torch.core.adversary",
         "fedml_tpu_torch.core.telemetry", "fedml_tpu_torch.core.perf",
         "fedml_tpu_torch.core.memscope", "fedml_tpu_torch.core.slo",
         "fedml_tpu_torch.core.export",
-        "fedml_tpu_torch.core.anatomy"} <= set(names), names
+        "fedml_tpu_torch.core.anatomy", "fedml_tpu_torch.core.async_agg",
+        "fedml_tpu_torch.metrics.fid",
+        "fedml_tpu_torch.metrics.observability",
+        "fedml_tpu_torch.data.largescale"} <= set(names), names
+for lazy in ("h5py", "PIL"):  # the readers import them when they read
+    assert lazy not in sys.modules, lazy
 from fedml_tpu_torch.config import ModelConfig
 from fedml_tpu_torch.models import create_model
 model = create_model(ModelConfig(name="transformer_lm", num_classes=37,

@@ -219,12 +219,13 @@ def test_harness_builds_every_new_name(tmp_path):
                              extra=(("encoder_features", (8, 16)),)),
         fed=tc.FedConfig(algorithm="fedseg", clients_per_round=2))
     assert build_sim(seg, "cpu").task.name == "segmentation"
-    # the UCI streams read data on disk: item 18
-    for name in ("susy", "ro"):
+    # the UCI streams read data on disk (tests/test_torch_natural_data.py
+    # holds them against the JAX package's): a missing file raises
+    for name, file in (("susy", "SUSY.csv"), ("ro", "datatraining.txt")):
         cfg = _cfg(tc, algorithm="dol_dsgd")
         cfg = cfg.__class__(**{**cfg.__dict__, "data": tc.DataConfig(
-            dataset=name, num_clients=N)})
-        with pytest.raises(NotImplementedError, match="item 18"):
+            dataset=name, num_clients=N, data_dir=str(tmp_path))})
+        with pytest.raises(FileNotFoundError, match=file):
             build_sim(cfg, "cpu")
     # one repetition through the harness: the decentralized sim's
     # evaluation is its consensus model's; the online sim logs its regret
