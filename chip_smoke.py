@@ -113,7 +113,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    bank and the streamed median under set_sync_debug_mode("error"), the
    bank's gathers and scatters, and the time of a round's projection
    draw at ResNet-56's size; (c) fedavg_rounds_per_sec_10kc_mnist_lr
-   (10,000 clients all sampled in 313 blocks of 32, the median of 3
+   (10,000 clients all sampled in 313 blocks of 32, the median of 2
    rounds after a warm-up); (d) peak_round_hbm_mb_c{64,256,1024}_b32_bulk
    (lr on synthetic_1_1) and ResNet-56's bulk peaks at cohorts 16, 32 and
    64 beside the stacked round's, each torch.cuda.max_memory_allocated
@@ -185,7 +185,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    (d) bench.py's records under its names: wire_mb_per_round_16c_
    transformer_{full,lora} and lora_wire_reduction_x (analytic),
    fedavg_rounds_per_sec_64c_stackoverflow_transformer_lora (the median
-   of 6 rounds after a warm-up; a smoke figure) and
+   of 3 rounds after a warm-up; a smoke figure) and
    rounds_to_match_full_transformer_lora (16 full rounds, then at most
    48 LoRA rounds). The flash counters, set to 0 before (c) and (d), must
    read 0 after them.
@@ -193,13 +193,13 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    conditional generator at GanConfig's defaults on fake_mnist, 10
    clients, hetero 0.1, all sampled, batch 32, SGD lr 0.03, 5 epochs,
    cohort_groups 5, float32), each record a JSON line with the card's name
-   and power limit: (a) 3 rounds (finite g_loss, d_loss and kd_loss; the
+   and power limit: (a) 2 rounds (finite g_loss, d_loss and kd_loss; the
    groups, their steps and the adversarial and distillation graphs'
    replays), one more round under set_sync_debug_mode("error") (one
    replay per group-step and per distillation step), every client's
    accuracy in [0, 1], and fedgdkd_rounds_per_sec_10c_mnist_cnn_medium
-   over 4 more rounds (a smoke figure); (b) the --fedgdkd-scale stage (50
-   clients, 25 a round, 30,000 samples), 3 rounds: the drift-corrected
+   over 1 more round (a smoke figure); (b) the --fedgdkd-scale stage (50
+   clients, 25 a round, 30,000 samples), 2 rounds: the drift-corrected
    new joiners counted, the classifiers of the clients a round did not
    sample equal to their previous values bit for bit, and
    fedgdkd_rounds_per_sec_50c_sampled25_mnist_cnn_medium; (c) two rounds
@@ -216,13 +216,13 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    ACGAN discriminator at its defaults (features 32/64/128, dropout 0.25;
    FedSSGAN's without the validity head), FedDTG's classifier
    cnn_medium), each record a JSON line with the card's name and power
-   limit: (a) for each, 3 rounds (finite losses; the groups, their steps
+   limit: (a) for each, 1 round (finite losses; the groups, their steps
    and each graph's replays), one more under set_sync_debug_mode("error")
    with one replay per group-step (and per distillation step for
    FedDTG), the clients' accuracies in [0, 1] (FedDTG), the image grid
    (FedGAN, FedUAGAN) or the confidence-filtered synthetic set
-   (FedSSGAN), then <algo>_rounds_per_sec_10c_mnist_<disc> over 2 more
-   rounds (a smoke figure); (b) torch.cuda.max_memory_allocated over a
+   (FedSSGAN), then <algo>_rounds_per_sec_10c_mnist_<disc> over 1 more
+   round (a smoke figure); (b) torch.cuda.max_memory_allocated over a
    FedGAN round beside a FedGDKD round's
    (peak_round_hbm_mb_10c_mnist_fedgan): at most GAN_MASK_HEADROOM_MB
    more; (c) for each, two rounds at the CPU parity test's configuration
@@ -243,14 +243,14 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    H100's bf16 peak, the memory plane read from the card (source
    "cuda"), exactly one mem_headroom event and one breach capture, no
    plane failed, /metrics parses and /statusz shows the round, every
-   anatomy entry conserves its wall, 4 sim_round spans, one noted
+   anatomy entry conserves its wall, 3 sim_round spans, one noted
    capture per build; it prints the breakdowns, round 1's top 5 kernels
    read from its trace, perf.mfu and perf.dispatch_bound_rounds; (b)
    bench.py's anatomy records (phase_share_local_c64, _c256,
-   critical_path_overhead_pct) on lr, and 3 headline rounds with every
-   plane on but the capture windows equal to 3 with every plane off, bit
+   critical_path_overhead_pct) on lr, and 2 headline rounds with every
+   plane on but the capture windows equal to 2 with every plane off, bit
    for bit (cuDNN deterministic for this check alone); (c) FedUAGAN at
-   phase 14's configuration through the harness, 3 rounds, the first
+   phase 14's configuration through the harness, 2 rounds, the first
    captured: a breakdown, perf.rounds_per_s and no perf.mfu; (d) the
    phase's seconds. The flash counters, set to 0 before the phase, must
    read 0 after it.
@@ -258,11 +258,11 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    (algorithms/distill.py, models/vision.py CNNDropOut), each record a
    JSON line with the card's name and power limit: (a) FedAvg over cnn
    (CNN_DropOut, its keep masks drawn a group at a time) at FAMILY_SPECS
-   femnist_cnn's shape, 3 rounds, then one more under
+   femnist_cnn's shape, 2 rounds, then one more under
    torch.cuda.set_sync_debug_mode("error") with one graph replay per
    group-step; (b) FedMD, FD+FAug and FedArjun at phase 13's data
    configuration with cnn (10 classes) and GanConfig's defaults: init
-   (FedMD's pretraining), 3 rounds with finite metrics and the clients'
+   (FedMD's pretraining), 2 rounds with finite metrics and the clients'
    test loss finite, every phase's graph replays counted against its
    group-steps, one round under sync debug, client accuracies in [0, 1],
    FD's teacher flags after round 1 on for every label another client
@@ -282,17 +282,17 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    13's data configuration (fake_mnist, 6,000 samples, 10 clients, hetero
    0.1, batch 32, lr 0.03, 5 epochs, GanConfig's defaults, float32) in the
    fork's cap of four buckets (cnn_small 3, cnn_medium 3, cnn_large 2,
-   cnn 2), all sampled: 3 rounds, one more under
+   cnn 2), all sampled: 2 rounds, one more under
    set_sync_debug_mode("error"), each with one graph replay per
    group-step and per distillation step, every client's accuracy in
    [0, 1], the captures by bucket, phase and lane count with their static
-   buffers, then hetero_fedgdkd_rounds_per_sec_10c_mnist_4arch over 4
-   more rounds (a smoke figure); (b) the same buckets at 50 clients
-   (15/15/10/10), 25 a round, 30,000 samples, 3 rounds: drift-corrected
+   buffers, then hetero_fedgdkd_rounds_per_sec_10c_mnist_4arch over 1
+   more round (a smoke figure); (b) the same buckets at 50 clients
+   (15/15/10/10), 25 a round, 30,000 samples, 2 rounds: drift-corrected
    joiners counted in more than one bucket, the classifiers of the
    clients a round did not sample bit for bit; (c) FedGDKD and FedDTG with
    a cnn classifier at phase 13's configuration and FedAvg over cnn in
-   blocks of 4 at femnist_cnn's shape: 3 rounds each, then one under sync
+   blocks of 4 at femnist_cnn's shape: 1 round each, then one under sync
    debug with one replay per group-step (and per distillation step); (d)
    the hetero sim, FedGDKD and FedDTG over cnn and FedAvg over cnn in
    blocks of 2 at the CPU tests' configurations (tests/test_torch_hetero.py,
@@ -309,19 +309,19 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    fedseg (harness build_sim) over deeplab at the JAX defaults (encoder
    32/64/128, ASPP 128 at rates 1/2/4, 4 classes) on fake_seg (32x32x3,
    512 train, 64 test), 8 clients, homo, 4 a round, batch 16, SGD lr
-   0.05, float32, 3 rounds: every loss finite, the last test loss below
+   0.05, float32, 2 rounds: every loss finite, the last test loss below
    the initial model's, SegEvaluator's pixel accuracy, mIoU and FWIoU
    after each round; (b) vgg11, mobilenet_v3 (width 1.0) and
    efficientnet-b0 on fake_cifar10 at the headline's configuration (100
    clients, hetero 0.5, batch 32, lr 0.03, 10 a round, bf16), lenet on
    fake_mnist likewise, tag_lr on fake_stackoverflow_lr (vocab 1000, 50
-   tags, 10 clients, all sampled): 3 rounds each with its parameter
+   tags, 10 clients, all sampled): 2 rounds each with its parameter
    count, every loss and variable finite, then one more efficientnet-b0
    round under set_sync_debug_mode("error"); (c) hierarchical FedAvg over
    resnet56 on fake_cifar10 (bf16, batch 32, lr 0.03), 20 clients in 2
-   groups of 10, 2 inner rounds, 3 rounds with a global evaluation after
+   groups of 10, 2 inner rounds, 2 rounds with a global evaluation after
    each, the test loss falling; (d) DSGD and push-sum over resnet56, 16
-   clients on the ring of 2 neighbours, 3 rounds, the consensus model's
+   clients on the ring of 2 neighbours, 2 rounds, the consensus model's
    evaluation and the consensus distance after each and the mixing's
    CUDA-event time; (e) dol_dsgd and dol_pushsum (harness build_sim) and
    push-sum on the time-varying topology on the SUSY-shaped stream (8
@@ -341,17 +341,17 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    (fake_cifar10, hetero 0.5, batch 32, lr 0.03; float32, the split sims
    and FedNAS taking no compute type; the headline's bf16 for (e) and
    (f)): (a) FedGKT (harness build_sim: the resnet8_56 edge, the
-   Bottleneck [6, 6, 6] server at 16/32/64), 10 clients all training, 3
+   Bottleneck [6, 6, 6] server at 16/32/64), 10 clients all training, 2
    rounds, each round's edge, server and logits seconds, the edge's
    graph replays against its group-steps and the server's against its
    sequential steps, the composed path's test accuracy; (b) SplitNN
-   (convs 32/64, hidden 128) around a ring of 10 clients, 3 rounds, one
+   (convs 32/64, hidden 128) around a ring of 10 clients, 2 rounds, one
    replay a step; (c) vertical FL on fake_vfl, two parties, 5 epochs, the
    loss falling, accuracy and AUC; (d) FedNAS over DARTSNetwork's
-   defaults (16 channels, 4 layers, 4 steps), 100 clients, 10 a round, 2
-   rounds: max_memory_allocated, the alphas' largest change (above 0),
+   defaults (16 channels, 4 layers, 4 steps), 100 clients, 10 a round, 1
+   round: max_memory_allocated, the alphas' largest change (above 0),
    derive_genotype; (e) TurboAggregate at the headline (resnet56, 100
-   clients, 10 a round), 2 rounds with the field pass's host seconds apart
+   clients, 10 a round), 1 round with the field pass's host seconds apart
    from the locals, then from one state the secure round within 5e-4 of
    the plain FedAvg round and a round with client 1 dropped within 1e-6 of
    the undropped one; (f) the local baseline (all 100 clients on their own
@@ -373,7 +373,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    at 50,000/10,000 (class prototypes plus noise, seeded), the port's
    load_dataset bitwise equal to the phase's own decode, then ResNet-56
    FedAvg at bench.py build_sim's configuration through python -m
-   fedml_tpu_torch.experiments.run --dataset cifar10 --data_dir, 3
+   fedml_tpu_torch.experiments.run --dataset cifar10 --data_dir, 2
    rounds: the load's host seconds, the time to the first round, each
    round's seconds, the test accuracy above chance; (b) MNIST's gzipped
    IDX at 60,000/10,000 through lr, LEAF FEMNIST's json (cut to 200
@@ -395,7 +395,40 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    card and on the CPU from the same start, within atol 1e-5, rtol 1e-4,
    or else within SPREAD_FACTOR times the CPU's own spread; (g) the
    phase's seconds. The flash counters, set to 0 before the phase, must
-   read 0 after it. The "kernels" line comes after it.
+   read 0 after it.
+21. The synchronous deployment runtime, each part a JSON line with the
+   card's name and power limit: (a) an in-process loopback world at the
+   headline configuration (resnet56, fake_cifar10, 100 clients, hetero
+   0.5, batch 32, lr 0.03, bf16, as python -m
+   fedml_tpu_torch.experiments.run parses it): FedAvgServerActor and 10
+   FedAvgClientActors sharing one LocalTrainer, 3 rounds, every loss
+   finite (cuDNN deterministic); in every round each client's result
+   (parameters and BatchNorm statistics) within atol 1e-5, rtol 1e-4 of
+   FedAvgSim's update of that client from the round's start at a cohort
+   of one (one lane, as the actor trains), and the round's global model
+   within the same band of its results' float64 weighted mean; the
+   trajectory against FedAvgSim on the same cohorts and orders in its
+   smallest groups (2 lanes) is reported, within SPREAD_FACTOR times the
+   card's own spread under a PERTURB change of the start when outside the
+   band (round 0 starts both from one model, so its error is the lane
+   grouping's bf16 rounding alone); (b) the same world as 11 OS
+   processes (python -m fedml_tpu_torch.experiments.run --role
+   server|client --backend tcp) on localhost, all on the one card: the
+   seconds from the spawn to the server's first closed round, each
+   round's seconds split into the aggregation, the slowest client's local
+   update (with its result's copy to the host) and the rest (wire_s:
+   transfers, framing, the sync's copy to the card, waiting), the
+   transport's bytes a round, the final digest against
+   (a)'s (equal, or within (a)'s band); (c) a loopback world of lr on
+   fake_mnist with client 2 crashed by chaos at round 1: the round closed
+   at its deadline over the survivors, renormalized, and a world whose
+   every client crashes raising QuorumLostError; (d) (a)'s functions at
+   the CPU test's configuration (tests/test_torch_deploy.py: lr,
+   fake_mnist, 3 clients, 2 rounds) on the card and on the CPU from the
+   same start, within (a)'s band; (e) the native tensor-frame codec in
+   use, pack and unpack of a ResNet-56 payload timed against the pure
+   path; (f) the phase's seconds. The flash counters, set to 0 before the
+   phase, must read 0 after it. The "kernels" line comes after it.
 """
 
 from __future__ import annotations
@@ -675,7 +708,7 @@ def check_sass(build):
 
 def kernel_checks(time_plain: bool = True) -> list[dict]:
     """Phase 3: the edges, then the timed shapes; returns the timed rows.
-    The rows added for the tensor-core kernel time the plain version with
+    The bf16 and fp16 rows time the plain version with
     3 single calls, to keep the phase short."""
     edge_checks()
     rows = []
@@ -685,7 +718,8 @@ def kernel_checks(time_plain: bool = True) -> list[dict]:
                                     time_plain=time_plain))
         rows.append(kernel_vs_plain(LONG_SHAPE, torch.bfloat16, causal,
                                     2e-2, 0.0, seed=1,
-                                    time_plain=time_plain))
+                                    time_plain=time_plain, plain_reps=3,
+                                    plain_inner=1))
     rows.append(kernel_vs_plain(PEFT_SHAPE, torch.float32, True, 2e-5, 2e-5,
                                 seed=3, time_plain=time_plain))
     for shape, dtype, atol, rtol in (
@@ -1463,6 +1497,7 @@ FOLD_BAND = dict(rtol=2e-5, atol=1e-7)
 # population of 1024 and ResNet-56 cohorts of the headline's 100 clients,
 # (e)'s population and cohorts
 RATE_CLIENTS = 10_000
+RATE_ROUNDS = 3  # (c): a warm-up round, then the median's samples
 LR_MEM_COHORTS = (64, 256, 1024)
 RESNET_MEM_COHORTS = (16, 32, 64)
 BANK_POPULATION = 10_000
@@ -1618,8 +1653,8 @@ def bulk_sync_round(card: str, base, state, data,
 
 def bulk_10k_rate(card: str, device: str = "cuda") -> None:
     """(c) fedavg_rounds_per_sec_10kc_mnist_lr: bench.py
-    bulk_10k_rate_record's configuration, the median of 3 rounds after a
-    warm-up round."""
+    bulk_10k_rate_record's configuration, the median of RATE_ROUNDS - 1
+    rounds after a warm-up round."""
     from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
     from fedml_tpu_torch.config import (
         DataConfig,
@@ -1637,15 +1672,15 @@ def bulk_10k_rate(card: str, device: str = "cuda") -> None:
         data=dcfg, model=ModelConfig(name="lr", num_classes=10,
                                      input_shape=(28, 28, 1)),
         train=TrainConfig(lr=0.03, epochs=1),
-        fed=FedConfig(num_rounds=4, clients_per_round=n, eval_every=10**9,
-                      client_block_size=32), seed=0)
+        fed=FedConfig(num_rounds=RATE_ROUNDS, clients_per_round=n,
+                      eval_every=10**9, client_block_size=32), seed=0)
     t0 = time.perf_counter()
     data = make_fake_image_dataset("mnist", dcfg, n_train=60000)
     sim = FedAvgSim(create_model(cfg.model, device), data, cfg, device)
     setup = time.perf_counter() - t0
     state = sim.init()
     walls, losses = [], []
-    for _ in range(4):
+    for _ in range(RATE_ROUNDS):
         state, m, wall = timed_round(sim, state)
         walls.append(wall)
         losses.append(float(m["train_loss"]))
@@ -1657,8 +1692,8 @@ def bulk_10k_rate(card: str, device: str = "cuda") -> None:
                 clients_trained_per_round=n, block_size=32,
                 blocks_per_round=sim._n_blocks, train_loss=losses,
                 setup_s=setup, graph_captures=sim.cohort_update.programs
-                .stats["misses"], note="median of rounds 2-4; a smoke "
-                "figure (host clock ending in a synchronize)")
+                .stats["misses"], note=f"median of rounds 2-{RATE_ROUNDS}; "
+                "a smoke figure (host clock ending in a synchronize)")
     del sim, data
 
 
@@ -1826,7 +1861,7 @@ def bank_memory(card: str, device: str = "cuda") -> None:
         sim = build(c0, defended)
         state, _ = sim.run_round(sim.init())
         walls = []
-        for _ in range(3):
+        for _ in range(2):
             state, _, wall = timed_round(sim, state)
             walls.append(wall)
         means[defended] = statistics.mean(walls) * 1e3
@@ -1896,21 +1931,24 @@ def bulk_phase(card: str, device: str = "cuda") -> int:
     flash_attention.launches = 0
     flash_attention.mma_launches = 0
     t0 = time.perf_counter()
+    parts = {}
     sim, state, data = bulk_headline(card, device)
     bulk_sync_round(card, sim, state, data, device)
     del sim, state, data
     free_card()
-    bulk_10k_rate(card, device)
-    free_card()
-    bulk_memory(card, device)
-    bank_memory(card, device)
-    elastic_churn(card, device)
+    parts["a-b"] = time.perf_counter() - t0
+    for name, run in (("c", bulk_10k_rate), ("d", bulk_memory),
+                      ("e", bank_memory), ("f", elastic_churn)):
+        t_part = time.perf_counter()
+        run(card, device)
+        free_card()
+        parts[name] = time.perf_counter() - t_part
     launches = flash_attention.launches + flash_attention.mma_launches
     if launches != 0:
         raise RuntimeError(f"the bulk phase launched flash attention "
                            f"{launches} times")
     print(json.dumps({"bulk_phase_s": time.perf_counter() - t0,
-                      "device": card}), flush=True)
+                      "parts_s": parts, "device": card}), flush=True)
     return launches
 
 
@@ -2478,24 +2516,35 @@ def harness_phase(card: str) -> int:
     flash_attention.mma_launches = 0
     t0 = time.perf_counter()
     killed = KilledRuns()
+    parts = {}
+
+    def mark(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
     try:
         data = load_dataset(resnet_config().data)
         s2d = s2d_headline(card, data)
+        mark("a")
         s2d_exact_parity(card, data)
+        mark("b")
         report = killed.finish()
+        mark("d_first_half")
         r56, state, spread = fused_equals_unfused(card, data)
         state = sync_free_block(card, r56, state)
         fused_rates(card, r56, state, s2d, data)
         del r56, s2d, state, data
         free_card()
+        mark("c")
         crash_and_resume(card, spread, killed, report)
+        mark("d")
     finally:
         killed.stop()
     launches = flash_attention.launches + flash_attention.mma_launches
     if launches != 0:
         raise RuntimeError(f"phase 10 launched flash attention {launches} "
                            "times")
-    record_line(card, metric="phase10_s", value=time.perf_counter() - t0)
+    record_line(card, metric="phase10_s", value=time.perf_counter() - t0,
+                parts_s=parts)
     return launches
 
 
@@ -2507,7 +2556,7 @@ def harness_phase(card: str) -> int:
 LORA_VOCAB = 2000
 LORA_RANK = 8
 LORA_ROUNDS = 3
-LORA_RATE_ROUNDS = 6  # the rate's samples, after a warm-up round
+LORA_RATE_ROUNDS = 3  # the rate's samples, after a warm-up round
 LORA_FULL_ROUNDS = 16  # bench.py lora_convergence_record's defaults
 LORA_MAX_ROUNDS = 48
 LORA_EVAL = 1e-4  # flash against full attention: loss rel., acc abs.
@@ -2786,8 +2835,8 @@ def peft_phase(card: str) -> int:
 
 
 # phase 13: bench.py's --fedgdkd and --fedgdkd-scale stages
-FEDGDKD_ROUNDS = 3
-FEDGDKD_RATE_ROUNDS = 4
+FEDGDKD_ROUNDS = 2
+FEDGDKD_RATE_ROUNDS = 1
 FEDGDKD_SCALE = dict(num_clients=50, cpr=25, n_train=30000)
 # the CPU parity test's band (tests/test_torch_gan.py ROUND: the JAX
 # package's own band between its fused and vmapped GAN updates)
@@ -2873,7 +2922,7 @@ def gan_rounds(sim, state, rounds: int):
 
 
 def fedgdkd_bench(card: str) -> None:
-    """(a): the --fedgdkd stage, 3 rounds, one more under
+    """(a): the --fedgdkd stage, FEDGDKD_ROUNDS rounds, one more under
     set_sync_debug_mode("error"), the clients' evaluation and the round
     rate over FEDGDKD_RATE_ROUNDS more rounds."""
     cfg = fedgdkd_config()
@@ -2906,13 +2955,14 @@ def fedgdkd_bench(card: str) -> None:
                 value=FEDGDKD_RATE_ROUNDS / sum(rate_times),
                 unit="rounds/s", round_seconds=rate_times,
                 note=f"smoke figure: host clock around each of "
-                     f"{FEDGDKD_RATE_ROUNDS} rounds after 4, each ending in "
+                     f"{FEDGDKD_RATE_ROUNDS} rounds after {FEDGDKD_ROUNDS + 1}, each ending in "
                      "a synchronize")
 
 
 def fedgdkd_scale(card: str) -> None:
     """(b): the --fedgdkd-scale stage (50 clients, 25 a round, 30,000
-    samples), 3 rounds: from round 1 the cohort has new joiners, which the
+    samples), FEDGDKD_ROUNDS rounds: from round 1 the cohort has new
+    joiners, which the
     drift correction distills; the classifiers of the clients a round did
     not sample stay bit for bit."""
     cfg = fedgdkd_config(FEDGDKD_SCALE["num_clients"], FEDGDKD_SCALE["cpr"])
@@ -2939,12 +2989,13 @@ def fedgdkd_scale(card: str) -> None:
         raise RuntimeError("the sampled cohorts had no new joiner")
     record_line(card,
                 metric="fedgdkd_rounds_per_sec_50c_sampled25_mnist_cnn_medium",
-                value=2 / (rows[1]["seconds"] + rows[2]["seconds"]),
+                value=(len(rows) - 1) / sum(r["seconds"] for r in rows[1:]),
                 unit="rounds/s",
                 round_seconds=[row["seconds"] for row in rows],
-                note="smoke figure: rounds 1-2 (round 0 captures the "
-                     "graphs; each new drift-correction cohort size "
-                     "captures one), host clock ending in a synchronize")
+                note="smoke figure: the rounds after round 0 (round 0 "
+                     "captures the graphs; each new drift-correction "
+                     "cohort size captures one), host clock ending in a "
+                     "synchronize")
 
 
 def gan_state_err(x, y) -> tuple[float, float]:
@@ -3127,8 +3178,8 @@ def fedgdkd_phase(card: str) -> int:
 
 # phase 14: the rest of the GAN family at the --fedgdkd data configuration
 GAN_FAMILY = ("fedgan", "feddtg", "fedssgan", "feduagan")
-GAN_FAMILY_ROUNDS = 3
-GAN_FAMILY_RATE_ROUNDS = 2
+GAN_FAMILY_ROUNDS = 1
+GAN_FAMILY_RATE_ROUNDS = 1
 # the discriminator each algorithm runs, for its rate's name
 GAN_FAMILY_DISC = {"fedgan": "acgan", "feddtg": "acgan_cnn_medium",
                    "fedssgan": "acgan_nohead", "feduagan": "acgan"}
@@ -3218,9 +3269,10 @@ def gan_family_rounds(algo: str, sim, state, rounds: int):
 
 
 def gan_family_bench(algo: str, card: str) -> None:
-    """(a): 3 rounds, one more under set_sync_debug_mode("error") with one
-    replay per group-step (and per distillation step), then the round
-    rate over GAN_FAMILY_RATE_ROUNDS more."""
+    """(a): GAN_FAMILY_ROUNDS rounds, one more under
+    set_sync_debug_mode("error") with one replay per group-step (and per
+    distillation step), then the round rate over GAN_FAMILY_RATE_ROUNDS
+    more."""
     import dataclasses
 
     cfg = fedgdkd_config()
@@ -3459,16 +3511,16 @@ def gan_family_phase(card: str) -> int:
 # Phase 15: the observability planes on the card (core/telemetry.py,
 # perf.py, memscope.py, slo.py, export.py, anatomy.py)
 
-OBS_ROUNDS = 4  # (a): the headline through the CLI
+OBS_ROUNDS = 3  # (a): the headline through the CLI
 OBS_PROFILED = 2  # its capture windows
 OBS_SLO = "perf.round_wall_s:p99<10@60s"
 OBS_HEADROOM = 0.001  # crossed at the first sample: one breach capture
 OBS_BREACH_WINDOW_S = 0.1  # the breach capture closes after one round
 OBS_CLI_TIMEOUT_S = 300
-ANATOMY_ROUNDS = 20  # (b): bench.py anatomy_bench_records' rounds
+ANATOMY_ROUNDS = 10  # (b): bench.py anatomy_bench_records' 20, halved
 ANATOMY_COHORTS = (64, 256)
-INERT_ROUNDS = 3
-UAGAN_ROUNDS = 3  # (c)
+INERT_ROUNDS = 2
+UAGAN_ROUNDS = 2  # (c)
 CONSERVE_TOL = 1e-9  # an anatomy entry's phases against its wall
 _SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$")
 
@@ -3869,8 +3921,8 @@ def observability_phase(card: str) -> int:
 # Phase 16: the distillation family (algorithms/distill.py) and the
 # dropout classifier (models/vision.py CNNDropOut)
 DISTILL = ("fedmd", "fd_faug", "fedarjun")
-DISTILL_ROUNDS = 3
-DISTILL_RATE_ROUNDS = 4
+DISTILL_ROUNDS = 2
+DISTILL_RATE_ROUNDS = 1
 DISTILL_SUBSET = 5  # (b)'s cohort that leaves clients unsampled
 TINY_DISTILL = dict(public_size=32, kd_epochs=1, digest_epochs=1,
                     revisit_epochs=1, pretrain_epochs_public=1,
@@ -3922,8 +3974,9 @@ def distill_replays(sim) -> int:
 
 
 def cnn_fedavg_bench(card: str) -> None:
-    """(a): FedAvg over cnn at femnist_cnn's shape: 3 rounds, one more
-    under set_sync_debug_mode("error"), one replay per group-step."""
+    """(a): FedAvg over cnn at femnist_cnn's shape: DISTILL_ROUNDS rounds,
+    one more under set_sync_debug_mode("error"), one replay per
+    group-step."""
     import dataclasses
 
     from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
@@ -4223,9 +4276,9 @@ HETERO_BUCKETS = (("cnn_small", 3), ("cnn_medium", 3), ("cnn_large", 2),
                   ("cnn", 2))
 HETERO_SCALE = dict(num_clients=50, cpr=25, n_train=30000,
                     freqs=(15, 15, 10, 10))
-HETERO_ROUNDS = 3
-HETERO_RATE_ROUNDS = 4
-DROPOUT_ROUNDS = 3  # (c)
+HETERO_ROUNDS = 2
+HETERO_RATE_ROUNDS = 1
+DROPOUT_ROUNDS = 1  # (c)
 DROPOUT_BLOCK = 4  # (c): FedAvg over cnn in blocks of 4 (10 a round)
 # (d): the CPU tests' hetero buckets (tests/test_torch_hetero.py)
 TINY_HETERO = (("cnn_custom", 2, (("convs", (8, 16)),)), ("lr", 2, ()),
@@ -4321,7 +4374,7 @@ def hetero_round(sim, sync_debug: bool = False) -> dict:
 
 
 def hetero_bench(card: str) -> None:
-    """(a): 3 rounds of the four buckets, one more under
+    """(a): HETERO_ROUNDS rounds of the four buckets, one more under
     set_sync_debug_mode("error"), every client's accuracy, the graphs and
     the round rate over HETERO_RATE_ROUNDS more."""
     cfg = fedgdkd_config()
@@ -4357,7 +4410,8 @@ def hetero_bench(card: str) -> None:
 
 def hetero_scale(card: str) -> None:
     """(b): 50 clients in the same four buckets (15/15/10/10), 25 a
-    round, 3 rounds: the drift-corrected joiners counted in more than one
+    round, HETERO_ROUNDS rounds: the drift-corrected joiners counted in
+    more than one
     bucket, the classifiers of the clients a round did not sample bit for
     bit as they were."""
     s = HETERO_SCALE
@@ -4388,12 +4442,12 @@ def hetero_scale(card: str) -> None:
                            f"{drifted}")
     record_line(card,
                 metric="hetero_fedgdkd_rounds_per_sec_50c_sampled25_4arch",
-                value=2 / (rows[1]["seconds"] + rows[2]["seconds"]),
+                value=(len(rows) - 1) / sum(r["seconds"] for r in rows[1:]),
                 unit="rounds/s",
                 round_seconds=[row["seconds"] for row in rows],
-                note="smoke figure: rounds 1-2 (round 0 captures the "
-                     "graphs; each new lane count captures one), host "
-                     "clock ending in a synchronize")
+                note="smoke figure: the rounds after round 0 (round 0 "
+                     "captures the graphs; each new lane count captures "
+                     "one), host clock ending in a synchronize")
 
 
 def with_cnn(cfg, **fed):
@@ -4407,7 +4461,8 @@ def with_cnn(cfg, **fed):
 def dropout_gan_bench(card: str) -> None:
     """(c): FedGDKD and FedDTG with a cnn classifier at phase 13's
     configuration, and FedAvg over cnn in the bulk engine at femnist_cnn's
-    shape: 3 rounds each, then one under set_sync_debug_mode("error") with
+    shape: DROPOUT_ROUNDS rounds each, then one under
+    set_sync_debug_mode("error") with
     one replay per group-step (and per distillation step)."""
     from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
     from fedml_tpu_torch.models import create_model
@@ -4687,7 +4742,7 @@ def hetero_phase(card: str) -> int:
 
 # phase 18: the rest of the model zoo with the tag and segmentation tasks
 # and fedseg, then hierarchical, decentralized and online decentralized FL
-TOPO_ROUNDS = 3
+TOPO_ROUNDS = 2
 ZOO_ROUNDS = 3
 ZOO_IMAGE_MODELS = ("vgg11", "mobilenet_v3", "efficientnet-b0")
 DOL_T = 2000
@@ -4780,8 +4835,8 @@ def rounds_with_eval(sim, state, rounds: int, evaluate) -> tuple:
 
 
 def fedseg_bench(card: str, device: str = "cuda") -> None:
-    """(a): fedseg, deeplab at the JAX defaults on fake_seg, 3 rounds with
-    an evaluation and the segmentation metrics after each."""
+    """(a): fedseg, deeplab at the JAX defaults on fake_seg, TOPO_ROUNDS
+    rounds with an evaluation and the segmentation metrics after each."""
     from fedml_tpu_torch.experiments.harness import build_sim
     from fedml_tpu_torch.metrics import SegEvaluator
 
@@ -4863,7 +4918,8 @@ def zoo_bench(card: str, device: str = "cuda") -> None:
 
 def hierarchical_bench(card: str, device: str = "cuda") -> None:
     """(c): hierarchical FedAvg over resnet56, 20 clients in 2 groups of
-    10, 2 inner rounds, 3 rounds with a global evaluation after each."""
+    10, 2 inner rounds, TOPO_ROUNDS rounds with a global evaluation after
+    each."""
     from fedml_tpu_torch.algorithms.hierarchical import HierarchicalFedAvg
     from fedml_tpu_torch.data import load_dataset
     from fedml_tpu_torch.models import create_model
@@ -4888,7 +4944,7 @@ def hierarchical_bench(card: str, device: str = "cuda") -> None:
 
 def decentralized_bench(card: str, device: str = "cuda") -> None:
     """(d): DSGD and push-sum over resnet56, 16 clients on the ring of 2
-    neighbours, 3 rounds: the consensus model's evaluation and the
+    neighbours, TOPO_ROUNDS rounds: the consensus model's evaluation and the
     consensus distance after each, and the mixing's CUDA-event time."""
     from fedml_tpu_torch.algorithms.decentralized import DecentralizedSim, mix
     from fedml_tpu_torch.data import load_dataset
@@ -5185,9 +5241,9 @@ def topology_zoo_phase(card: str) -> int:
 
 # phase 19: split learning (FedGKT, SplitNN, vertical FL), FedNAS over
 # DARTS, TurboAggregate's secure FedAvg and the local baselines
-SPLIT_ROUNDS = 3
-NAS_ROUNDS = 2
-SECURE_ROUNDS = 2
+SPLIT_ROUNDS = 2
+NAS_ROUNDS = 1
+SECURE_ROUNDS = 1
 VFL_EPOCHS = 5
 # tests/test_mpc.py::test_secure_fedavg_matches_plain's bands
 SECURE_BAND = 5e-4
@@ -5222,9 +5278,9 @@ def split_config(algorithm: str, num_clients: int = 10, cpr: int = 10,
 
 def gkt_bench(card: str, device: str = "cuda") -> None:
     """(a): FedGKT at the JAX defaults (the resnet8_56 edge, the
-    Bottleneck [6, 6, 6] server at 16/32/64), 10 clients all training, 3
-    rounds, each phase timed; one replay a group-step and a server
-    step."""
+    Bottleneck [6, 6, 6] server at 16/32/64), 10 clients all training,
+    SPLIT_ROUNDS rounds, each phase timed; one replay a group-step and a
+    server step."""
     from fedml_tpu_torch.experiments.harness import build_sim
 
     cfg = split_config("fedgkt")
@@ -5266,7 +5322,7 @@ def param_count_of(model, variables, lead: int = 0) -> int:
 
 def splitnn_bench(card: str, device: str = "cuda") -> None:
     """(b): SplitNN (convs 32/64, hidden 128) around a ring of 10
-    clients, 3 rounds, one replay a step."""
+    clients, SPLIT_ROUNDS rounds, one replay a step."""
     from fedml_tpu_torch.experiments.harness import build_sim
 
     sim = build_sim(split_config("splitnn"), device)
@@ -5306,8 +5362,8 @@ def vfl_bench(card: str, device: str = "cuda") -> None:
 
 def fednas_bench(card: str, device: str = "cuda") -> None:
     """(d): FedNAS over DARTSNetwork's defaults (16 channels, 4 layers, 4
-    steps), 100 clients, 10 a round, 2 rounds: the peak memory, the alphas
-    moving, the derived genotype."""
+    steps), 100 clients, 10 a round, NAS_ROUNDS rounds: the peak memory,
+    the alphas moving, the derived genotype."""
     from fedml_tpu_torch.experiments.harness import build_sim
     from fedml_tpu_torch.models.darts import ARCH, derive_genotype
 
@@ -5346,7 +5402,8 @@ def vars_err(x: dict, y: dict) -> float:
 
 def secure_bench(card: str, device: str = "cuda") -> None:
     """(e): TurboAggregate at the headline (resnet56, bf16, 100 clients,
-    10 a round), 2 rounds, the field pass's host seconds apart from the
+    10 a round), SECURE_ROUNDS rounds, the field pass's host seconds apart
+    from the
     locals; then, from the state before the last round, the plain FedAvg
     round (the same sim's locals, cuDNN deterministic) against that
     secure round within SECURE_BAND, and the round with client 1 dropped
@@ -5682,7 +5739,7 @@ FEMNIST_USERS = 200  # cut from LEAF FEMNIST's ~3,600 writers
 FEMNIST_SAMPLES = (180, 275)  # a writer's samples, mean ~227 (LEAF's)
 SUSY_NODES = 8
 SUSY_T = 2000  # phase 18's stream length
-DISK_ROUNDS = 3  # (a); (b) runs 2
+DISK_ROUNDS = 2  # (a); (b) runs 2
 DISK_CLI_TIMEOUT_S = 600
 ASYNC_K = 32  # (e): the buffer's K, its lags 0-7, stopped after 13 folds
 ASYNC_LAGS = 8
@@ -5766,7 +5823,7 @@ def bitwise_equal(name: str, got, want) -> None:
 
 def disk_config(root: str, out_dir: str):
     """(a): bench.py build_sim's configuration (resnet_config) on CIFAR-10
-    read from ``root``, 3 rounds, a checkpoint at the last."""
+    read from ``root``, DISK_ROUNDS rounds, a checkpoint at the last."""
     import dataclasses
 
     cfg = resnet_config()
@@ -6368,6 +6425,545 @@ def disk_phase(card: str, device: str = "cuda") -> int:
     return launches
 
 
+# phase 21: the synchronous deployment runtime
+DEPLOY_CLIENTS = 10  # (a)/(b): the headline's cohort, one client a rank
+DEPLOY_ROUNDS = 3
+DEPLOY_BAND = dict(atol=1e-5, rtol=1e-4)
+DEPLOY_CHILD_TIMEOUT_S = 240
+DEPLOY_CODEC_REPS = 5
+
+
+def deploy_argv(rounds: int = DEPLOY_ROUNDS) -> list[str]:
+    """The headline (resnet_config's) as the CLI's flags."""
+    return ["--algorithm", "fedavg", "--dataset", "fake_cifar10",
+            "--model", "resnet56", "--num_classes", "10", "--input_shape",
+            "32", "32", "3", "--client_num_in_total", "100",
+            "--client_num_per_round", str(DEPLOY_CLIENTS), "--comm_round",
+            str(rounds), "--batch_size", "32", "--lr", "0.03", "--epochs",
+            "1", "--partition_method", "hetero", "--partition_alpha", "0.5",
+            "--compute_dtype", "bfloat16", "--seed", "0"]
+
+
+def deploy_band_use(got: dict, want: dict) -> tuple[float, float]:
+    """Max |got - want| over two variable dicts, and the band's use."""
+    err = use = 0.0
+    for k, w in want.items():
+        d = (got[k].double().cpu() - w.double().cpu()).abs()
+        err = max(err, float(d.max()))
+        use = max(use, float((d / (DEPLOY_BAND["atol"] + DEPLOY_BAND["rtol"]
+                                   * w.double().cpu().abs())).max()))
+    return err, use
+
+
+def loopback_world(cfg, device: str, clients: int, init=None,
+                   transports=None, on_round=None, **server_kw):
+    """A server and ``clients`` client actors of ``cfg`` in this process
+    (loopback unless ``transports(rank)`` says otherwise), the clients
+    sharing one LocalTrainer, run to the end; ``on_round(server,
+    actors)`` at each round's close. Returns the server, the trainer and
+    the data."""
+    import threading
+
+    from fedml_tpu_torch.algorithms import distributed_fedavg as D
+    from fedml_tpu_torch.core.transport.loopback import LoopbackHub
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.models import create_model
+
+    data = load_dataset(cfg.data)
+    model = create_model(cfg.model, device)
+    if transports is None:
+        transports = LoopbackHub().create
+    server = D.FedAvgServerActor(clients + 1, transports(0), model, cfg,
+                                 num_clients=cfg.data.num_clients, data=data,
+                                 initial_variables=init, **server_kw)
+    trainer = D.LocalTrainer(model, data, cfg)
+    actors = [D.FedAvgClientActor(r, clients + 1, transports(r), model, None,
+                                  cfg, trainer=trainer)
+              for r in range(1, clients + 1)]
+    if on_round is not None:
+        server.on_round_done = lambda r, info: on_round(server, actors)
+    threads = [threading.Thread(target=a.run, daemon=True) for a in actors]
+    for t in threads:
+        t.start()
+    server.transport.start()
+    server.start_round()
+    server.run()
+    for a in actors:
+        a.transport.stop()
+    for t in threads:
+        t.join(timeout=60)
+        if t.is_alive():
+            raise RuntimeError("a client actor did not stop")
+    return server, trainer, data
+
+
+def deploy_sim_rounds(cfg, data, init, rounds: int,
+                      device: str = "cuda") -> list:
+    """FedAvgSim's globals after each round on the server's cohorts
+    (``default_rng(round).choice``) and the default batch orders, in the
+    smallest groups the sim runs (2 lanes)."""
+    import dataclasses
+
+    import numpy as np
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.models import create_model
+
+    n, k = cfg.data.num_clients, DEPLOY_CLIENTS
+    pairs = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, cohort_groups=k // 2))
+    sim = FedAvgSim(create_model(cfg.model, device), data, pairs, device,
+                    sampler=lambda r, nc, kc: torch.from_numpy(
+                        np.random.default_rng(r).choice(n, k, replace=False)))
+    state = sim.init()._replace(variables={q: v.clone()
+                                           for q, v in init.items()})
+    out = []
+    for _ in range(rounds):
+        state, m = sim.run_round(state)
+        out.append({q: v.clone() for q, v in state.variables.items()})
+    return out
+
+
+def deploy_one_lane_sim(cfg, data, device: str = "cuda"):
+    """FedAvgSim at a cohort of one, which runs one lane as a client
+    actor does; its sampler returns ``pick[0]``. Returns the sim and
+    ``pick``."""
+    import dataclasses
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgSim
+    from fedml_tpu_torch.models import create_model
+
+    pick = [0]
+    one = dataclasses.replace(cfg, fed=dataclasses.replace(
+        cfg.fed, clients_per_round=1))
+    sim = FedAvgSim(create_model(cfg.model, device), data, one, device,
+                    sampler=lambda r, nc, kc: torch.tensor([pick[0]]))
+    return sim, pick
+
+
+def deploy_headline_loopback(card: str, device: str = "cuda") -> dict:
+    """(a). Each round's every client result is held against FedAvgSim's
+    one-lane update of that client from the round's start, and each
+    round's global against the float64 weighted mean of its results, both
+    in DEPLOY_BAND; the trajectory against the sim's 2-lane groups is
+    reported and bound by the card's own spread (bf16 rounds the lane
+    groups apart). Returns the final variables, on the host."""
+    from fedml_tpu_torch.algorithms import distributed_fedavg as D
+    from fedml_tpu_torch.experiments import run as cli
+    from fedml_tpu_torch.models import create_model
+
+    cfg, _ = cli.parse_args(deploy_argv())
+    init = D.initial_state(create_model(cfg.model, device), cfg).variables
+    globals_, losses, closes = [], [], {}
+
+    def on_round(server, actors):
+        globals_.append({k: v.clone() for k, v in server.variables.items()})
+        losses.extend(float(a.last_sums["loss_sum"]) for a in actors)
+
+    real_close = D.FedAvgServerActor._close_round
+
+    def close(self, results, closed_idx, **kw):
+        # the round's start, each rank's client and result, on the host
+        _, start, cohort, slots = self._round_sync
+        closes[closed_idx] = (
+            {k: torch.as_tensor(v) for k, v in start.items()},
+            {r: (int(cohort[slots.get(r, r - 1) % len(cohort)]),
+                 {k: torch.as_tensor(v) for k, v in row.items()}, n)
+             for r, (row, n) in results.items()})
+        real_close(self, results, closed_idx, **kw)
+
+    D.FedAvgServerActor._close_round = close
+    t0 = time.perf_counter()
+    try:
+        server, trainer, data = loopback_world(cfg, device, DEPLOY_CLIENTS,
+                                               init=init, on_round=on_round)
+    finally:
+        D.FedAvgServerActor._close_round = real_close
+    world_s = time.perf_counter() - t0
+    if not (server.done.is_set() and len(globals_) == DEPLOY_ROUNDS
+            and sorted(closes) == list(range(DEPLOY_ROUNDS))):
+        raise RuntimeError(f"(a) world ended at round {server.round_idx}")
+    if (len(losses) != DEPLOY_CLIENTS * DEPLOY_ROUNDS
+            or not all(math.isfinite(x) for x in losses)):
+        raise RuntimeError(f"(a) client loss sums: {losses}")
+    graph = trainer.cohort_update.graph
+    replays = graph.replays if graph is not None else None
+    del server, trainer
+    free_card()
+    # every client's result against the sim's one lane from the same start
+    t_lane = time.perf_counter()
+    sim, pick = deploy_one_lane_sim(cfg, data, device)
+    base = sim.init()
+    lanes, aggregation = [], []
+    for r in range(DEPLOY_ROUNDS):
+        start, results = closes[r]
+        for rank, (client, got, n) in sorted(results.items()):
+            pick[0] = client
+            want, _ = sim.run_round(base._replace(variables={
+                k: v.to(device) for k, v in start.items()}, round=r))
+            err, use = deploy_band_use(got, want.variables)
+            lanes.append({"round": r, "rank": rank, "client": client,
+                          "n": float(n), "max_abs_err": err,
+                          "band_use": use})
+        w = torch.tensor([n for _, _, n in results.values()],
+                         dtype=torch.float64)
+        mean = {k: torch.tensordot(w / w.sum(), torch.stack(
+            [row[k].double() for _, row, _ in results.values()]), 1)
+            for k in start}
+        err, use = deploy_band_use(globals_[r], mean)
+        aggregation.append({"round": r, "max_abs_err": err, "band_use": use})
+    lane_s = time.perf_counter() - t_lane
+    del sim
+    free_card()
+    t_sim = time.perf_counter()
+    want = deploy_sim_rounds(cfg, data, init, DEPLOY_ROUNDS, device)
+    sim_s = time.perf_counter() - t_sim
+    errs = [deploy_band_use(g, w) for g, w in zip(globals_, want)]
+    row = {"world_s": world_s, "one_lane_s": lane_s, "sim_s": sim_s,
+           "graph_replays": replays, "client_loss_sums": losses,
+           "clients_vs_one_lane_sim": lanes,
+           "worst_client_band_use": max(x["band_use"] for x in lanes),
+           "globals_vs_weighted_mean": aggregation,
+           "trajectory_vs_two_lane_sim": [
+               {"max_abs_err": e, "band_use": u} for e, u in errs],
+           **DEPLOY_BAND}
+    if max(u for _, u in errs) > 1.0:
+        spread = deploy_sim_rounds(cfg, data, {
+            k: v * (1 + PERTURB) if v.is_floating_point() else v
+            for k, v in init.items()}, DEPLOY_ROUNDS, device)
+        row["card_spread"] = max(deploy_band_use(p, w)[0]
+                                 for p, w in zip(spread, want))
+        row["spread_factor"] = SPREAD_FACTOR
+    record_line(card, metric="deploy_loopback_resnet56_100c_10pr", **row)
+    if (len(lanes) != DEPLOY_CLIENTS * DEPLOY_ROUNDS
+            or row["worst_client_band_use"] > 1.0):
+        raise RuntimeError("(a) a client actor's result is outside "
+                           "DEPLOY_BAND of the sim's one-lane update")
+    if max(x["band_use"] for x in aggregation) > 1.0:
+        raise RuntimeError("(a) a round's global is outside DEPLOY_BAND of "
+                           "its results' weighted mean")
+    if ("card_spread" in row and max(e for e, _ in errs)
+            > SPREAD_FACTOR * row["card_spread"]):
+        raise RuntimeError(f"(a) the world against FedAvgSim: {row}")
+    final = {k: v.cpu() for k, v in globals_[-1].items()}
+    del want, data, globals_, closes
+    free_card()
+    return final
+
+
+def deploy_tcp_processes(card: str, loopback_final: dict,
+                         device: str = "cuda") -> None:
+    """(b): 11 ranks as OS processes over TCP on localhost."""
+    import pickle
+    import tempfile
+
+    from fedml_tpu_torch.experiments.deploy import _params_digest
+
+    tmp = tempfile.mkdtemp(prefix="phase21_")
+    sock_ports = []
+    import socket as _socket
+
+    socks = [_socket.socket() for _ in range(DEPLOY_CLIENTS + 1)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+            sock_ports.append(sk.getsockname()[1])
+    finally:
+        for sk in socks:
+            sk.close()
+    ip = os.path.join(tmp, "ip.json")
+    with open(ip, "w") as f:
+        json.dump({str(r): ["127.0.0.1", p] for r, p in enumerate(sock_ports)},
+                  f)
+    common = deploy_argv() + [
+        "--backend", "tcp", "--world_size", str(DEPLOY_CLIENTS + 1),
+        "--ip_config", ip, "--out_dir", tmp, "--run_name", "tcp",
+        "--heartbeat_interval", "2", "--heartbeat_timeout", "60",
+        "--device", device]
+    # one host thread a rank: 11 ranks share the host's cores
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    roles = [["--role", "server"]] + [
+        ["--role", "client", "--rank", str(r)]
+        for r in range(1, DEPLOY_CLIENTS + 1)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_spawn_unix = time.time()
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r, role in enumerate(roles):
+            with open(os.path.join(tmp, f"rank{r}.err"), "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "fedml_tpu_torch.experiments.run",
+                     *common, *role], cwd=here, env=env,
+                    stdout=subprocess.PIPE, stderr=err, text=True))
+        outs = []
+        for r, proc in enumerate(procs):
+            left = DEPLOY_CHILD_TIMEOUT_S - (time.perf_counter() - t0)
+            out, _ = proc.communicate(timeout=max(1.0, left))
+            if proc.returncode != 0:
+                with open(os.path.join(tmp, f"rank{r}.err")) as f:
+                    raise RuntimeError(f"(b) rank {r} exited "
+                                       f"{proc.returncode}: "
+                                       f"{f.read()[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+        wall = time.perf_counter() - t0
+        server = outs[0]
+        with open(server["final_params"], "rb") as f:
+            final = {k: torch.as_tensor(v) for k, v in pickle.load(f).items()}
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    closes = server["round_close_unix"]
+    err, use = deploy_band_use(final, loopback_final)
+    same = server["params_digest"] == _params_digest(loopback_final)
+    rounds = []
+    for i, (s, a) in enumerate(zip(server["round_s"], server["agg_s"])):
+        local = max(o["local_s"][str(i)] for o in outs[1:])
+        rounds.append({"round": i, "seconds": s, "aggregation_s": a,
+                       "slowest_local_s": local,
+                       "wire_s": s - a - local})
+    row = {"processes": len(procs), "wall_s": wall,
+           "spawn_to_first_close_s": closes[0] - t_spawn_unix,
+           "rounds": rounds,
+           "server_bytes_sent_per_round": server["bytes_sent"]
+           / server["rounds"],
+           "server_bytes_received_per_round": server["bytes_received"]
+           / server["rounds"],
+           "client_bytes_sent": [o["bytes_sent"] for o in outs[1:]],
+           "client_updates": [o["updates"] for o in outs[1:]],
+           "test_acc": server.get("acc"), "digest_equal_to_a": same,
+           "max_abs_err_vs_a": err, "band_use_vs_a": use,
+           "note": "bytes are the transport's whole traffic over the run "
+                   "(barrier, heartbeats, syncs, results) over its rounds; "
+                   "a round's seconds run from its sync's broadcast to its "
+                   "close; slowest_local_s is the slowest client's local "
+                   "update with its result's copy to the host; wire_s is "
+                   "the rest less the aggregation (transfers, framing, "
+                   "the sync's copy to the card, waiting; not traced)"}
+    record_line(card, metric="deploy_tcp_11proc_resnet56_100c_10pr", **row)
+    if server["rounds"] != DEPLOY_ROUNDS or any(
+            o["updates"] != DEPLOY_ROUNDS for o in outs[1:]):
+        raise RuntimeError(f"(b) incomplete: {row}")
+    if not same and use > 1.0:
+        raise RuntimeError(f"(b) the TCP world's model is outside (a)'s "
+                           f"band: {row}")
+
+
+def tiny_deploy_config(rounds: int = 2, clients: int = 3):
+    """tests/test_torch_deploy.py's world: lr on fake_mnist."""
+    from fedml_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        FedConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+
+    return ExperimentConfig(
+        data=DataConfig(dataset="fake_mnist", num_clients=clients,
+                        batch_size=32, seed=0, dataset_r=0.3),
+        model=ModelConfig(name="lr", num_classes=10,
+                          input_shape=(28, 28, 1)),
+        train=TrainConfig(lr=0.1, epochs=1),
+        fed=FedConfig(num_rounds=rounds, clients_per_round=clients,
+                      eval_every=rounds),
+        seed=0)
+
+
+def deploy_faults(card: str, device: str = "cuda") -> None:
+    """(c): a crashed client's round closed at the deadline over the
+    survivors; an unreachable quorum raising."""
+    import threading
+
+    from fedml_tpu_torch.algorithms import distributed_fedavg as D
+    from fedml_tpu_torch.core.message import MSG_TYPE_C2S_JOIN, Message
+    from fedml_tpu_torch.core.transport.chaos import (
+        ChaosTransport,
+        FaultPolicy,
+    )
+    from fedml_tpu_torch.core.transport.loopback import LoopbackHub
+    from fedml_tpu_torch.experiments import deploy
+
+    cfg = tiny_deploy_config()
+    hub = LoopbackHub()
+    closed = {}
+
+    def transports(r):
+        t = hub.create(r)
+        return (ChaosTransport(t, FaultPolicy(crash_at_round=1)) if r == 2
+                else t)
+
+    real_close = D.FedAvgServerActor._close_round
+
+    def close(self, results, closed_idx, **kw):
+        closed[closed_idx] = {r: ({k: torch.as_tensor(v) for k, v in
+                                   row.items()}, n)
+                              for r, (row, n) in results.items()}
+        real_close(self, results, closed_idx, **kw)
+
+    D.FedAvgServerActor._close_round = close
+    t0 = time.perf_counter()
+    try:
+        server, _, _ = loopback_world(
+            cfg, device, 3, transports=transports,
+            round_policy=D.RoundPolicy(quorum_fraction=0.5,
+                                       round_deadline_s=2.0))
+    finally:
+        D.FedAvgServerActor._close_round = real_close
+    crash_s = time.perf_counter() - t0
+    ws = torch.tensor([closed[1][r][1] for r in (1, 3)], dtype=torch.float64)
+    worst = 0.0
+    for k, v in server.variables.items():
+        rows = torch.stack([closed[1][r][0][k].double() for r in (1, 3)])
+        want = torch.tensordot(ws / ws.sum(), rows, 1)
+        worst = max(worst, float((v.double().cpu() - want).abs().max()))
+    row = {"closed_results": {str(r): sorted(v) for r, v in closed.items()},
+           "dead_peers": sorted(server.dead_peers), "seconds": crash_s,
+           "renormalized_max_abs_err": worst}
+    if (sorted(closed[1]) != [1, 3] or server.failure is not None
+            or worst > 1e-6):
+        raise RuntimeError(f"(c) the crashed client's round: {row}")
+    # every client crashes at round 1: the deploy server rank raises
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.models import create_model
+
+    hub = LoopbackHub()
+    model = create_model(cfg.model, device)
+    data = load_dataset(cfg.data)
+    server = D.FedAvgServerActor(
+        4, hub.create(0), model, cfg, num_clients=3, data=data,
+        round_policy=D.RoundPolicy(round_deadline_s=1.0))
+    trainer = D.LocalTrainer(model, data, cfg)
+    actors = [D.FedAvgClientActor(r, 4, ChaosTransport(
+        hub.create(r), FaultPolicy(crash_at_round=1)), model, None, cfg,
+        trainer=trainer) for r in (1, 2, 3)]
+    threads = [threading.Thread(target=a.run, daemon=True) for a in actors]
+    for a, t in zip(actors, threads):
+        a.transport.start()
+        a.send_message(Message(MSG_TYPE_C2S_JOIN, a.rank, 0, {}))
+        t.start()
+    try:
+        deploy.serve(server, deploy.DeployConfig(
+            role="server", rank=0, world_size=4, backend="loopback",
+            heartbeats=False, round_deadline_s=1.0))
+        raised = None
+    except D.QuorumLostError as err:
+        raised = str(err)
+    finally:
+        for a in actors:
+            a.transport.stop()
+        for t in threads:
+            t.join(timeout=30)
+    row["quorum_lost"] = raised
+    record_line(card, metric="deploy_faults_lr_fake_mnist", **row)
+    if raised is None or "round 1 deadline" not in raised:
+        raise RuntimeError(f"(c) the lost quorum did not raise: {raised}")
+
+
+def deploy_card_vs_cpu(device: str = "cuda") -> dict:
+    """(d): the CPU test's world on the card and on the CPU from the same
+    start."""
+    cfg = tiny_deploy_config()
+    cpu, _, _ = loopback_world(cfg, "cpu", 3)
+    from fedml_tpu_torch.algorithms.distributed_fedavg import initial_state
+    from fedml_tpu_torch.models import create_model
+
+    start = initial_state(create_model(cfg.model, "cpu"), cfg).variables
+    card, _, _ = loopback_world(cfg, device, 3, init=start)
+    err, use = deploy_band_use(card.variables, cpu.variables)
+    report = {"case": "fedavg lr fake_mnist 3 clients 2 rounds",
+              "max_abs_err": err, "band_use": use, **DEPLOY_BAND}
+    if use > 1.0:
+        raise RuntimeError(f"(d) card against CPU: {report}")
+    return report
+
+
+def deploy_codec(card: str, device: str = "cuda") -> None:
+    """(e): the native codec in use; a ResNet-56 payload's pack and unpack
+    against the pure path."""
+    from fedml_tpu_torch.config import ModelConfig
+    from fedml_tpu_torch.core import random as R
+    from fedml_tpu_torch.core.message import to_host
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.native import codec
+
+    if not codec.native_available():
+        raise RuntimeError(f"(e) the native codec did not build: "
+                           f"{codec.native_error()}")
+    model = create_model(ModelConfig(name="resnet56", num_classes=10,
+                                     input_shape=(32, 32, 3)), device)
+    arrays = list(to_host(model.init(R.generator(0, 1))).values())
+    rows = {}
+    for name, c in (("native", codec.TensorCodec()),
+                    ("pure", codec.TensorCodec(native=False))):
+        if c.native != (name == "native"):
+            raise RuntimeError(f"(e) the {name} codec is not in use")
+        times = []
+        for _ in range(DEPLOY_CODEC_REPS):
+            t0 = time.perf_counter()
+            frame = c.pack(arrays)
+            back = c.unpack(frame)
+            times.append(time.perf_counter() - t0)
+        rows[name] = {"pack_unpack_ms": [t * 1e3 for t in times],
+                      "median_ms": statistics.median(times) * 1e3}
+        rows[name + "_frame"] = frame
+        if len(back) != len(arrays):
+            raise RuntimeError("(e) the frame lost arrays")
+    same = rows.pop("native_frame") == rows.pop("pure_frame")
+    nbytes = sum(a.nbytes for a in arrays)
+    record_line(card, metric="deploy_codec_resnet56_payload",
+                leaves=len(arrays), payload_mb=nbytes / 1e6,
+                frames_equal=same, **rows,
+                note="host clocks, median of 5 pack+unpack calls")
+    if not same:
+        raise RuntimeError("(e) the native frame differs from the pure one")
+
+
+def deploy_phase(card: str) -> int:
+    """Phase 21: (a)-(f). Returns the flash kernels' launches over it (0:
+    ResNet-56 and lr have no attention)."""
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+
+    t0 = time.perf_counter()
+    flash_attention.launches = 0
+    flash_attention.mma_launches = 0
+    parts = {}
+    deterministic = torch.backends.cudnn.deterministic
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        t_part = time.perf_counter()
+        final = deploy_headline_loopback(card)
+        parts["a"] = time.perf_counter() - t_part
+        for name, run, args in (("b", deploy_tcp_processes, (card, final)),
+                                ("c", deploy_faults, (card,))):
+            t_part = time.perf_counter()
+            run(*args)
+            parts[name] = time.perf_counter() - t_part
+            free_card()
+        t_part = time.perf_counter()
+        print(json.dumps({"deploy_card_vs_cpu": deploy_card_vs_cpu(),
+                          "device": card}), flush=True)
+        parts["d"] = time.perf_counter() - t_part
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = benchmark
+    t_part = time.perf_counter()
+    deploy_codec(card)
+    parts["e"] = time.perf_counter() - t_part
+    launches = flash_attention.launches + flash_attention.mma_launches
+    if launches != 0:
+        raise RuntimeError(f"phase 21 launched flash attention {launches} "
+                           "times")
+    record_line(card, metric="phase21_s", value=time.perf_counter() - t0,
+                parts_s=parts, flash_launches=launches)
+    return launches
+
+
 def kernel_entry(name, source, launches, by_path, rows, row,
                  note=None) -> dict:
     """One entry of the "kernels" line: the timed ``row``'s numbers, the
@@ -6393,22 +6989,35 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs an NVIDIA card",
               file=sys.stderr)
         return 1
+    t0 = time.perf_counter()
     card = environment()
     build_kernels()
     rows = kernel_checks()
+    # phases 10-21 record their own seconds; these the first nine's
+    ticks = {"1-3": time.perf_counter() - t0}
+
+    def tick(name):
+        ticks[name] = time.perf_counter() - t0 - sum(ticks.values())
 
     # 4-5. the transformer path, and the kernels' launches on it
     launches, mma_launches = main_path()
+    tick("4-5")
     # 6. the ResNet-56 path (no hand-written kernel on it)
     paths = {"resnet56": resnet_main_path(card)}
+    tick("6")
     # 7. the bench's families (no hand-written kernel on any)
     for name in FAMILY_SPECS:
         paths[name] = family_path(name, card)
+    tick("7")
     # 8. the defended, attacked and compressed round (no hand kernel)
     paths["defended_rounds"] = defended_rounds(card)
+    tick("8")
     # 9. the bulk engine and elastic buckets (no hand kernel)
     paths["bulk"] = bulk_phase(card)
     free_card()
+    tick("9")
+    record_line(card, metric="phases_1_9_s", value=sum(ticks.values()),
+                by_phase_s=ticks)
     # 10. the s2d ResNets, fused blocks, checkpoints and resume (no hand
     # kernel)
     paths["harness"] = harness_phase(card)
@@ -6444,6 +7053,9 @@ def main() -> int:
     # 20. data on disk, the async buffer, per-client metrics and FID (no
     # hand kernel)
     paths["data_on_disk"] = disk_phase(card)
+    free_card()
+    # 21. the synchronous deployment runtime (no hand kernel)
+    paths["deploy"] = deploy_phase(card)
 
     # report: the float32 entry's times are at the transformer path's
     # shape, the D = 16 entry's at the LoRA path's, the tensor-core entry's

@@ -360,6 +360,15 @@ def server_update_from_partials(
                        new_opt_state, new_momentum, state.round + 1)
 
 
+def client_orders(seed: int, round_idx: int, client: int,
+                  mask_row: torch.Tensor, max_n: int, epochs: int) -> list:
+    """A client's default per-epoch batch orders (real samples first),
+    host tensors from a generator seeded by ``(seed, round, client)``:
+    the simulations' and the deployed client actors' one source."""
+    gen = R.generator(seed, round_idx, client)
+    return [R.padded_perm(gen, mask_row, max_n) for _ in range(epochs)]
+
+
 Sampler = Callable[[int, int, int], torch.Tensor]
 SlotSampler = Callable[[int, int, int], torch.Tensor]
 BatchOrders = Callable[[int, int], list]
@@ -527,10 +536,9 @@ class FedAvgSim:
             self.cfg.seed, round_idx))[:n]
 
     def _orders(self, round_idx, client):
-        gen = R.generator(self.cfg.seed, round_idx, client)
-        mask_row = self._host_mask[client]
-        return [R.padded_perm(gen, mask_row, self.max_n)
-                for _ in range(self.cfg.train.epochs)]
+        return client_orders(self.cfg.seed, round_idx, client,
+                             self._host_mask[client], self.max_n,
+                             self.cfg.train.epochs)
 
     def init(self) -> ServerState:
         """The round-0 state. Under PEFT the server optimizer's state and

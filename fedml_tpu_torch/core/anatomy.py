@@ -24,7 +24,7 @@ and breach-triggered profiles (``fedml_tpu.core.anatomy``).
   timed in a loop, less the cost of reading one scalar back.
 
 The JAX module's straggler attribution and critical-path events belong
-to the deploy server and wait for it (ROADMAP Queue A item 14).
+to the deploy server and are ROADMAP Queue A item 14b.
 
 Off is the default: :data:`ANATOMY` starts disabled (every call site
 checks one attribute, and the round's results are the same bit for bit)

@@ -18,7 +18,7 @@ move it through host numpy, so a checkpoint blob written by either
 package loads in the other.
 
 The deploy actor that drives the buffer (``algorithms/async_actors.py``,
-``check_async_compat``) is ROADMAP Queue A item 14; the simulators run
+``check_async_compat``) is ROADMAP Queue A item 14b; the simulators run
 synchronous rounds and ignore ``async_buffer_k``, as the JAX simulators
 do. :func:`simulate_open_loop` is the host-side model of an open-loop
 world behind the bench's async stage, copied as it is.

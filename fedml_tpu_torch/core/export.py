@@ -17,8 +17,8 @@ serving, on one listener:
 - ``/tracez``: the anatomy plane's ring, 404 while that plane is off.
 
 The JAX module's fleet federation (clients' metric summaries on the
-deploy heartbeat, folded into ``fleet.*``) rides the deploy runtime and
-waits for it (ROADMAP Queue A item 14).
+deploy heartbeat, folded into ``fleet.*``) is ROADMAP Queue A item
+14b.
 """
 
 from __future__ import annotations

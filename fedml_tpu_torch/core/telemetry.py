@@ -19,9 +19,10 @@ Off is the default and costs one attribute check: :data:`METRICS` starts
 and the other observability flags) switches the plane on for this
 process; :func:`shutdown` switches it off again.
 
-The trace ids that ride the JAX package's ``Message`` envelopes (its
-thread-local current trace) wait for the deploy runtime: the port has no
-``core/message.py`` yet (ROADMAP Queue A item 14).
+The trace ids that ride ``core/message.py``'s ``Message`` envelopes live
+here too: :func:`new_trace_id`, :func:`new_span_id` and the thread's
+current trace (:func:`set_current_trace`, bound by the manager while a
+handler runs, so the messages it sends inherit the inbound trace).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import os
 import sys
 import threading
 import time
+import uuid
 from typing import Any
 
 from fedml_tpu_torch.core.tracing import Tracer
@@ -129,6 +131,21 @@ class MetricsRegistry:
                 self._gauges[f"{family}.other"] = float(value)
                 self._counters["telemetry.label_overflow"] = (
                     self._counters.get("telemetry.label_overflow", 0) + 1)
+
+    def labeled_name(self, family: str, label: str,
+                     sep: str = ".") -> str:
+        """Resolve (and register) a labeled gauge's final name once, for
+        per-message paths that cache the string and then write with
+        :meth:`gauge`; the family keeps :meth:`gauge_labeled`'s cap (an
+        over-cap label resolves to ``<family>.other``, counted once)."""
+        with self._lock:
+            labels = self._label_families.setdefault(family, set())
+            if label in labels or len(labels) < self.label_cap:
+                labels.add(label)
+                return f"{family}{sep}{label}"
+            self._counters["telemetry.label_overflow"] = (
+                self._counters.get("telemetry.label_overflow", 0) + 1)
+            return f"{family}.other"
 
     def observe(self, name: str, value: float) -> None:
         if not self.enabled:
@@ -262,6 +279,27 @@ def add_count(counters: dict, name: str, value: float = 1) -> None:
     """``counters[name] += value`` and the registry's counter ``name``."""
     counters[name] = counters.get(name, 0) + value
     METRICS.inc(name, value)
+
+
+_tls = threading.local()
+
+
+def new_trace_id() -> str:
+    return uuid.uuid4().hex[:16]
+
+
+def new_span_id() -> str:
+    return uuid.uuid4().hex[:16]
+
+
+def set_current_trace(trace_id: str | None) -> None:
+    """Bind the thread's current trace id (set while a message handler
+    runs, so the handler's sends inherit the inbound trace)."""
+    _tls.trace = trace_id
+
+
+def current_trace() -> str | None:
+    return getattr(_tls, "trace", None)
 
 
 def maybe_span(name: str, **attrs):

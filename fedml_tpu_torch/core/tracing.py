@@ -116,6 +116,11 @@ class Tracer:
                 ev["error"] = repr(err)
             self._emit(ev)
 
+    def event(self, name: str, **attrs):
+        """An instant event (zero duration): message sends and delivers."""
+        self._emit(self._base("event", time.time(), 0.0,
+                              {"name": name, **attrs}))
+
     def dump(self, path: str):
         with self._lock:
             events = list(self.events)

@@ -34,7 +34,16 @@ fine-tuning (``--peft lora``, ``--lora_rank``, ``--lora_alpha``,
 ``--anatomy``, ``--profile_on_breach``, ``--profile_window_s``,
 ``--profile_max_captures``; any of them switches telemetry on for the
 process, its artifacts under ``--telemetry_dir`` or
-``<out_dir>/<run_name>/telemetry``). Config precedence: ``--config``
+``<out_dir>/<run_name>/telemetry``) and the deployment's (``--role
+server|client`` with ``--rank``, ``--world_size``, ``--backend tcp``,
+``--ip_config``, ``--ready_timeout``, the liveness flags
+``--heartbeat_interval``/``--heartbeat_timeout``/``--no_heartbeats``, the
+round policy ``--quorum_fraction``/``--round_deadline``/
+``--recovery_extensions``, the chaos flags ``--fault_*``, the reputation
+plane's ``--quarantine_*``, ``--leave_after_round``: one rank of the
+synchronous FedAvg family, ``experiments/deploy.py``; its default backend
+is tcp, where the JAX CLI's is grpc, which this package has not ported).
+Config precedence: ``--config``
 JSON (the full :class:`ExperimentConfig` shape, the same file the JAX
 package reads) overridden by explicit flags. Client momentum and
 weight decay come in through ``--config``, and so does FedProx's
@@ -60,6 +69,7 @@ from fedml_tpu_torch.core.async_agg import STALENESS_FNS, AsyncConfig
 from fedml_tpu_torch.core.bulk import BulkSpec, check_bulk_compat
 from fedml_tpu_torch.core.compress import METHODS, CompressionSpec
 from fedml_tpu_torch.core.device import resolve_device
+from fedml_tpu_torch.core.reputation import QuarantinePolicy
 from fedml_tpu_torch.core.robust import (
     DefensePipeline,
     check_fednova_compat,
@@ -334,6 +344,7 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
                         "(>= 1; default 3) — re-armed breaches after "
                         "the cap are counted in profile.skipped, "
                         "never captured")
+    add_deploy_args(p)
     a = p.parse_args(argv)
 
     if a.config:
@@ -434,9 +445,15 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
         bulk = BulkSpec.from_fed(cfg.fed)
     except ValueError as err:
         raise SystemExit(str(err)) from err
-    check_peft(cfg)
+    try:
+        QuarantinePolicy(threshold=a.quarantine_threshold,
+                         decay=a.quarantine_decay,
+                         evict_after=a.quarantine_evict_after)
+    except ValueError as err:
+        raise SystemExit(str(err)) from err
+    check_peft(cfg, deploying=a.role is not None or a.supervise)
     check_observability(cfg, a)
-    if bulk.enabled():
+    if bulk.enabled() and a.role is None:
         check_bulk_compat(cfg.fed, cfg.adversary)
         if bulk.block_size >= cfg.fed.clients_per_round:
             print(f"warning: --client_block_size {bulk.block_size} >= "
@@ -447,12 +464,14 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
     return cfg, a
 
 
-def check_peft(cfg: ExperimentConfig) -> None:
+def check_peft(cfg: ExperimentConfig, deploying: bool = False) -> None:
     """PEFT's settings, checked at parse time against the merged config
     (as the JAX CLI does): a warning for lora_* settings without
     peft='lora'; ``SystemExit`` for a bad spec, a model without the named
     projections, an algorithm outside the FedAvg family or a combination
-    ``check_peft_compat`` refuses."""
+    ``check_peft_compat`` refuses. ``deploying`` (``--role``): PEFT covers
+    the simulators only, so the spec is checked and the rest warned
+    about."""
     fed, default = cfg.fed, type(cfg.fed)()
     if fed.peft == "none" and not fed.peft_personalize:
         if ((fed.lora_rank, fed.lora_alpha, fed.lora_targets)
@@ -461,6 +480,15 @@ def check_peft(cfg: ExperimentConfig) -> None:
             print("warning: lora_rank/lora_alpha/lora_targets are inert "
                   "without peft='lora': this run fine-tunes the FULL model",
                   file=sys.stderr)
+        return
+    if deploying:
+        try:
+            LoRASpec.from_fed(fed)
+        except ValueError as err:
+            raise SystemExit(str(err)) from err
+        print("warning: peft covers the simulators and is inert under "
+              "--role/--supervise — this deployment trains and ships the "
+              "FULL model", file=sys.stderr)
         return
     from fedml_tpu_torch.experiments.harness import ALGORITHMS
 
@@ -546,13 +574,19 @@ def main(argv=None) -> int:
     from fedml_tpu_torch.experiments.harness import Experiment
 
     cfg, a = parse_args(argv)
-    if cfg.fed.async_buffer_k:
-        # the buffer is the deploy server actor's (ROADMAP Queue A item
-        # 14): a simulator is one synchronous program, with no arrival
-        # stream to fold without a barrier
-        print("warning: --async_buffer_k is a deployment flag and is "
-              "ignored by the simulator (the deploy actors are ROADMAP "
-              "Queue A item 14)", file=sys.stderr)
+    if a.supervise:
+        raise NotImplementedError(
+            "--supervise (the Supervisor that launches and restarts every "
+            "rank) is not ported to fedml_tpu_torch yet (ROADMAP Queue A "
+            "item 14b); launch each rank with --role")
+    if a.role is not None:
+        dep = deploy_config(a)
+        resolve_device(a.device)  # no card: raise before any socket
+        from fedml_tpu_torch.experiments.deploy import run_role
+
+        print(json.dumps(run_role(cfg, dep), default=float))
+        return 0
+    warn_deploy_flags(cfg, a)
     device = resolve_device(a.device)  # no card: raise before any file
     configure_telemetry(cfg, a, device)
     for summary in Experiment(cfg, a.repetitions, device).run():
@@ -561,6 +595,206 @@ def main(argv=None) -> int:
     # dispatch-bound detector, ...) as flight_rank<r>_<n>_run_end.json
     telemetry.flight_dump("run_end")
     return 0
+
+
+def add_deploy_args(p: argparse.ArgumentParser) -> None:
+    """The deployment's flags, under the JAX CLI's names."""
+    p.add_argument("--role", type=str, default=None,
+                   choices=["server", "client", "leaf"],
+                   help="run ONE deployment rank instead of the simulator "
+                        "(requires --world_size; clients also --rank); "
+                        "leaf (the tier topology) is not ported yet")
+    p.add_argument("--rank", type=int, default=None,
+                   help="this process's rank (server=0, clients>=1)")
+    p.add_argument("--world_size", type=int, default=None,
+                   help="total process count (1 server + N clients)")
+    p.add_argument("--backend", type=str, default="tcp",
+                   choices=["tcp", "grpc", "trpc", "pubsub", "pubsub_blob"],
+                   help="deployment transport (default tcp; grpc, trpc, "
+                        "pubsub and pubsub_blob are not ported yet)")
+    p.add_argument("--ip_config", type=str, default=None,
+                   help='JSON file {"rank": ["host", port], ...} (tcp)')
+    p.add_argument("--ready_timeout", type=float, default=120.0,
+                   help="seconds a client re-announces readiness before "
+                        "giving up")
+    p.add_argument("--no_heartbeats", action="store_true",
+                   help="disable the liveness protocol (heartbeats and "
+                        "dead-peer detection)")
+    p.add_argument("--heartbeat_interval", type=float, default=2.0,
+                   help="seconds between liveness beacons")
+    p.add_argument("--heartbeat_timeout", type=float, default=30.0,
+                   help="seconds of peer silence before it is declared dead")
+    p.add_argument("--quorum_fraction", type=float, default=1.0,
+                   help="fraction of live workers whose results close a "
+                        "round once --round_deadline expires (server rank)")
+    p.add_argument("--round_deadline", "--round_deadline_s", type=float,
+                   default=None, dest="round_deadline",
+                   help="per-round wall-clock budget in seconds: at expiry "
+                        "the round closes with >= quorum results or the run "
+                        "aborts (0/unset = no deadline)")
+    p.add_argument("--recovery_extensions", type=int, default=0,
+                   help="times a round deadline that expires under quorum "
+                        "re-arms before the quorum-lost abort fires")
+    p.add_argument("--supervise", action="store_true",
+                   help="launch and restart every rank under a Supervisor "
+                        "(not ported yet)")
+    p.add_argument("--fault_seed", type=int, default=0,
+                   help="seed of the deterministic fault stream")
+    p.add_argument("--fault_drop", type=float, default=0.0,
+                   help="per-message send drop probability")
+    p.add_argument("--fault_delay", type=float, default=0.0,
+                   help="per-message send delay probability")
+    p.add_argument("--fault_delay_max", type=float, default=0.05,
+                   help="max injected delay in seconds")
+    p.add_argument("--fault_dup", type=float, default=0.0,
+                   help="per-message duplication probability")
+    p.add_argument("--fault_reorder", type=float, default=0.0,
+                   help="per-message reorder probability")
+    p.add_argument("--fault_corrupt", type=float, default=0.0,
+                   help="per-message bit-flip probability in the sealed tcp "
+                        "frame (the CRC drops it: transport.corrupt_frames)")
+    p.add_argument("--fault_crash_round", type=int, default=None,
+                   help="crash this rank on the first message tagged with "
+                        "round_idx >= N")
+    p.add_argument("--fault_crash_mode", type=str, default="silent",
+                   choices=["silent", "exit"],
+                   help="silent: the rank stops communicating; exit: the "
+                        "process dies (os._exit) like kill -9")
+    p.add_argument("--quarantine_threshold", type=float, default=0.0,
+                   help="server rank: quarantine a client whose EWMA "
+                        "anomaly score exceeds this (0 = off)")
+    p.add_argument("--quarantine_decay", type=float, default=0.7,
+                   help="EWMA memory of the anomaly score, in [0, 1)")
+    p.add_argument("--quarantine_evict_after", type=int, default=0,
+                   help="rounds in quarantine before a permanent eviction "
+                        "(0 = never)")
+    p.add_argument("--leave_after_round", type=int, default=None,
+                   help="client rank: LEAVE gracefully after this round's "
+                        "result")
+    p.add_argument("--tier_spec", type=str, default=None,
+                   help="the tier topology root:<L> (not ported yet)")
+
+
+def fault_policy(a):
+    """The chaos flags as a :class:`FaultPolicy` (None when off)."""
+    from fedml_tpu_torch.core.transport.chaos import FaultPolicy
+
+    policy = FaultPolicy(
+        seed=a.fault_seed, drop_prob=a.fault_drop, delay_prob=a.fault_delay,
+        delay_max_s=a.fault_delay_max, dup_prob=a.fault_dup,
+        reorder_prob=a.fault_reorder, corrupt_prob=a.fault_corrupt,
+        crash_at_round=a.fault_crash_round, crash_mode=a.fault_crash_mode)
+    return policy if policy.enabled() else None
+
+
+def deploy_config(a):
+    """``--role``'s :class:`DeployConfig`, with the JAX CLI's checks and
+    messages: ``SystemExit`` for a bad world, rank or pairing,
+    ``NotImplementedError`` for what ROADMAP Queue A item 14b ports, and
+    a warning for each simulator flag that is inert under ``--role``."""
+    from fedml_tpu_torch.experiments.deploy import (
+        DeployConfig,
+        load_ip_config,
+    )
+
+    if a.role == "leaf" or a.tier_spec:
+        raise NotImplementedError(
+            "tier worlds (--role leaf, --tier_spec) are not ported to "
+            "fedml_tpu_torch yet (ROADMAP Queue A item 14b)")
+    if a.backend != "tcp":
+        raise NotImplementedError(
+            f"the {a.backend} backend is not ported to fedml_tpu_torch yet "
+            "(ROADMAP Queue A item 14b); use --backend tcp")
+    if a.world_size is None:
+        raise SystemExit("--role requires --world_size")
+    if a.world_size < 2:
+        raise SystemExit(
+            "--world_size must be >= 2 (1 server + at least 1 client); "
+            "for a single-process run drop --role and use the simulator")
+    rank = a.rank if a.rank is not None else (
+        0 if a.role == "server" else None)
+    if rank is None:
+        raise SystemExit(f"--role {a.role} requires --rank >= 1")
+    if a.role == "server" and rank != 0:
+        raise SystemExit("server is always rank 0")
+    if a.role == "client" and rank < 1:
+        raise SystemExit("client rank must be >= 1")
+    if a.role == "client" and rank >= a.world_size and not a.elastic:
+        raise SystemExit(
+            f"client rank {rank} is outside the launch world "
+            f"[1, {a.world_size}); joining a running world mid-run "
+            "requires --elastic (on BOTH the server and this client)")
+    if a.ip_config is None:
+        raise SystemExit("--backend tcp requires --ip_config")
+    if a.recovery_extensions and not a.round_deadline:
+        raise SystemExit(
+            "--recovery_extensions requires --round_deadline: extensions "
+            "re-arm the round deadline, so without one there is nothing "
+            "to extend")
+    if not 0.0 < a.quorum_fraction <= 1.0:
+        raise SystemExit(f"--quorum_fraction must be in (0, 1], got "
+                         f"{a.quorum_fraction}")
+    # simulator-only flags are inert under --role: say so
+    if a.profile_rounds:
+        print("warning: --profile_rounds capture windows cover the "
+              "simulator paths; under --role the aggregation path reports "
+              "perf.agg_wall_s / perf.host_wait_s / idle-gap signals "
+              "instead", file=sys.stderr)
+    if a.fuse_rounds and a.fuse_rounds > 1:
+        print("warning: --fuse_rounds covers the simulator round loop and "
+              "is inert under --role (deploy rounds close on the transport "
+              "barrier)", file=sys.stderr)
+    if a.repetitions != 1:
+        print("warning: --repetitions is a simulator flag and is ignored "
+              "under --role (each deployment process runs exactly one "
+              "rank)", file=sys.stderr)
+    if a.client_block_size:
+        print("warning: --client_block_size covers the simulators and is "
+              "inert under --role (a deploy client trains one client)",
+              file=sys.stderr)
+    return DeployConfig(
+        role=a.role, rank=rank, world_size=a.world_size, backend=a.backend,
+        ip_config=load_ip_config(a.ip_config),
+        ready_timeout=a.ready_timeout, device=a.device,
+        heartbeats=not a.no_heartbeats,
+        heartbeat_interval_s=a.heartbeat_interval,
+        heartbeat_timeout_s=a.heartbeat_timeout,
+        quorum_fraction=a.quorum_fraction,
+        round_deadline_s=a.round_deadline or None,
+        checkpoint_every=a.checkpoint_every or 0,
+        recovery_extensions=a.recovery_extensions,
+        fault=fault_policy(a),
+        quarantine_threshold=a.quarantine_threshold,
+        quarantine_decay=a.quarantine_decay,
+        quarantine_evict_after=a.quarantine_evict_after,
+        leave_after_round=a.leave_after_round,
+        telemetry_dir=a.telemetry_dir, trace=a.trace,
+        trace_torch=a.trace_torch, metrics_interval=a.metrics_interval,
+        metrics_port=a.metrics_port, metrics_host=a.metrics_host,
+    )
+
+
+def warn_deploy_flags(cfg: ExperimentConfig, a) -> None:
+    """The deployment flags the simulators ignore, each with the JAX
+    CLI's warning."""
+    if cfg.fed.async_buffer_k:
+        # the buffer is a deploy server actor's: a simulator is one
+        # synchronous program, with no arrival stream to fold
+        print("warning: --async_buffer_k is a deployment flag and is "
+              "ignored by the simulator (its server actor is ROADMAP Queue "
+              "A item 14b)", file=sys.stderr)
+    if a.quarantine_threshold:
+        print("warning: --quarantine_threshold is a deployment flag and is "
+              "ignored by the simulator (use --role; --defense still "
+              "applies here)", file=sys.stderr)
+    if a.leave_after_round is not None:
+        print("warning: --leave_after_round is a deployment flag and is "
+              "ignored by the simulator (use --role client; "
+              "set_cohort_size drives churn in the simulator)",
+              file=sys.stderr)
+    if a.tier_spec:
+        print("warning: --tier_spec is a deployment flag and is ignored "
+              "by the simulator", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -78,7 +78,18 @@ assert {"fedml_tpu_torch.core.robust", "fedml_tpu_torch.core.adversary",
         "fedml_tpu_torch.core.anatomy", "fedml_tpu_torch.core.async_agg",
         "fedml_tpu_torch.metrics.fid",
         "fedml_tpu_torch.metrics.observability",
-        "fedml_tpu_torch.data.largescale"} <= set(names), names
+        "fedml_tpu_torch.data.largescale",
+        "fedml_tpu_torch.native.codec", "fedml_tpu_torch.core.message",
+        "fedml_tpu_torch.core.transport.base",
+        "fedml_tpu_torch.core.transport.loopback",
+        "fedml_tpu_torch.core.transport.wire",
+        "fedml_tpu_torch.core.transport.retry",
+        "fedml_tpu_torch.core.transport.tcp",
+        "fedml_tpu_torch.core.transport.chaos",
+        "fedml_tpu_torch.core.manager", "fedml_tpu_torch.core.membership",
+        "fedml_tpu_torch.core.reputation",
+        "fedml_tpu_torch.algorithms.distributed_fedavg",
+        "fedml_tpu_torch.experiments.deploy"} <= set(names), names
 for lazy in ("h5py", "PIL"):  # the readers import them when they read
     assert lazy not in sys.modules, lazy
 from fedml_tpu_torch.config import ModelConfig
@@ -154,6 +165,24 @@ def test_cli_needs_cuda_unless_asked_for_cpu(monkeypatch):
     assert args.device == "cuda" and cfg.model.name == "resnet8"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(argv)
+
+
+def test_deploy_role_needs_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
+    from fedml_tpu_torch.experiments import run as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ip = tmp_path / "ip.json"
+    ip.write_text('{"0": ["127.0.0.1", 1], "1": ["127.0.0.1", 2]}')
+    argv = ["--algorithm", "fedavg", "--dataset", "fake_mnist", "--model",
+            "lr", "--client_num_in_total", "2", "--role", "server",
+            "--world_size", "2", "--ip_config", str(ip)]
+    cfg, args = cli.parse_args(argv)
+    assert args.device == "cuda" and args.backend == "tcp"
+    assert cli.deploy_config(args).device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    cfg, args = cli.parse_args(argv + ["--device", "cpu"])
+    assert cli.deploy_config(args).device == "cpu"
 
 
 def test_harness_needs_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
