@@ -6455,33 +6455,11 @@ def deploy_band_use(got: dict, want: dict) -> tuple[float, float]:
     return err, use
 
 
-def loopback_world(cfg, device: str, clients: int, init=None,
-                   transports=None, on_round=None, **server_kw):
-    """A server and ``clients`` client actors of ``cfg`` in this process
-    (loopback unless ``transports(rank)`` says otherwise), the clients
-    sharing one LocalTrainer, run to the end; ``on_round(server,
-    actors)`` at each round's close. Returns the server, the trainer and
-    the data."""
+def run_actors(server, actors) -> None:
+    """Run ``server`` in this thread and ``actors`` in their own until the
+    server stops; then stop and join them."""
     import threading
 
-    from fedml_tpu_torch.algorithms import distributed_fedavg as D
-    from fedml_tpu_torch.core.transport.loopback import LoopbackHub
-    from fedml_tpu_torch.data import load_dataset
-    from fedml_tpu_torch.models import create_model
-
-    data = load_dataset(cfg.data)
-    model = create_model(cfg.model, device)
-    if transports is None:
-        transports = LoopbackHub().create
-    server = D.FedAvgServerActor(clients + 1, transports(0), model, cfg,
-                                 num_clients=cfg.data.num_clients, data=data,
-                                 initial_variables=init, **server_kw)
-    trainer = D.LocalTrainer(model, data, cfg)
-    actors = [D.FedAvgClientActor(r, clients + 1, transports(r), model, None,
-                                  cfg, trainer=trainer)
-              for r in range(1, clients + 1)]
-    if on_round is not None:
-        server.on_round_done = lambda r, info: on_round(server, actors)
     threads = [threading.Thread(target=a.run, daemon=True) for a in actors]
     for t in threads:
         t.start()
@@ -6493,7 +6471,46 @@ def loopback_world(cfg, device: str, clients: int, init=None,
     for t in threads:
         t.join(timeout=60)
         if t.is_alive():
-            raise RuntimeError("a client actor did not stop")
+            raise RuntimeError("an actor did not stop")
+
+
+def local_trainer(cfg, device: str):
+    """A LocalTrainer of ``cfg`` on ``device`` and its data."""
+    from fedml_tpu_torch.algorithms import distributed_fedavg as D
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.models import create_model
+
+    data = load_dataset(cfg.data)
+    return D.LocalTrainer(create_model(cfg.model, device), data, cfg), data
+
+
+def loopback_world(cfg, device: str, clients: int, init=None,
+                   transports=None, on_round=None, trainer=None, data=None,
+                   server_cls=None, **server_kw):
+    """A server (``server_cls``, default FedAvgServerActor) and
+    ``clients`` client actors of ``cfg`` in this process (loopback unless
+    ``transports(rank)`` says otherwise), the clients sharing one
+    LocalTrainer (``trainer`` with its ``data``, or a new one), run to
+    the end; ``on_round(server, actors)`` at each round's close. Returns
+    the server, the trainer and the data."""
+    from fedml_tpu_torch.algorithms import distributed_fedavg as D
+    from fedml_tpu_torch.core.transport.loopback import LoopbackHub
+
+    if trainer is None:
+        trainer, data = local_trainer(cfg, device)
+    model = trainer.model
+    if transports is None:
+        transports = LoopbackHub().create
+    server = (server_cls or D.FedAvgServerActor)(
+        clients + 1, transports(0), model, cfg,
+        num_clients=cfg.data.num_clients, data=data, initial_variables=init,
+        **server_kw)
+    actors = [D.FedAvgClientActor(r, clients + 1, transports(r), model, None,
+                                  cfg, trainer=trainer)
+              for r in range(1, clients + 1)]
+    if on_round is not None:
+        server.on_round_done = lambda r, info: on_round(server, actors)
+    run_actors(server, actors)
     return server, trainer, data
 
 
@@ -6541,13 +6558,35 @@ def deploy_one_lane_sim(cfg, data, device: str = "cuda"):
     return sim, pick
 
 
-def deploy_headline_loopback(card: str, device: str = "cuda") -> dict:
+def one_lane_use(ctx: dict, start: dict, r: int, client: int,
+                 got: dict) -> tuple[float, float]:
+    """A client result against FedAvgSim's one-lane update of ``client``
+    from ``start`` at round ``r`` (``ctx``: (a)'s sim, its ``pick`` and
+    its initial state): max error and DEPLOY_BAND's use."""
+    ctx["pick"][0] = client
+    want, _ = ctx["sim"].run_round(ctx["base"]._replace(variables={
+        k: v.to(ctx["device"]) for k, v in start.items()}, round=r))
+    return deploy_band_use(got, want.variables)
+
+
+def weighted_mean64(rows: list) -> dict:
+    """The float64 weighted mean of ``[(variables, n), ...]``."""
+    w = torch.tensor([n for _, n in rows], dtype=torch.float64)
+    return {k: torch.tensordot(w / w.sum(), torch.stack(
+        [torch.as_tensor(row[k]).double() for row, _ in rows]), 1)
+        for k in rows[0][0]}
+
+
+def deploy_headline_loopback(card: str, device: str = "cuda"
+                             ) -> tuple[dict, dict]:
     """(a). Each round's every client result is held against FedAvgSim's
     one-lane update of that client from the round's start, and each
     round's global against the float64 weighted mean of its results, both
     in DEPLOY_BAND; the trajectory against the sim's 2-lane groups is
     reported and bound by the card's own spread (bf16 rounds the lane
-    groups apart). Returns the final variables, on the host."""
+    groups apart). Returns the final variables, on the host, and what
+    (f) and (g) reuse: the world's trainer (its captured graph) and data,
+    and the one-lane sim."""
     from fedml_tpu_torch.algorithms import distributed_fedavg as D
     from fedml_tpu_torch.experiments import run as cli
     from fedml_tpu_torch.models import create_model
@@ -6588,33 +6627,24 @@ def deploy_headline_loopback(card: str, device: str = "cuda") -> dict:
         raise RuntimeError(f"(a) client loss sums: {losses}")
     graph = trainer.cohort_update.graph
     replays = graph.replays if graph is not None else None
-    del server, trainer
-    free_card()
+    del server
     # every client's result against the sim's one lane from the same start
     t_lane = time.perf_counter()
     sim, pick = deploy_one_lane_sim(cfg, data, device)
-    base = sim.init()
+    ctx = {"trainer": trainer, "data": data, "sim": sim, "pick": pick,
+           "base": sim.init(), "device": device}
     lanes, aggregation = [], []
     for r in range(DEPLOY_ROUNDS):
         start, results = closes[r]
         for rank, (client, got, n) in sorted(results.items()):
-            pick[0] = client
-            want, _ = sim.run_round(base._replace(variables={
-                k: v.to(device) for k, v in start.items()}, round=r))
-            err, use = deploy_band_use(got, want.variables)
+            err, use = one_lane_use(ctx, start, r, client, got)
             lanes.append({"round": r, "rank": rank, "client": client,
                           "n": float(n), "max_abs_err": err,
                           "band_use": use})
-        w = torch.tensor([n for _, _, n in results.values()],
-                         dtype=torch.float64)
-        mean = {k: torch.tensordot(w / w.sum(), torch.stack(
-            [row[k].double() for _, row, _ in results.values()]), 1)
-            for k in start}
-        err, use = deploy_band_use(globals_[r], mean)
+        err, use = deploy_band_use(globals_[r], weighted_mean64(
+            [(row, n) for _, row, n in results.values()]))
         aggregation.append({"round": r, "max_abs_err": err, "band_use": use})
     lane_s = time.perf_counter() - t_lane
-    del sim
-    free_card()
     t_sim = time.perf_counter()
     want = deploy_sim_rounds(cfg, data, init, DEPLOY_ROUNDS, device)
     sim_s = time.perf_counter() - t_sim
@@ -6646,9 +6676,9 @@ def deploy_headline_loopback(card: str, device: str = "cuda") -> dict:
             > SPREAD_FACTOR * row["card_spread"]):
         raise RuntimeError(f"(a) the world against FedAvgSim: {row}")
     final = {k: v.cpu() for k, v in globals_[-1].items()}
-    del want, data, globals_, closes
+    del want, globals_, closes
     free_card()
-    return final
+    return final, ctx
 
 
 def deploy_tcp_processes(card: str, loopback_final: dict,
@@ -6922,8 +6952,382 @@ def deploy_codec(card: str, device: str = "cuda") -> None:
         raise RuntimeError("(e) the native frame differs from the pure one")
 
 
+# phase 21 (f)-(h): the buffered-async server and the tier worlds
+ASYNC_WORLD_K = 5  # (f): K of 10 one-lane clients, so half fold stale
+ASYNC_WORLD_VERSIONS = 4
+TIER_CLIENTS = 5  # (g): one-lane clients a leaf of root:2
+TIER_ROUNDS = 3
+TIER_ASYNC_K = 2
+TIER_TCP_CLIENTS = 2  # (h): clients a leaf of root:2, tiny configuration
+
+
+def cpu_tensors(tree: dict) -> dict:
+    """A payload's or a model's variables as CPU tensors."""
+    return {k: torch.as_tensor(v).detach().cpu() for k, v in tree.items()}
+
+
+def deploy_async_world(card: str, ctx: dict, device: str = "cuda") -> None:
+    """(f): 10 one-lane clients against the buffered-async server at K =
+    5, on (a)'s trainer. Every arriving result is held against the
+    one-lane sim from the version it synced, every emission against a
+    float64 re-run of AsyncBuffer and server_update over the recorded
+    folds, both in DEPLOY_BAND."""
+    from fedml_tpu_torch.algorithms import async_actors as AS
+    from fedml_tpu_torch.algorithms import distributed_fedavg as D
+    from fedml_tpu_torch.algorithms.fedavg import local_reducer, server_update
+    from fedml_tpu_torch.core import robust, telemetry
+    from fedml_tpu_torch.core.async_agg import AsyncBuffer, AsyncConfig
+    from fedml_tpu_torch.core.message import (
+        KEY_MODEL_PARAMS,
+        KEY_NUM_SAMPLES,
+        KEY_ROUND,
+    )
+    from fedml_tpu_torch.experiments import run as cli
+    from fedml_tpu_torch.models import create_model
+
+    cfg, _ = cli.parse_args(deploy_argv(ASYNC_WORLD_VERSIONS) + [
+        "--async_buffer_k", str(ASYNC_WORLD_K)])
+    versions, arrivals, folds, emits = {}, [], [], []
+
+    class Recording(AS.AsyncFedAvgServerActor):
+        """Keeps every version's model, arrival, fold and emission."""
+
+        def _stash_sync_locked(self, host):
+            versions.setdefault(self.round_idx, cpu_tensors(host))
+            super()._stash_sync_locked(host)
+
+        def _handle_result(self, msg):
+            arrivals.append({
+                "rank": msg.sender, "version": int(msg.get(KEY_ROUND)),
+                "n": float(msg.get(KEY_NUM_SAMPLES)),
+                "params": cpu_tensors(msg.get(KEY_MODEL_PARAMS)),
+                "t": time.perf_counter()})
+            super()._handle_result(msg)
+
+        def _fold(self, sender, delta, n_k, v, lag):
+            folds.append({"arrival": len(arrivals) - 1, "lag": lag})
+            super()._fold(sender, delta, n_k, v, lag)
+
+        def _emit_locked(self):
+            super()._emit_locked()
+            emits.append({"folds": len(folds), "t": time.perf_counter(),
+                          "global": cpu_tensors(self.state.variables)})
+
+    m = telemetry.METRICS
+    enabled = m.enabled
+    m.enabled = True
+    m.reset()
+    t0 = time.perf_counter()
+    try:
+        server, _, _ = loopback_world(
+            cfg, device, DEPLOY_CLIENTS, trainer=ctx["trainer"],
+            data=ctx["data"], server_cls=Recording)
+        counters = {k: v for k, v in m.snapshot()["counters"].items()
+                    if k.startswith("async.")}
+    finally:
+        m.reset()
+        m.enabled = enabled
+    world_s = time.perf_counter() - t0
+    if not (server.done.is_set() and server.failure is None
+            and len(emits) == ASYNC_WORLD_VERSIONS):
+        raise RuntimeError(f"(f) the async world ended at version "
+                           f"{server.round_idx}: {server.failure}")
+    # every result against the one-lane sim from the version it synced
+    clients = []
+    for a in arrivals:
+        err, use = one_lane_use(ctx, versions[a["version"]], a["version"],
+                                a["rank"] - 1, a["params"])
+        clients.append({"rank": a["rank"], "version": a["version"],
+                        "max_abs_err": err, "band_use": use})
+    # every emission against AsyncBuffer and server_update in float64 on
+    # the host, from the version the server stepped from
+    pipe = robust.DefensePipeline.from_fed(cfg.fed)
+    cpu_model = create_model(cfg.model, "cpu")
+    acfg = AsyncConfig.from_fed(cfg.fed)
+    emissions, lo = [], 0
+    for e, em in enumerate(emits):
+        g = {k: v.double() for k, v in versions[e].items()}
+        buf = AsyncBuffer(acfg, g)
+        for f in folds[lo:em["folds"]]:
+            a = arrivals[f["arrival"]]
+            base = versions[a["version"]]
+            delta = pipe.preprocess({k: (a["params"][k].double()
+                                         - base[k].double())[None]
+                                     for k in base})
+            buf.fold({k: d[0] for k, d in delta.items()}, a["n"], f["lag"])
+        mean, mass = buf.emit()
+        state = D.initial_state(cpu_model, cfg, g)._replace(round=e)
+        want = server_update(
+            cfg.fed, state, {k: (g[k] + mean[k])[None] for k in g},
+            torch.tensor([mass], dtype=torch.float64), local_reducer(),
+            cpu_model.stat_names).variables
+        err, use = deploy_band_use(em["global"], want)
+        waits = [em["t"] - arrivals[f["arrival"]]["t"]
+                 for f in folds[lo:em["folds"]]]
+        emissions.append({"version": e + 1, "folds": em["folds"] - lo,
+                          "lags": [f["lag"] for f in folds[lo:em["folds"]]],
+                          "mass": mass, "max_abs_err": err, "band_use": use,
+                          "arrival_to_emission_s": waits})
+        lo = em["folds"]
+    waits = [w for x in emissions for w in x["arrival_to_emission_s"]]
+    row = {"clients": DEPLOY_CLIENTS, "buffer_k": ASYNC_WORLD_K,
+           "world_s": world_s, "arrivals": len(arrivals),
+           **{k: counters.get(k, 0) for k in (
+               "async.folds", "async.emits", "async.stale_folds",
+               "async.forced_emits", "async.too_stale")},
+           "arrival_to_emission_s_median": statistics.median(waits),
+           "arrival_to_emission_s_max": max(waits),
+           "worst_client_band_use": max(c["band_use"] for c in clients),
+           "clients_vs_one_lane_sim": clients,
+           "emissions_vs_float64": emissions, **DEPLOY_BAND}
+    record_line(card, metric="deploy_async_resnet56_10c_k5", **row)
+    if counters.get("async.emits") != ASYNC_WORLD_VERSIONS or not counters.get(
+            "async.stale_folds"):
+        raise RuntimeError(f"(f) the staleness path did not run: {counters}")
+    if row["worst_client_band_use"] > 1.0:
+        raise RuntimeError("(f) a client result is outside DEPLOY_BAND of "
+                           "the one-lane sim")
+    if max(x["band_use"] for x in emissions) > 1.0:
+        raise RuntimeError("(f) an emission is outside DEPLOY_BAND of the "
+                           "float64 re-run")
+
+
+def tier_world(cfg, device: str, per_leaf: int, root_cls, trainer, data,
+               n_leaves: int = 2):
+    """A tier world of ``cfg`` in this process: a root world over loopback
+    and a loopback world a leaf, every client on ``trainer``; run to the
+    end. Returns the root, the leaves, each leaf's closes (leaf rank,
+    version) -> (the leaf's global, [(result, n), ...]), the partials the
+    root received (leaf rank, version) -> (sum, n) and the root's globals
+    by version."""
+    from fedml_tpu_torch.algorithms import async_actors as AS
+    from fedml_tpu_torch.algorithms import distributed_fedavg as D
+    from fedml_tpu_torch.core.manager import Manager
+    from fedml_tpu_torch.core.message import (
+        KEY_NUM_SAMPLES,
+        KEY_ROUND,
+        MSG_TYPE_L2R_PARTIAL,
+    )
+    from fedml_tpu_torch.core.tier import KEY_TIER_SUM, TierSpec
+    from fedml_tpu_torch.core.transport.loopback import LoopbackHub
+
+    spec = TierSpec(n_leaves)
+    model = trainer.model
+    root_hub = LoopbackHub()
+    root = root_cls(spec.root_world_size, root_hub.create(0), model, cfg,
+                    num_clients=cfg.data.num_clients, data=data,
+                    tier_spec=spec)
+    closes, partials = {}, {}
+    globals_ = {0: cpu_tensors(root.variables)}
+    handle = root._handle_partial
+
+    def on_partial(msg):
+        partials[(msg.sender, int(msg.get(KEY_ROUND)))] = (
+            cpu_tensors(msg.get(KEY_TIER_SUM)),
+            float(msg.get(KEY_NUM_SAMPLES)))
+        handle(msg)
+
+    root.register_message_receive_handler(MSG_TYPE_L2R_PARTIAL, on_partial)
+    root.on_round_done = lambda r, info: globals_.setdefault(
+        root.round_idx, cpu_tensors(root.variables))
+    leaves, actors = [], []
+    for rank in spec.leaf_ranks():
+        hub = LoopbackHub()
+        uplink = Manager(rank, spec.root_world_size, root_hub.create(rank))
+        leaf = AS.TierAggregatorActor(
+            per_leaf + 1, hub.create(0), uplink, model, cfg,
+            client_base=spec.client_base(rank, per_leaf),
+            num_clients=cfg.data.num_clients, data=data)
+
+        def close(results, closed_idx, leaf=leaf, rank=rank, **kw):
+            closes[(rank, closed_idx)] = (
+                cpu_tensors(leaf.variables),
+                [(cpu_tensors(row), n) for _, (row, n) in
+                 sorted(results.items())])
+            AS.TierAggregatorActor._close_round(leaf, results, closed_idx,
+                                                **kw)
+
+        leaf._close_round = close
+        leaves.append(leaf)
+        actors += [D.FedAvgClientActor(r, per_leaf + 1, hub.create(r), model,
+                                       None, cfg, trainer=trainer)
+                   for r in range(1, per_leaf + 1)] + [uplink, leaf]
+    run_actors(root, actors)
+    if not root.done.is_set() or root.failure is not None:
+        raise RuntimeError(f"the tier world ended at version "
+                           f"{root.round_idx}: {root.failure}")
+    return root, leaves, closes, partials, globals_
+
+
+def deploy_tier_worlds(card: str, ctx: dict, device: str = "cuda") -> None:
+    """(g): root:2 with 5 one-lane clients a leaf on (a)'s trainer, the
+    synchronous root and then the async root at K = 2. Every partial is
+    held against the float64 weighted sum of its clients' deltas, every
+    root global against the float64 weighted mean of the version's 10
+    results, in DEPLOY_BAND."""
+    from fedml_tpu_torch.algorithms import async_actors as AS
+    from fedml_tpu_torch.core import telemetry
+    from fedml_tpu_torch.experiments import run as cli
+
+    rows = []
+    for name, root_cls, extra in (
+            ("sync", AS.TierRootActor, []),
+            ("async_k2", AS.AsyncTierRootActor,
+             ["--async_buffer_k", str(TIER_ASYNC_K)])):
+        cfg, _ = cli.parse_args(deploy_argv(TIER_ROUNDS) + extra)
+        m = telemetry.METRICS
+        enabled = m.enabled
+        m.enabled = True
+        m.reset()
+        t0 = time.perf_counter()
+        try:
+            root, leaves, closes, partials, globals_ = tier_world(
+                cfg, device, TIER_CLIENTS, root_cls, ctx["trainer"],
+                ctx["data"])
+            forward = m.counter("tier.forward_bytes")
+        finally:
+            m.reset()
+            m.enabled = enabled
+        world_s = time.perf_counter() - t0
+        held = []
+        for key, (psum, n) in sorted(partials.items()):
+            g, results = closes[key]
+            w = torch.tensor([x for _, x in results], dtype=torch.float64)
+            want = {k: torch.tensordot(w, torch.stack(
+                [row[k].double() - g[k].double() for row, _ in results]), 1)
+                for k in g}
+            err, use = deploy_band_use(psum, want)
+            held.append({"leaf": key[0], "version": key[1], "n": n,
+                         "mass_equal": n == float(w.sum()),
+                         "max_abs_err": err, "band_use": use})
+        means = []
+        for v in range(1, TIER_ROUNDS + 1):
+            results = [x for rank in (1, 2) for x in closes[(rank, v - 1)][1]]
+            err, use = deploy_band_use(globals_[v], weighted_mean64(results))
+            means.append({"version": v, "results": len(results),
+                          "max_abs_err": err, "band_use": use})
+        row = {"root": name, "leaves": 2, "clients_per_leaf": TIER_CLIENTS,
+               "rounds": root.round_idx, "world_s": world_s,
+               "partials_sent": [x.partials_sent for x in leaves],
+               "tier_forward_bytes": forward,
+               "tier_forward_bytes_per_round": forward / TIER_ROUNDS,
+               "partials_vs_float64_sum": held,
+               "globals_vs_float64_mean": means, **DEPLOY_BAND}
+        record_line(card, metric="deploy_tier_resnet56_root2_5c", **row)
+        rows.append(row)
+        if (root.round_idx != TIER_ROUNDS
+                or len(held) != 2 * TIER_ROUNDS
+                or not all(x["mass_equal"] for x in held)):
+            raise RuntimeError(f"(g) the {name} tier world: {row}")
+        if max(x["band_use"] for x in held + means) > 1.0:
+            raise RuntimeError(f"(g) the {name} tier world is outside "
+                               "DEPLOY_BAND of its float64 reference")
+        del root, leaves, closes, partials, globals_
+
+
+def deploy_tier_processes(card: str, device: str = "cuda") -> None:
+    """(h): a root, 2 leaves and 2 clients a leaf as 7 OS processes over
+    TCP through the CLI at the tiny configuration; the root's digest
+    against the same tier world in this process."""
+    import pickle
+    import socket as _socket
+    import tempfile
+
+    from fedml_tpu_torch.algorithms import async_actors as AS
+    from fedml_tpu_torch.experiments.deploy import _params_digest
+
+    cfg = tiny_deploy_config(rounds=2, clients=2 * TIER_TCP_CLIENTS)
+    tmp = tempfile.mkdtemp(prefix="phase21h_")
+    socks = [_socket.socket() for _ in range(3 + 2 * (TIER_TCP_CLIENTS + 1))]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        ports = [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+    def table(name: str, world: list) -> str:
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            json.dump({str(r): ["127.0.0.1", p] for r, p in enumerate(world)},
+                      f)
+        return path
+
+    per = TIER_TCP_CLIENTS + 1
+    root_ip = table("root.json", ports[:3])
+    leaf_ip = {l: table(f"leaf{l}.json", ports[3 + (l - 1) * per:3 + l * per])
+               for l in (1, 2)}
+    cfg_path = os.path.join(tmp, "config.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    common = ["--config", cfg_path, "--backend", "tcp", "--out_dir", tmp,
+              "--heartbeat_interval", "2", "--heartbeat_timeout", "60",
+              "--device", device]
+    # the root's world is the root and its leaves; a leaf's, the leaf
+    # (rank 0) and its clients
+    roles = [["--role", "server", "--ip_config", root_ip, "--run_name",
+              "root", "--tier_spec", "root:2", "--world_size", "3"]]
+    for l in (1, 2):
+        roles.append(["--role", "leaf", "--rank", str(l), "--ip_config",
+                      leaf_ip[l], "--uplink_ip_config", root_ip,
+                      "--run_name", f"leaf{l}", "--tier_spec", "root:2",
+                      "--world_size", str(per)])
+        roles += [["--role", "client", "--rank", str(r), "--ip_config",
+                   leaf_ip[l], "--world_size", str(per), "--run_name",
+                   f"leaf{l}_client{r}"] for r in range(1, per)]
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs, outs = [], []
+    try:
+        for i, role in enumerate(roles):
+            with open(os.path.join(tmp, f"proc{i}.err"), "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "fedml_tpu_torch.experiments.run",
+                     *common, *role], cwd=here, env=env,
+                    stdout=subprocess.PIPE, stderr=err, text=True))
+        for i, proc in enumerate(procs):
+            left = DEPLOY_CHILD_TIMEOUT_S - (time.perf_counter() - t0)
+            out, _ = proc.communicate(timeout=max(1.0, left))
+            if proc.returncode != 0:
+                with open(os.path.join(tmp, f"proc{i}.err")) as f:
+                    raise RuntimeError(f"(h) process {i} ({roles[i][1]}) "
+                                       f"exited {proc.returncode}: "
+                                       f"{f.read()[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+        wall = time.perf_counter() - t0
+        with open(outs[0]["final_params"], "rb") as f:
+            final = {k: torch.as_tensor(v) for k, v in pickle.load(f).items()}
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    root = outs[0]
+    leaves = [o for o in outs if o["role"] == "leaf"]
+    trainer, data = local_trainer(cfg, device)
+    inproc, _, _, _, _ = tier_world(cfg, device, TIER_TCP_CLIENTS,
+                                    AS.TierRootActor, trainer, data)
+    same = root["params_digest"] == _params_digest(inproc.variables)
+    err, use = deploy_band_use(final, inproc.variables)
+    row = {"processes": len(procs), "wall_s": wall,
+           "rounds": root["rounds"], "tier_spec": root["tier_spec"],
+           "partials": [o["partials"] for o in leaves],
+           "root_bytes_received": root["bytes_received"],
+           "digest_equal_in_process": same,
+           "max_abs_err_in_process": err, "band_use_in_process": use}
+    record_line(card, metric="deploy_tier_tcp_7proc_lr_fake_mnist", **row)
+    if root["rounds"] != 2 or [o["partials"] for o in leaves] != [2, 2]:
+        raise RuntimeError(f"(h) incomplete: {row}")
+    if not same:
+        raise RuntimeError(f"(h) the processes' digest is not the "
+                           f"in-process tier world's: {row}")
+
+
 def deploy_phase(card: str) -> int:
-    """Phase 21: (a)-(f). Returns the flash kernels' launches over it (0:
+    """Phase 21: (a)-(h). Returns the flash kernels' launches over it (0:
     ResNet-56 and lr have no attention)."""
     from fedml_tpu_torch.ops.flash_attention import flash_attention
 
@@ -6937,10 +7341,19 @@ def deploy_phase(card: str) -> int:
     torch.backends.cudnn.benchmark = False
     try:
         t_part = time.perf_counter()
-        final = deploy_headline_loopback(card)
+        final, ctx = deploy_headline_loopback(card)
         parts["a"] = time.perf_counter() - t_part
+        # (f) and (g) run on (a)'s trainer: no new capture
+        for name, run in (("f", deploy_async_world),
+                          ("g", deploy_tier_worlds)):
+            t_part = time.perf_counter()
+            run(card, ctx)
+            parts[name] = time.perf_counter() - t_part
+        del ctx
+        free_card()
         for name, run, args in (("b", deploy_tcp_processes, (card, final)),
-                                ("c", deploy_faults, (card,))):
+                                ("c", deploy_faults, (card,)),
+                                ("h", deploy_tier_processes, (card,))):
             t_part = time.perf_counter()
             run(*args)
             parts[name] = time.perf_counter() - t_part

@@ -5,8 +5,11 @@ The reference deploys N OS processes (``mpirun -np``, a per-rank
 ``main_fedavg.py``; the cross-silo ``run_server.sh`` and
 ``run_client.sh``). Here ``python -m fedml_tpu_torch.experiments.run
 --role server|client --rank N --world_size W --backend tcp --ip_config
-ip.json ...`` runs ONE rank of the synchronous FedAvg family on the card
-(``--device cpu`` when asked). Every process derives its data partition,
+ip.json ...`` runs ONE rank of the FedAvg family on the card
+(``--device cpu`` when asked): the synchronous server, the buffered-async
+one (``--async_buffer_k K``), or a tier world's root (``--tier_spec
+root:L``, synchronous or async), leaves (``--role leaf`` with
+``--uplink_ip_config``) and clients. Every process derives its data partition,
 model init and draws from the shared seeded config, and the actors are
 :mod:`fedml_tpu_torch.algorithms.distributed_fedavg`'s, whose loopback
 world is held against ``FedAvgSim``, so an N-process world over TCP
@@ -28,11 +31,15 @@ blocks on its inbox for a dead client; a client whose server goes
 silent stops and raises. Seeded fault injection rides
 ``DeployConfig.fault`` (:mod:`fedml_tpu_torch.core.transport.chaos`).
 
-Not ported yet (ROADMAP Queue A item 14b): the async and tiered server
-actors (``--async_buffer_k`` under ``--role``, ``--tier_spec``, the leaf
-role), SplitNN ranks, the ``Supervisor`` (``--supervise``) and the grpc,
-trpc, pubsub and pubsub_blob backends; each raises
-``NotImplementedError`` naming the item.
+A tier world is one root world ``{0: root, 1..L: leaves}`` and a world a
+leaf, where the leaf is rank 0 of its clients: a leaf passes its own
+clients' barrier first and only then announces itself upstream, so the
+root's barrier completes when every leaf's subtree can be served.
+
+Not ported yet (ROADMAP Queue A item 14b): SplitNN ranks, the
+``Supervisor`` (``--supervise``) and the grpc, trpc, pubsub and
+pubsub_blob backends; each raises ``NotImplementedError`` naming the
+item.
 """
 
 from __future__ import annotations
@@ -98,6 +105,16 @@ class DeployConfig:
     # server, on a restart: ranks that left or were evicted before it
     presumed_left: tuple[int, ...] = ()
     presumed_evicted: tuple[int, ...] = ()
+    # -- tier worlds: the topology root:<L> (None: flat). The server (the
+    # root) and the leaves read it; clients only talk to rank 0 of their
+    # own world
+    tier_spec: str | None = None
+    # leaf: the root world's rank table (ip_config is the leaf's own
+    # world, where it is rank 0)
+    uplink_ip_config: dict[int, tuple[str, int]] | None = None
+    # leaf: the global client id of its slot 0 (None: TierSpec's
+    # contiguous equal blocks)
+    tier_client_base: int | None = None
     # -- telemetry ---------------------------------------------------------
     telemetry_dir: str | None = None
     trace: bool = False
@@ -141,13 +158,13 @@ class _AliveObserver:
         self._note(msg.sender)
 
 
-def _serve_with_ready_barrier(server, dep: DeployConfig) -> None:
-    """ACK every READY/JOIN, start (or resume) the run once every client
-    has announced or otherwise shown it is alive, arm the dead-client
-    watchdog (a death goes to the actor's ``on_peer_dead``: the round
-    closes over the survivors or aborts), then drain until the actor
-    finishes. A JOIN after kickoff goes to the actor's ``on_peer_join``
-    (a rejoin, or an admission)."""
+def _serve_with_ready_barrier(server, dep: DeployConfig, kickoff) -> None:
+    """ACK every READY/JOIN, call ``kickoff`` (the actor's, or a leaf's
+    announcement upstream) once every client has announced or otherwise
+    shown it is alive, arm the dead-client watchdog (a death goes to the
+    actor's ``on_peer_dead``: the round closes over the survivors or
+    aborts), then drain until the actor finishes. A JOIN after kickoff
+    goes to the actor's ``on_peer_join`` (a rejoin, or an admission)."""
     ready: set[int] = set()
     started = threading.Event()
     for r in dep.presumed_left:
@@ -179,7 +196,7 @@ def _serve_with_ready_barrier(server, dep: DeployConfig) -> None:
                     interval_s=dep.heartbeat_interval_s,
                     timeout_s=dep.heartbeat_timeout_s,
                     on_dead=server.on_peer_dead)
-            server.kickoff()
+            kickoff()
 
     def ack(rank: int) -> None:
         try:
@@ -258,16 +275,20 @@ def _announce_until_first_message(mgr: Manager, dep: DeployConfig
     return got, failures
 
 
+def _check_contacted(got: threading.Event, dep: DeployConfig) -> None:
+    if not got.is_set():
+        raise RuntimeError(
+            f"server never contacted this client within --ready_timeout "
+            f"{dep.ready_timeout}s — is the server rank up and reachable?")
+
+
 def _run_client(mgr: Manager, dep: DeployConfig) -> None:
     """Announce, drain until FINISH; raise on a readiness timeout or a
     dead server."""
     mgr.transport.start()
     got, failures = _announce_until_first_message(mgr, dep)
     mgr.run()
-    if not got.is_set():
-        raise RuntimeError(
-            f"server never contacted this client within --ready_timeout "
-            f"{dep.ready_timeout}s — is the server rank up and reachable?")
+    _check_contacted(got, dep)
     if failures:
         raise RuntimeError(failures[0])
 
@@ -313,7 +334,7 @@ def serve(server, dep: DeployConfig) -> None:
         server.done.set()
         server.finish_all()
     else:
-        _serve_with_ready_barrier(server, dep)
+        _serve_with_ready_barrier(server, dep, server.kickoff)
     if server.failure is not None:
         raise QuorumLostError(f"run aborted (straggler tolerance "
                               f"exhausted): {server.failure}")
@@ -322,51 +343,157 @@ def serve(server, dep: DeployConfig) -> None:
                            f"rounds (round_idx={server.round_idx})")
 
 
+def _round_policy(dep: DeployConfig):
+    from fedml_tpu_torch.algorithms.distributed_fedavg import RoundPolicy
+
+    return RoundPolicy(quorum_fraction=dep.quorum_fraction,
+                       round_deadline_s=dep.round_deadline_s,
+                       recovery_extensions=dep.recovery_extensions)
+
+
+def _quarantine(dep: DeployConfig):
+    from fedml_tpu_torch.core.reputation import QuarantinePolicy
+
+    return QuarantinePolicy(threshold=dep.quarantine_threshold,
+                            decay=dep.quarantine_decay,
+                            evict_after=dep.quarantine_evict_after)
+
+
+def _run_tier_leaf_rank(cfg: ExperimentConfig, dep: DeployConfig) -> dict:
+    """Run ONE leaf aggregator: rank 0 of its own world toward its
+    clients (``ip_config``), member rank ``dep.rank`` of the root world
+    toward the root (``uplink_ip_config``). The leaf passes its own
+    clients' barrier first and then announces JOIN upstream, so the
+    root's barrier completes when every leaf's subtree can be served."""
+    from fedml_tpu_torch.algorithms.async_actors import TierAggregatorActor
+    from fedml_tpu_torch.algorithms.distributed_fedavg import QuorumLostError
+    from fedml_tpu_torch.core.tier import TierSpec
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.models import create_model
+
+    tier = TierSpec.parse(dep.tier_spec)
+    data = load_dataset(cfg.data)
+    model = create_model(cfg.model, dep.device)
+    # downlink: rank 0 of the leaf's world. uplink: a member of the root
+    # world, without chaos (a faulted uplink would punish every client
+    # of the leaf at once)
+    downlink = _make_transport(dataclasses.replace(dep, rank=0))
+    uplink_t = _make_transport(dataclasses.replace(
+        dep, ip_config=dep.uplink_ip_config, fault=None))
+    uplink = Manager(dep.rank, tier.root_world_size, uplink_t)
+    base = (dep.tier_client_base if dep.tier_client_base is not None
+            else tier.client_base(dep.rank, dep.world_size - 1))
+    leaf = TierAggregatorActor(
+        dep.world_size, downlink, uplink, model, cfg, client_base=base,
+        num_clients=cfg.data.num_clients, data=data,
+        round_policy=_round_policy(dep), quarantine=_quarantine(dep))
+    up_state: dict = {"got": None, "failures": []}
+
+    def kickoff() -> None:
+        # the subtree is ready: announce upstream until the root answers,
+        # then watch it; a dead root stops the uplink, and the bridge
+        # stops the downlink so the leaf fails loudly instead of serving
+        # a headless subtree
+        uplink_t.start()
+        got, failures = _announce_until_first_message(uplink, dep)
+        up_state["got"], up_state["failures"] = got, failures
+        threading.Thread(target=uplink.run, daemon=True,
+                         name=f"leaf{dep.rank}-uplink").start()
+
+        def bridge() -> None:
+            uplink_t._stopped.wait()
+            if not leaf.done.is_set():
+                leaf.transport.stop()
+
+        threading.Thread(target=bridge, daemon=True,
+                         name=f"leaf{dep.rank}-uplink-bridge").start()
+
+    _serve_with_ready_barrier(leaf, dep, kickoff)
+    if leaf.failure is not None:
+        raise QuorumLostError(f"leaf {dep.rank} aborted: {leaf.failure}")
+    if up_state["failures"]:
+        raise RuntimeError(up_state["failures"][0])
+    if up_state["got"] is not None:
+        _check_contacted(up_state["got"], dep)
+    if not leaf.done.is_set():
+        raise RuntimeError(f"leaf {dep.rank} stopped before the root "
+                           f"finished the run (version {leaf.round_idx})")
+    return {
+        "role": "leaf",
+        "rank": dep.rank,
+        "status": "finished",
+        "tier_spec": dep.tier_spec,
+        "client_base": base,
+        "partials": leaf.partials_sent,
+        "membership": leaf.membership,
+        "quarantined": leaf.quarantined_ranks,
+        "dead_peers": sorted(leaf.dead_peers),
+    }
+
+
+def server_class(cfg: ExperimentConfig, dep: DeployConfig):
+    """The server's actor class and its extra arguments: the async and
+    tier actors are opt-in, so with both knobs off this is
+    ``FedAvgServerActor`` itself."""
+    from fedml_tpu_torch.algorithms.distributed_fedavg import (
+        FedAvgServerActor,
+    )
+    from fedml_tpu_torch.core.async_agg import AsyncConfig
+    from fedml_tpu_torch.core.tier import TierSpec
+
+    asynchronous = AsyncConfig.from_fed(cfg.fed).enabled()
+    if dep.tier_spec is not None:
+        from fedml_tpu_torch.algorithms.async_actors import (
+            AsyncTierRootActor,
+            TierRootActor,
+        )
+
+        tier = TierSpec.parse(dep.tier_spec)
+        if dep.world_size != tier.root_world_size:
+            raise ValueError(
+                f"--tier_spec {dep.tier_spec} implies a root world of "
+                f"{tier.root_world_size} (root + {tier.n_leaves} leaves), "
+                f"got --world_size {dep.world_size}")
+        return (AsyncTierRootActor if asynchronous else TierRootActor,
+                {"tier_spec": tier})
+    if asynchronous:
+        from fedml_tpu_torch.algorithms.async_actors import (
+            AsyncFedAvgServerActor,
+        )
+
+        return AsyncFedAvgServerActor, {}
+    return FedAvgServerActor, {}
+
+
 def _run_fedavg_rank(cfg: ExperimentConfig, dep: DeployConfig) -> dict:
     from fedml_tpu_torch.algorithms.base import build_evaluator, make_task
     from fedml_tpu_torch.algorithms.distributed_fedavg import (
         FedAvgClientActor,
-        FedAvgServerActor,
-        RoundPolicy,
     )
-    from fedml_tpu_torch.core.async_agg import AsyncConfig
-    from fedml_tpu_torch.core.reputation import QuarantinePolicy
     from fedml_tpu_torch.data import load_dataset
     from fedml_tpu_torch.models import create_model
 
     if dep.role == "leaf":
-        raise NotImplementedError(
-            f"tier worlds (--tier_spec, --role leaf) are not ported to "
-            f"fedml_tpu_torch yet ({ITEM_14B})")
-    if AsyncConfig.from_fed(cfg.fed).enabled() and dep.role == "server":
-        raise NotImplementedError(
-            f"the buffered-async server actor (--async_buffer_k under "
-            f"--role) is not ported to fedml_tpu_torch yet ({ITEM_14B})")
+        return _run_tier_leaf_rank(cfg, dep)
+    if dep.role == "server":
+        cls, extra = server_class(cfg, dep)
     # every rank rebuilds the same seeded data and partition
     data = load_dataset(cfg.data)
     model = create_model(cfg.model, dep.device)
-    transport = _make_transport(dep)
 
     if dep.role == "server":
+        transport = _make_transport(dep)
         ckpt = None
         if dep.checkpoint_every > 0:
             from fedml_tpu_torch.utils.checkpoint import RoundCheckpointer
 
             ckpt = RoundCheckpointer(os.path.join(_run_dir(cfg), "ckpt"))
-        server = FedAvgServerActor(
+        server = cls(
             dep.world_size, transport, model, cfg,
             num_clients=cfg.data.num_clients, data=data,
-            round_policy=RoundPolicy(
-                quorum_fraction=dep.quorum_fraction,
-                round_deadline_s=dep.round_deadline_s,
-                recovery_extensions=dep.recovery_extensions),
-            checkpointer=ckpt,
+            round_policy=_round_policy(dep), checkpointer=ckpt,
             checkpoint_every=dep.checkpoint_every or 1,
-            quarantine=QuarantinePolicy(
-                threshold=dep.quarantine_threshold,
-                decay=dep.quarantine_decay,
-                evict_after=dep.quarantine_evict_after),
-        )
+            quarantine=_quarantine(dep), **extra)
         round_s: list[float] = []
         agg_s: list[float] = []
         closes: list[float] = []
@@ -405,6 +532,11 @@ def _run_fedavg_rank(cfg: ExperimentConfig, dep: DeployConfig) -> dict:
             "membership": server.membership,
             "elastic": bool(cfg.fed.elastic_buckets),
             "compress": cfg.fed.compress,
+            # the async and tier planes in force (0 and None: the
+            # synchronous flat world ran)
+            "async_buffer_k": cfg.fed.async_buffer_k,
+            "async_restored_folds": getattr(server, "restored_folds", 0),
+            "tier_spec": dep.tier_spec,
             # each round's seconds from its sync's broadcast to its
             # close, the aggregation's part of them (the step waited for),
             # and the wall-clock time of each close
@@ -418,6 +550,7 @@ def _run_fedavg_rank(cfg: ExperimentConfig, dep: DeployConfig) -> dict:
             **metrics,
         }
 
+    transport = _make_transport(dep)
     client = FedAvgClientActor(dep.rank, dep.world_size, transport, model,
                                data, cfg,
                                leave_after_round=dep.leave_after_round)
@@ -457,6 +590,10 @@ def run_role(cfg: ExperimentConfig, dep: DeployConfig) -> dict:
     algo = cfg.fed.algorithm
     if algo in FEDAVG_FAMILY:
         return _run_fedavg_rank(cfg, dep)
+    if dep.role == "leaf":
+        raise ValueError(
+            f"--role leaf covers the fedavg family only (tier "
+            f"aggregation has no {algo!r} path)")
     if algo == "splitnn":
         raise NotImplementedError(
             f"SplitNN ranks are not ported to fedml_tpu_torch yet "

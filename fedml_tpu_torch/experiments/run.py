@@ -22,8 +22,9 @@ defenses
 (``--compress``, ``--compress_topk_frac``), the seeded adversaries
 (``--adversary_*``), buffered asynchronous aggregation
 (``--async_buffer_k``, ``--staleness_fn``, ``--staleness_alpha``:
-checked when parsed, then a deployment setting that the simulators
-ignore with a warning, as the JAX CLI does), the bulk engine (``--client_block_size``) and
+checked when parsed with ``check_async_compat``, then a deployment
+setting, which the simulators ignore with a warning, as the JAX CLI
+does), the bulk engine (``--client_block_size``) and
 elastic buckets (``--elastic``), fused blocks (``--fuse_rounds``), LoRA
 fine-tuning (``--peft lora``, ``--lora_rank``, ``--lora_alpha``,
 ``--lora_targets``, ``--peft_personalize``) and the harness's flags
@@ -35,13 +36,15 @@ fine-tuning (``--peft lora``, ``--lora_rank``, ``--lora_alpha``,
 ``--profile_max_captures``; any of them switches telemetry on for the
 process, its artifacts under ``--telemetry_dir`` or
 ``<out_dir>/<run_name>/telemetry``) and the deployment's (``--role
-server|client`` with ``--rank``, ``--world_size``, ``--backend tcp``,
+server|client|leaf`` with ``--rank``, ``--world_size``, ``--backend tcp``,
 ``--ip_config``, ``--ready_timeout``, the liveness flags
 ``--heartbeat_interval``/``--heartbeat_timeout``/``--no_heartbeats``, the
 round policy ``--quorum_fraction``/``--round_deadline``/
 ``--recovery_extensions``, the chaos flags ``--fault_*``, the reputation
-plane's ``--quarantine_*``, ``--leave_after_round``: one rank of the
-synchronous FedAvg family, ``experiments/deploy.py``; its default backend
+plane's ``--quarantine_*``, ``--leave_after_round``, the tier world's
+``--tier_spec``, ``--uplink_ip_config`` and ``--tier_client_base``: one
+rank of the FedAvg family, synchronous or buffered-async, flat or
+tiered, ``experiments/deploy.py``; its default backend
 is tcp, where the JAX CLI's is grpc, which this package has not ported).
 Config precedence: ``--config``
 JSON (the full :class:`ExperimentConfig` shape, the same file the JAX
@@ -63,9 +66,10 @@ import dataclasses
 import json
 import sys
 
+from fedml_tpu_torch.algorithms.async_actors import check_async_compat
 from fedml_tpu_torch.config import ADVERSARY_MODES, ExperimentConfig
 from fedml_tpu_torch.core import anatomy, telemetry
-from fedml_tpu_torch.core.async_agg import STALENESS_FNS, AsyncConfig
+from fedml_tpu_torch.core.async_agg import STALENESS_FNS
 from fedml_tpu_torch.core.bulk import BulkSpec, check_bulk_compat
 from fedml_tpu_torch.core.compress import METHODS, CompressionSpec
 from fedml_tpu_torch.core.device import resolve_device
@@ -75,6 +79,7 @@ from fedml_tpu_torch.core.robust import (
     check_fednova_compat,
 )
 from fedml_tpu_torch.core.slo import parse_specs
+from fedml_tpu_torch.core.tier import TierSpec
 from fedml_tpu_torch.peft import (
     LORA_TARGETS,
     LoRASpec,
@@ -441,8 +446,10 @@ def parse_args(argv=None) -> tuple[ExperimentConfig, argparse.Namespace]:
         DefensePipeline.from_fed(cfg.fed)
         CompressionSpec.from_fed(cfg.fed)
         check_fednova_compat(cfg.fed.algorithm, cfg.fed.robust_method)
-        AsyncConfig.from_fed(cfg.fed)
         bulk = BulkSpec.from_fed(cfg.fed)
+        if a.tier_spec is not None:
+            TierSpec.parse(a.tier_spec)
+        check_async_compat(cfg)  # AsyncConfig's own checks first
     except ValueError as err:
         raise SystemExit(str(err)) from err
     try:
@@ -602,8 +609,9 @@ def add_deploy_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--role", type=str, default=None,
                    choices=["server", "client", "leaf"],
                    help="run ONE deployment rank instead of the simulator "
-                        "(requires --world_size; clients also --rank); "
-                        "leaf (the tier topology) is not ported yet")
+                        "(requires --world_size; clients and leaves also "
+                        "--rank); leaf: a tier world's leaf aggregator "
+                        "(with --tier_spec and --uplink_ip_config)")
     p.add_argument("--rank", type=int, default=None,
                    help="this process's rank (server=0, clients>=1)")
     p.add_argument("--world_size", type=int, default=None,
@@ -672,7 +680,21 @@ def add_deploy_args(p: argparse.ArgumentParser) -> None:
                    help="client rank: LEAVE gracefully after this round's "
                         "result")
     p.add_argument("--tier_spec", type=str, default=None,
-                   help="the tier topology root:<L> (not ported yet)")
+                   help="tier topology, e.g. root:2 — one root "
+                        "aggregator serving 2 leaf aggregators, each "
+                        "leaf terminating its own clients' transports "
+                        "in its own world and forwarding one partial "
+                        "[sum, n, count] upstream per flush. Set on "
+                        "the root (--role server) and every leaf "
+                        "(--role leaf); clients are topology-blind")
+    p.add_argument("--uplink_ip_config", type=str, default=None,
+                   help="leaf rank: the ROOT world's rank table "
+                        "(--ip_config stays this leaf's own world, "
+                        "where it is rank 0)")
+    p.add_argument("--tier_client_base", type=int, default=None,
+                   help="leaf rank: global client id of this leaf's "
+                        "slot 0 (default: contiguous equal-size "
+                        "blocks per leaf rank)")
 
 
 def fault_policy(a):
@@ -689,18 +711,15 @@ def fault_policy(a):
 
 def deploy_config(a):
     """``--role``'s :class:`DeployConfig`, with the JAX CLI's checks and
-    messages: ``SystemExit`` for a bad world, rank or pairing,
-    ``NotImplementedError`` for what ROADMAP Queue A item 14b ports, and
-    a warning for each simulator flag that is inert under ``--role``."""
+    messages: ``SystemExit`` for a bad world, rank, leaf or pairing,
+    ``NotImplementedError`` for what ROADMAP Queue A item 14b still ports
+    (a backend other than tcp), and a warning for each simulator flag
+    that is inert under ``--role``."""
     from fedml_tpu_torch.experiments.deploy import (
         DeployConfig,
         load_ip_config,
     )
 
-    if a.role == "leaf" or a.tier_spec:
-        raise NotImplementedError(
-            "tier worlds (--role leaf, --tier_spec) are not ported to "
-            "fedml_tpu_torch yet (ROADMAP Queue A item 14b)")
     if a.backend != "tcp":
         raise NotImplementedError(
             f"the {a.backend} backend is not ported to fedml_tpu_torch yet "
@@ -719,6 +738,22 @@ def deploy_config(a):
         raise SystemExit("server is always rank 0")
     if a.role == "client" and rank < 1:
         raise SystemExit("client rank must be >= 1")
+    if a.role == "leaf":
+        # a leaf lives in two worlds: rank 0 of its own (--ip_config) and
+        # a member rank of the root's (--uplink_ip_config). tcp, the one
+        # backend here, is rank-addressed, as a tier world needs
+        if not a.tier_spec:
+            raise SystemExit("--role leaf requires --tier_spec")
+        if not a.uplink_ip_config:
+            raise SystemExit(
+                "--role leaf requires --uplink_ip_config (the root "
+                "world's rank table; --ip_config is this leaf's own "
+                "client-facing world)")
+        spec = TierSpec.parse(a.tier_spec)  # checked when parsed
+        if not 1 <= rank <= spec.n_leaves:
+            raise SystemExit(
+                f"leaf rank must be in 1..{spec.n_leaves} of the root "
+                f"world ({a.tier_spec}), got {rank}")
     if a.role == "client" and rank >= a.world_size and not a.elastic:
         raise SystemExit(
             f"client rank {rank} is outside the launch world "
@@ -768,6 +803,10 @@ def deploy_config(a):
         quarantine_decay=a.quarantine_decay,
         quarantine_evict_after=a.quarantine_evict_after,
         leave_after_round=a.leave_after_round,
+        tier_spec=a.tier_spec,
+        uplink_ip_config=(load_ip_config(a.uplink_ip_config)
+                          if a.uplink_ip_config else None),
+        tier_client_base=a.tier_client_base,
         telemetry_dir=a.telemetry_dir, trace=a.trace,
         trace_torch=a.trace_torch, metrics_interval=a.metrics_interval,
         metrics_port=a.metrics_port, metrics_host=a.metrics_host,
@@ -781,8 +820,8 @@ def warn_deploy_flags(cfg: ExperimentConfig, a) -> None:
         # the buffer is a deploy server actor's: a simulator is one
         # synchronous program, with no arrival stream to fold
         print("warning: --async_buffer_k is a deployment flag and is "
-              "ignored by the simulator (its server actor is ROADMAP Queue "
-              "A item 14b)", file=sys.stderr)
+              "ignored by the simulator (use --role server with "
+              "--async_buffer_k)", file=sys.stderr)
     if a.quarantine_threshold:
         print("warning: --quarantine_threshold is a deployment flag and is "
               "ignored by the simulator (use --role; --defense still "
@@ -794,7 +833,8 @@ def warn_deploy_flags(cfg: ExperimentConfig, a) -> None:
               file=sys.stderr)
     if a.tier_spec:
         print("warning: --tier_spec is a deployment flag and is ignored "
-              "by the simulator", file=sys.stderr)
+              "by the simulator (tier worlds are --role server/leaf/"
+              "client processes)", file=sys.stderr)
 
 
 if __name__ == "__main__":

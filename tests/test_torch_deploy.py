@@ -616,17 +616,19 @@ def test_cli_refusals(tmp_path):
     with pytest.raises(SystemExit, match="outside the launch world"):
         cli.main(base + ["--role", "client", "--world_size", "2", "--rank",
                          "5"])
-    for extra in (["--backend", "grpc"], ["--tier_spec", "root:2"],
-                  ["--supervise"]):
+    for extra in (["--backend", "grpc"], ["--supervise"]):
         with pytest.raises(NotImplementedError, match="item 14b"):
             cli.main(base + ["--role", "server", "--world_size", "2",
                              *extra])
     with pytest.raises(NotImplementedError, match="item 14b"):
         cli.main(_argv(["--supervise", "--world_size", "2"]))
-    cfg, a = cli.parse_args(base + ["--role", "server", "--world_size", "2",
-                                    "--async_buffer_k", "2"])
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        deploy.run_role(cfg, cli.deploy_config(a))
+    # a tier root's world is the root and its leaves
+    with pytest.raises(ValueError, match="implies a root world of 3"):
+        cli.main(base + ["--role", "server", "--world_size", "2",
+                         "--tier_spec", "root:2"])
+    with pytest.raises(SystemExit, match="requires --uplink_ip_config"):
+        cli.main(base + ["--role", "leaf", "--world_size", "2", "--rank",
+                         "1", "--tier_spec", "root:2"])
     with pytest.raises(SystemExit, match="decay"):
         cli.parse_args(base + ["--quarantine_decay", "1.5"])
 

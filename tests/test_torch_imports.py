@@ -89,7 +89,9 @@ assert {"fedml_tpu_torch.core.robust", "fedml_tpu_torch.core.adversary",
         "fedml_tpu_torch.core.manager", "fedml_tpu_torch.core.membership",
         "fedml_tpu_torch.core.reputation",
         "fedml_tpu_torch.algorithms.distributed_fedavg",
-        "fedml_tpu_torch.experiments.deploy"} <= set(names), names
+        "fedml_tpu_torch.experiments.deploy",
+        "fedml_tpu_torch.core.tier",
+        "fedml_tpu_torch.algorithms.async_actors"} <= set(names), names
 for lazy in ("h5py", "PIL"):  # the readers import them when they read
     assert lazy not in sys.modules, lazy
 from fedml_tpu_torch.config import ModelConfig
